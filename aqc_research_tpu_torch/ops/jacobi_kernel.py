@@ -1,0 +1,338 @@
+"""Batched one-sided complex Jacobi on transposed re/im planes: the
+hand-written CUDA kernel ``csrc/jacobi_rows.cu`` and its plain-torch twin.
+
+Twin of ``aqc_research_tpu/ops/pallas_jacobi.py``: the kernel replaces the
+Pallas TPU kernel ``_jacobi_pallas_raw``, and the functions around it
+(``_sort_guard_top_k``, ``_jacobi_u_s``, ``jacobi_svd_kernel_top_k``) are
+ported from the same module.
+
+Working layout: row j of a (c, r) plane pair is column j of the input
+matrix, so a "column pair" rotation touches two contiguous rows.  V is not
+accumulated; the right factor is recovered outside as ``vh = diag(1/s) u^H
+m`` (one batched product).
+
+Dispatch rule of :func:`jacobi_rows`: CPU tensors go to the plain twin
+:func:`jacobi_rows_reference`, CUDA tensors to the kernel — no fallback in
+between; the kernel route raises on anything it does not take.  The kernel
+library is built with ``nvcc`` from ``csrc/*.cu`` at first use, into
+``aqc_research_tpu_torch/_build/``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import math
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Tuple
+
+import torch
+
+from ..config import jacobi_criterion
+from .jacobi_svd import DEFAULT_SWEEPS
+
+_EPS32 = float(torch.finfo(torch.float32).eps)
+
+# Convergence tolerance of the adaptive sweep loop, on the entry-absolute
+# residual |c| / (s_max * max(|w_i|, |w_j|)) — the f32 accuracy floor
+# (ops/pallas_jacobi.py:85-93 in the JAX package).
+_CONV_TOL = 1e-6
+
+
+def truncation_supported(trunc_thr: float) -> bool:
+    """True when the f32 entry-absolute criterion resolves the keep/drop
+    boundary of ``trunc_thr`` (sqrt(thr) >= tol), or thr disables truncation
+    in f32 anyway (<= eps_f32^2)."""
+    return trunc_thr <= _EPS32**2 or math.sqrt(trunc_thr) >= _CONV_TOL
+
+
+# -----------------------------------------------------------------------------
+# Plain twin: the same schedule, criterion and per-matrix stopping in torch.
+# -----------------------------------------------------------------------------
+
+
+def _seat_phase(wl_re, wl_im, wr_re, wr_im, hybrid: bool):
+    """One Brent-Luk phase on seat blocks (b, p, r); returns the rotated and
+    re-seated blocks and each matrix's residual (b,)."""
+    p = wl_re.shape[1]
+    aa = (wl_re * wl_re + wl_im * wl_im).sum(-1)
+    bb = (wr_re * wr_re + wr_im * wr_im).sum(-1)
+    c_re = (wl_re * wr_re + wl_im * wr_im).sum(-1)
+    c_im = (wl_re * wr_im - wl_im * wr_re).sum(-1)
+
+    abs_c = torch.sqrt(c_re * c_re + c_im * c_im)
+    norm_ab = torch.sqrt(torch.clamp(aa * bb, min=1e-30))
+    max_ab = torch.maximum(aa, bb)
+    smax2 = max_ab.amax(1, keepdim=True)
+    if hybrid:
+        floor2 = (32.0 * _EPS32) ** 2 * smax2
+        gate = torch.maximum(torch.minimum(aa, bb), floor2)
+    else:
+        gate = max_ab
+    denom = torch.sqrt(torch.clamp(smax2 * gate, min=1e-30))
+    resid = (abs_c / denom).amax(1)
+
+    one, zero = torch.ones_like(abs_c), torch.zeros_like(abs_c)
+    active = abs_c > _EPS32 * norm_ab
+    safe_c = torch.where(active, abs_c, one)
+    ph_re = torch.where(active, c_re / safe_c, one)
+    ph_im = torch.where(active, c_im / safe_c, zero)
+    tau = (bb - aa) / (2.0 * safe_c)
+    sgn = torch.where(tau >= 0, one, -one)
+    t = sgn / (tau.abs() + torch.sqrt(1.0 + tau * tau))
+    cs = torch.rsqrt(1.0 + t * t)
+    sn_r = t * cs
+    cs = torch.where(active, cs, one)[:, :, None]
+    sn_r = torch.where(active, sn_r, zero)
+    sn_re = (sn_r * ph_re)[:, :, None]
+    sn_im = (sn_r * ph_im)[:, :, None]
+
+    # L' = cs L - conj(sn) R ;  R' = sn L + cs R   (complex)
+    nl_re = cs * wl_re - (sn_re * wr_re + sn_im * wr_im)
+    nl_im = cs * wl_im - (sn_re * wr_im - sn_im * wr_re)
+    nr_re = sn_re * wl_re - sn_im * wl_im + cs * wr_re
+    nr_im = sn_re * wl_im + sn_im * wl_re + cs * wr_im
+
+    def seats(l, r):
+        nl = torch.cat([l[:, :1], r[:, :1], l[:, 1 : p - 1]], dim=1)
+        nr = torch.cat([r[:, 1:], l[:, p - 1 :]], dim=1)
+        return nl, nr
+
+    wl_re, wr_re = seats(nl_re, nr_re)
+    wl_im, wr_im = seats(nl_im, nr_im)
+    return wl_re, wl_im, wr_re, wr_im, resid
+
+
+def jacobi_rows_reference(
+    w_re: torch.Tensor,
+    w_im: torch.Tensor,
+    max_sweeps: int = DEFAULT_SWEEPS,
+    criterion: str | None = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain-torch twin of the kernel: planes (B, c, r) f32, c even.
+    Returns (w_re, w_im, sweeps) with W = (m V)^T rows in input row order
+    (a full sweep of 2p-1 round-robin phases returns every row to its seat)
+    and each matrix's sweep count (int32)."""
+    hybrid = (criterion or jacobi_criterion()) == "hybrid"
+    b, c, _ = w_re.shape
+    p = c // 2
+    wl_re, wr_re = w_re[:, :p], w_re[:, p:]
+    wl_im, wr_im = w_im[:, :p], w_im[:, p:]
+    sweeps = torch.zeros(b, dtype=torch.int32, device=w_re.device)
+    active = torch.ones(b, dtype=torch.bool, device=w_re.device)
+    for _ in range(max_sweeps):
+        if not bool(active.any()):
+            break
+        nl_re, nl_im, nr_re, nr_im = wl_re, wl_im, wr_re, wr_im
+        resid = torch.zeros(b, dtype=w_re.dtype, device=w_re.device)
+        for _ in range(2 * p - 1):
+            nl_re, nl_im, nr_re, nr_im, r = _seat_phase(nl_re, nl_im, nr_re, nr_im, hybrid)
+            resid = torch.maximum(resid, r)
+        # Per-matrix stopping: a converged matrix keeps its rows frozen.
+        keep = active[:, None, None]
+        wl_re = torch.where(keep, nl_re, wl_re)
+        wl_im = torch.where(keep, nl_im, wl_im)
+        wr_re = torch.where(keep, nr_re, wr_re)
+        wr_im = torch.where(keep, nr_im, wr_im)
+        sweeps += active.to(torch.int32)
+        active = active & (resid >= _CONV_TOL)
+    return torch.cat([wl_re, wr_re], 1), torch.cat([wl_im, wr_im], 1), sweeps
+
+
+# -----------------------------------------------------------------------------
+# The CUDA kernel: build, load, launch.
+# -----------------------------------------------------------------------------
+
+_PKG = Path(__file__).resolve().parent.parent
+_CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+_NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+_LIB = None
+_MAX_SMEM: dict = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(candidate):
+        return candidate
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin): cannot build the Jacobi kernel")
+
+
+def build_kernel_library() -> Path:
+    """Compiles ``csrc/*.cu`` into one shared library (plain C interface) for
+    sm_90a, keyed by the sources' hash; returns its path.  The ptxas report
+    (registers, shared memory, spills) is kept beside it."""
+    sources = sorted(_CSRC.glob("*.cu"))
+    digest = hashlib.sha256(b"".join(s.read_bytes() for s in sources)).hexdigest()[:12]
+    lib = BUILD_DIR / f"libaqc_kernels_{digest}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{proc.stderr}")
+    lib.with_suffix(".ptxas.txt").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, lib)
+    return lib
+
+
+def _load():
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build_kernel_library()))
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.jacobi_rows_launch.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
+        lib.jacobi_rows_launch.restype = ci
+        lib.jacobi_rows_max_smem.argtypes = [ci]
+        lib.jacobi_rows_max_smem.restype = ci
+        lib.jacobi_rows_error_string.argtypes = [ci]
+        lib.jacobi_rows_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def rows_smem_bytes(c: int, r: int) -> int:
+    """Dynamic shared memory of one block: both planes plus the
+    double-buffered per-pair statistics (3 x 2 x c/2 floats)."""
+    return 4 * (2 * c * r + 3 * c)
+
+
+def check_rows_args(w_re: torch.Tensor, w_im: torch.Tensor, max_smem: int) -> None:
+    """Raises ValueError unless the planes are what the kernel takes."""
+    if w_re.dtype != torch.float32 or w_im.dtype != torch.float32:
+        raise ValueError(f"jacobi_rows takes float32 planes, got {w_re.dtype}/{w_im.dtype}")
+    if w_re.ndim != 3 or w_re.shape != w_im.shape:
+        raise ValueError(f"jacobi_rows takes two (B, c, r) planes, got {tuple(w_re.shape)}/{tuple(w_im.shape)}")
+    if w_re.device != w_im.device:
+        raise ValueError("jacobi_rows: planes on different devices")
+    if not (w_re.is_contiguous() and w_im.is_contiguous()):
+        raise ValueError("jacobi_rows takes contiguous planes")
+    _, c, r = w_re.shape
+    if c < 2 or c % 2 or r < c:
+        raise ValueError(f"jacobi_rows needs an even c >= 2 and r >= c, got c={c} r={r}")
+    need = rows_smem_bytes(c, r)
+    if need > max_smem:
+        raise ValueError(
+            f"jacobi_rows: a {c}x{r} plane pair needs {need} B of shared memory, "
+            f"the device allows {max_smem} B per block"
+        )
+
+
+def jacobi_rows(
+    w_re: torch.Tensor,
+    w_im: torch.Tensor,
+    max_sweeps: int = DEFAULT_SWEEPS,
+    criterion: str | None = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Adaptive one-sided Jacobi on (B, c, r) f32 planes: returns (w_re,
+    w_im, sweeps) — see :func:`jacobi_rows_reference` for the contract.
+
+    CPU tensors run the plain twin; CUDA tensors launch the kernel (one
+    thread block per matrix) and every launch adds one to
+    ``jacobi_rows.launches``; any other device raises."""
+    criterion = criterion or jacobi_criterion()
+    if w_re.device.type == "cpu":
+        return jacobi_rows_reference(w_re, w_im, max_sweeps, criterion)
+    if w_re.device.type != "cuda":
+        raise ValueError(f"jacobi_rows: unsupported device {w_re.device}")
+    lib = _load()
+    dev = w_re.device.index if w_re.device.index is not None else torch.cuda.current_device()
+    if dev not in _MAX_SMEM:
+        _MAX_SMEM[dev] = int(lib.jacobi_rows_max_smem(dev))
+    check_rows_args(w_re, w_im, _MAX_SMEM[dev])
+    b, c, r = w_re.shape
+    out_re = torch.empty_like(w_re)
+    out_im = torch.empty_like(w_im)
+    sweeps = torch.empty(b, dtype=torch.int32, device=w_re.device)
+    if b == 0:
+        return out_re, out_im, sweeps
+    threads = 32 * min(8, c // 2)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.jacobi_rows_launch(
+            w_re.data_ptr(), w_im.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
+            sweeps.data_ptr(), b, c, r, int(max_sweeps), int(criterion == "hybrid"),
+            threads, stream,
+        )
+    if err != 0:
+        msg = lib.jacobi_rows_error_string(err).decode()
+        raise RuntimeError(f"jacobi_rows kernel launch failed: CUDA error {err} ({msg})")
+    jacobi_rows.launches += 1
+    return out_re, out_im, sweeps
+
+
+jacobi_rows.launches = 0
+
+
+# -----------------------------------------------------------------------------
+# Truncated SVD on top of the rows (ops/pallas_jacobi.py:273-375).
+# -----------------------------------------------------------------------------
+
+
+def _sort_guard_top_k(w_re, w_im, k: int, cdtype):
+    """Sorts the rows by norm, keeps the top ``k`` and zeroes every direction
+    below the 32*eps*s_max noise floor (f32 rotation residue whose direction
+    is garbage — normalizing it would keep O(1) wrong contributions in
+    u diag(s) vh).  Returns (w (B, k, r) complex rows, s (B, k), inv)."""
+    s = torch.sqrt((w_re * w_re + w_im * w_im).sum(-1))
+    w = torch.complex(w_re, w_im).to(cdtype)
+    order = torch.argsort(-s, dim=-1, stable=True)[..., :k]
+    s = torch.take_along_dim(s, order, dim=-1)
+    w = torch.take_along_dim(w, order[..., :, None], dim=-2)
+    keep = s > (32.0 * _EPS32) * s[..., :1]
+    s = torch.where(keep, s, torch.zeros_like(s))
+    inv = torch.where(keep, 1.0 / torch.where(keep, s, torch.ones_like(s)), torch.zeros_like(s))
+    return w, s, inv
+
+
+def _jacobi_u_s(m: torch.Tensor, sweeps: int, k: int):
+    """Kernel run + sort + truncate to k: returns (u_k (B, n, k) isometric
+    columns, s_k, inv_k, mb, batch_shape)."""
+    n = m.shape[-1]
+    if m.shape[-2] != n or n % 2:
+        raise ValueError(f"square even-sized input expected, got {tuple(m.shape)}")
+    batch_shape = m.shape[:-2]
+    mb = m.reshape((-1, n, n))
+    # Transposed planes: columns become rows.
+    mt = mb.transpose(-1, -2)
+    if mb.is_complex():
+        m_re = mt.real.to(torch.float32).contiguous()
+        m_im = mt.imag.to(torch.float32).contiguous()
+        cdtype = mb.dtype
+    else:
+        m_re = mt.to(torch.float32).contiguous()
+        m_im = torch.zeros_like(m_re)
+        cdtype = torch.complex64
+    w_re, w_im, _ = jacobi_rows(m_re, m_im, sweeps)
+    w, s, inv = _sort_guard_top_k(w_re, w_im, k, cdtype)
+    u = (w * inv[..., :, None].to(w.dtype)).transpose(-1, -2)
+    return u, s, inv, mb, batch_shape
+
+
+def jacobi_svd_kernel_top_k(
+    m: torch.Tensor, k: int, sweeps: int = DEFAULT_SWEEPS
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Top-k truncated SVD through the Jacobi rows (the MPS pair-update
+    shape: k = chi, n = 2 chi).  Singular values below the noise floor come
+    back as exact zeros with zeroed factor columns."""
+    n = m.shape[-1]
+    u, s, inv, mb, batch_shape = _jacobi_u_s(m, sweeps, k)
+    # Right factor: vh = diag(1/s) u^H m (zero rows for masked values).
+    vh = inv[..., :, None].to(u.dtype) * torch.matmul(u.conj().transpose(-1, -2), mb)
+    return (
+        u.reshape(batch_shape + (n, k)),
+        s.reshape(batch_shape + (k,)),
+        vh.reshape(batch_shape + (k, n)),
+    )

@@ -1,0 +1,598 @@
+"""Matrix-product-state engine on torch tensors (twin of
+``aqc_research_tpu/ops/mps.py``).
+
+* Vidal canonical form ``c_{s1..sn} = Γ_1^{s1} λ_1 Γ_2^{s2} λ_2 ... Γ_n^{sn}``.
+* Static shapes: bond dimensions are padded to ``chi_max``; truncation masks
+  singular values instead of reshaping.
+* A two-qubit gate costs one pair contraction + one ``(2 chi, 2 chi)``
+  truncated SVD + a rank-chi re-split; a chessboard half-layer of disjoint
+  pairs is ONE batched decomposition (``_pair_update`` is natively batched).
+* Truncation: discard the largest tail whose norm is ``<= trunc_thr * ||S||``,
+  cap the rank at ``chi_max``, rescale the kept values to the full norm.
+
+Sites are qubits in little-endian order (site j = bit j).  Functions are
+pure: they return new tensors and never modify their inputs.  The tensors of
+an :class:`MPS` may carry leading batch axes (``gammas (..., n, 2, chi,
+chi)``), which the pair updates decompose as one batch.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import warnings
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..circuit.program import GateProgram, gate_matrix
+from ..config import complex_dtype, device as default_device, jacobi_sweeps, real_of, svd_impl
+from .jacobi_kernel import jacobi_svd_kernel_top_k, truncation_supported
+from .jacobi_svd import DEFAULT_SWEEPS, jacobi_svd_top_k
+from .statevector import block_gates, front_gates
+
+_NO_TRUNCATION_THR = 1e-16
+
+
+def no_truncation_threshold() -> float:
+    """Threshold value that effectively disables truncation."""
+    return _NO_TRUNCATION_THR
+
+
+@dataclasses.dataclass
+class MPS:
+    """Vidal-form MPS with padded, static bond dimensions.
+
+    Attributes:
+        gammas: (..., n, 2, chi, chi) complex — Γ tensors; unused bond
+            rows/cols are zero.  Γ_1 uses left bond 0 only; Γ_n right bond 0.
+        lambdas: (..., n-1, chi) real — bond singular values, descending,
+            zero-padded.
+    """
+
+    gammas: torch.Tensor
+    lambdas: torch.Tensor
+
+    @property
+    def num_sites(self) -> int:
+        return self.gammas.shape[-4]
+
+    @property
+    def chi(self) -> int:
+        return self.gammas.shape[-1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.gammas.device
+
+    def __getitem__(self, idx) -> "MPS":
+        """Indexes the leading (batch) axes of both tensors."""
+        return MPS(self.gammas[idx], self.lambdas[idx])
+
+
+def _boundary(chi: int, batch, dtype, device) -> torch.Tensor:
+    """The trivial bond vector e_0, shape batch + (1, chi)."""
+    b = torch.zeros(tuple(batch) + (1, chi), dtype=dtype, device=device)
+    b[..., 0, 0] = 1.0
+    return b
+
+
+def mps_basis_state(bits: Tuple[int, ...], chi_max: int, dtype=None, device=None) -> MPS:
+    """Computational basis state |b_{n-1} ... b_0> as an MPS (bit q = site q)."""
+    dtype = complex_dtype() if dtype is None else dtype
+    device = default_device() if device is None else device
+    n = len(bits)
+    gammas = torch.zeros((n, 2, chi_max, chi_max), dtype=dtype, device=device)
+    for q, b in enumerate(bits):
+        gammas[q, int(b), 0, 0] = 1.0
+    lambdas = torch.zeros((max(n - 1, 0), chi_max), dtype=real_of(dtype), device=device)
+    lambdas[:, 0] = 1.0
+    return MPS(gammas, lambdas)
+
+
+def mps_zero(num_qubits: int, chi_max: int, dtype=None, device=None) -> MPS:
+    """|0...0> as an MPS with bond dimension padded to ``chi_max``."""
+    return mps_basis_state((0,) * num_qubits, chi_max, dtype, device)
+
+
+def mps_resize(mps: MPS, chi_new: int) -> MPS:
+    """Pads (grows) or slices (shrinks) the static bond dimension.  Shrinking
+    is exact only when the dropped bond rows/cols are zero."""
+    chi = mps.chi
+    if chi_new == chi:
+        return mps
+    k = min(chi, chi_new)
+    g = mps.gammas.new_zeros(mps.gammas.shape[:-2] + (chi_new, chi_new))
+    g[..., :k, :k] = mps.gammas[..., :k, :k]
+    lam = mps.lambdas.new_zeros(mps.lambdas.shape[:-1] + (chi_new,))
+    lam[..., :k] = mps.lambdas[..., :k]
+    return MPS(g, lam)
+
+
+# -----------------------------------------------------------------------------
+# Gate application.
+# -----------------------------------------------------------------------------
+
+
+def apply_1q_mps(mps: MPS, gate2x2: torch.Tensor, site: int) -> MPS:
+    """1-qubit gate: Γ_site <- G Γ_site."""
+    g = gate2x2.to(mps.gammas.dtype)
+    gammas = mps.gammas.clone()
+    gammas[..., site, :, :, :] = torch.einsum("ij,...jab->...iab", g, mps.gammas[..., site, :, :, :])
+    return MPS(gammas, mps.lambdas)
+
+
+def apply_1q_many(mps: MPS, gates: torch.Tensor, sites: Tuple[int, ...]) -> MPS:
+    """DISTINCT 1-qubit gates (P, 2, 2) at distinct sites in one batched einsum."""
+    if len(set(sites)) != len(sites):
+        raise ValueError("apply_1q_many needs distinct sites")
+    idx = torch.as_tensor(sites, dtype=torch.long, device=mps.gammas.device)
+    g = gates.to(mps.gammas.dtype)
+    gammas = mps.gammas.clone()
+    gammas[..., idx, :, :, :] = torch.einsum("pij,...pjab->...piab", g, mps.gammas[..., idx, :, :, :])
+    return MPS(gammas, mps.lambdas)
+
+
+def _safe_inv(lam: torch.Tensor, cutoff: float = 1e-12) -> torch.Tensor:
+    scale = lam.amax(-1, keepdim=True)
+    # dtype-aware floor: a literal like 1e-300 underflows to 0 in f32.
+    thr = cutoff * torch.clamp(scale, min=torch.finfo(lam.dtype).tiny)
+    big = lam > thr
+    return torch.where(big, 1.0 / torch.where(big, lam, torch.ones_like(lam)), torch.zeros_like(lam))
+
+
+def _truncation_mask(s: torch.Tensor, chi: int, trunc_thr: float):
+    """Keep mask for the full singular spectrum: discard the largest tail
+    whose norm is <= trunc_thr * ||S||, and cap the rank at chi."""
+    s2 = s * s
+    total = torch.sqrt(s2.sum(-1))
+    tail = torch.sqrt(torch.flip(torch.cumsum(torch.flip(s2, [-1]), -1), [-1]))
+    keep = tail > (trunc_thr * total[..., None])
+    idx = torch.arange(s.shape[-1], device=s.device)
+    return keep & (idx < chi), total
+
+
+def _truncation_mask_topk(s: torch.Tensor, total: torch.Tensor, chi: int, trunc_thr: float):
+    """Keep mask from the top-chi singular values and the matrix's full
+    Frobenius norm ``total``: discard value i when the tail (from i on,
+    including the unseen remainder) is <= trunc_thr * total.
+
+    The tail splits into the SEEN part (small-end cumsum of the known s^2:
+    no cancellation) and the UNSEEN remainder max(total^2 - sum s^2 - noise,
+    0) with a 16*eps*total^2 noise floor — the naive ``total^2 - head`` is
+    catastrophic cancellation for rank-deficient matrices, which made
+    keep/drop a rounding coin flip (JAX package, ops/mps.py:236-269)."""
+    s2 = s * s
+    seen_tail = torch.flip(torch.cumsum(torch.flip(s2, [-1]), -1), [-1])
+    head_all = s2.sum(-1)
+    t2 = total * total
+    noise = (16.0 * torch.finfo(s.dtype).eps) * t2
+    unseen = torch.clamp(t2 - head_all - noise, min=0.0)
+    tail = torch.sqrt(seen_tail + unseen[..., None])
+    return tail > (trunc_thr * total[..., None])
+
+
+def _truncated_svd(m: torch.Tensor, chi: int, trunc_thr: float):
+    """Top-chi SVD + discarded-weight keep mask, on the route in effect for
+    ``m``'s device.  ``m``: (..., 2chi, 2chi); leading axes are batch.
+
+    Returns (u (..., 2chi, chi), s (..., chi), vh (..., chi, 2chi),
+    mask (..., chi) bool, total (...,) Frobenius norm of m)."""
+    impl = svd_impl(m.device)
+    if impl == "native":
+        u, s, vh = torch.linalg.svd(m, full_matrices=False)
+        mask, total = _truncation_mask(s, chi, trunc_thr)
+        return u[..., :, :chi], s[..., :chi], vh[..., :chi, :], mask[..., :chi], total
+    # "jacobi": the hand-written kernel on CUDA (its plain twin on CPU);
+    # matrices below 8 columns (χ-growth heads) take the spec.
+    if m.dtype == torch.complex64 and not truncation_supported(trunc_thr):
+        warnings.warn(
+            f"trunc_thr={trunc_thr:g} is finer than the f32 Jacobi convergence "
+            f"tolerance resolves (supported: >= 1e-12, or <= f32-eps^2 to disable "
+            f"truncation); keep/drop decisions near the boundary are unreliable",
+            stacklevel=3,
+        )
+    sweeps = jacobi_sweeps() or DEFAULT_SWEEPS
+    if m.shape[-1] < 8:
+        u, s, vh = jacobi_svd_top_k(m, chi, sweeps)
+    else:
+        u, s, vh = jacobi_svd_kernel_top_k(m, chi, sweeps)
+    total = torch.linalg.matrix_norm(m).to(s.dtype)
+    mask = _truncation_mask_topk(s, total, chi, trunc_thr)
+    return u, s, vh, mask, total
+
+
+def _pair_theta(lam_l, lam_c, lam_r, g1, g2, gate4, chi, dtype):
+    """The gated two-site tensor as a (..., 2chi, 2chi) matrix — the input of
+    the pair update's truncated SVD."""
+    t1 = g1 * lam_l[..., None, :, None].to(dtype)
+    t1 = t1 * lam_c[..., None, None, :].to(dtype)
+    theta = torch.einsum("...sab,...tbc->...stac", t1, g2)
+    theta = theta * lam_r[..., None, None, None, :].to(dtype)
+    g = gate4.to(dtype)
+    g = g.reshape(g.shape[:-2] + (2, 2, 2, 2)).expand(theta.shape[:-4] + (2, 2, 2, 2))
+    theta = torch.einsum("...stuv,...uvac->...stac", g, theta)
+    batch_shape = theta.shape[:-4]
+    return theta.transpose(-3, -2).reshape(batch_shape + (2 * chi, 2 * chi))
+
+
+def _pair_update(lam_l, lam_c, lam_r, g1, g2, gate4, chi, trunc_thr, dtype, rdtype):
+    """Core Vidal pair update on raw tensors; returns (g1', g2', lam').
+    Natively batched over identical leading axes: one call is one batched
+    decomposition."""
+    m = _pair_theta(lam_l, lam_c, lam_r, g1, g2, gate4, chi, dtype)
+    batch_shape = m.shape[:-2]
+
+    u, s, vh, mask, total = _truncated_svd(m, chi, trunc_thr)
+
+    s_kept = torch.where(mask, s, torch.zeros_like(s))
+    kept_norm = torch.sqrt((s_kept * s_kept).sum(-1))
+    # finfo.tiny: a literal like 1e-300 underflows to 0 in f32 (0/0 lambdas).
+    floor = torch.finfo(s_kept.dtype).tiny
+    s_kept = s_kept * (total / torch.clamp(kept_norm, min=floor))[..., None]
+    new_lam = s_kept.to(rdtype)
+
+    zero = torch.zeros((), dtype=u.dtype, device=u.device)
+    u = torch.where(mask[..., None, :], u, zero)
+    vh = torch.where(mask[..., :, None], vh, zero)
+
+    inv_l = _safe_inv(lam_l).to(dtype)
+    inv_r = _safe_inv(lam_r).to(dtype)
+    new_g1 = u.reshape(batch_shape + (2, chi, chi)) * inv_l[..., None, :, None]
+    new_g2 = vh.reshape(batch_shape + (chi, 2, chi)).transpose(-3, -2)
+    new_g2 = new_g2 * inv_r[..., None, None, :]
+    return new_g1, new_g2, new_lam
+
+
+def _lam_ext(mps: MPS) -> torch.Tensor:
+    """λ with the trivial boundary bond on both ends: lam_ext[i + 1] = λ_i."""
+    lam = mps.lambdas
+    b = _boundary(mps.chi, lam.shape[:-2], lam.dtype, lam.device)
+    return torch.cat([b, lam, b], dim=-2)
+
+
+def apply_2q_mps(mps: MPS, gate4: torch.Tensor, site: int, *, trunc_thr: float = _NO_TRUNCATION_THR) -> MPS:
+    """2-qubit gate on adjacent (site, site+1); ``gate4`` in (site, site+1)
+    index order."""
+    if not 0 <= site < mps.num_sites - 1:
+        raise ValueError(f"site {site} has no right neighbour")
+    return apply_pairs_mps(mps, gate4[None], (site,), trunc_thr=trunc_thr)
+
+
+def apply_pairs_mps(
+    mps: MPS,
+    gates4: torch.Tensor,
+    lo_sites: Tuple[int, ...],
+    *,
+    trunc_thr: float = _NO_TRUNCATION_THR,
+) -> MPS:
+    """Applies DISJOINT adjacent-pair gates simultaneously — one batched pair
+    update (one batched SVD) for a whole chessboard half-layer.  ``gates4``:
+    (P, 4, 4) in (site, site+1) order; ``lo_sites``: the P pair positions."""
+    n, chi = mps.num_sites, mps.chi
+    lo_np = np.asarray(lo_sites, dtype=int)
+    if not (lo_np.size > 0 and np.all(np.diff(lo_np) >= 2)):
+        raise ValueError(f"pairs must be disjoint and ascending: {lo_sites}")
+    if lo_np.min() < 0 or lo_np.max() + 1 >= n:
+        raise ValueError(f"pair positions out of range: {lo_sites}")
+    dev = mps.gammas.device
+    lo = torch.as_tensor(lo_np, dtype=torch.long, device=dev)
+    lam_ext = _lam_ext(mps)
+    new_g1, new_g2, new_lam = _pair_update(
+        lam_ext[..., lo, :],
+        lam_ext[..., lo + 1, :],
+        lam_ext[..., lo + 2, :],
+        mps.gammas[..., lo, :, :, :],
+        mps.gammas[..., lo + 1, :, :, :],
+        gates4,
+        chi,
+        trunc_thr,
+        mps.gammas.dtype,
+        mps.lambdas.dtype,
+    )
+    gammas = mps.gammas.clone()
+    gammas[..., lo, :, :, :] = new_g1
+    gammas[..., lo + 1, :, :, :] = new_g2
+    lambdas = mps.lambdas.clone()
+    lambdas[..., lo, :] = new_lam
+    return MPS(gammas, lambdas)
+
+
+def _swap_gate(dtype, device) -> torch.Tensor:
+    sw = torch.zeros((4, 4), dtype=dtype, device=device)
+    sw[0, 0] = sw[3, 3] = sw[1, 2] = sw[2, 1] = 1
+    return sw
+
+
+def apply_2q_any_mps(
+    mps: MPS, gate4: torch.Tensor, lo: int, hi: int, *, trunc_thr: float = _NO_TRUNCATION_THR
+) -> MPS:
+    """2-qubit gate on an arbitrary site pair lo < hi (``gate4`` in (lo, hi)
+    order): non-adjacent pairs route through a swap network."""
+    if not 0 <= lo < hi < mps.num_sites:
+        raise ValueError(f"bad site pair ({lo}, {hi})")
+    if hi == lo + 1:
+        return apply_2q_mps(mps, gate4, lo, trunc_thr=trunc_thr)
+    sw = _swap_gate(mps.gammas.dtype, mps.gammas.device)
+    for k in range(hi - 1, lo, -1):
+        mps = apply_2q_mps(mps, sw, k, trunc_thr=trunc_thr)
+    mps = apply_2q_mps(mps, gate4, lo, trunc_thr=trunc_thr)
+    for k in range(lo + 1, hi):
+        mps = apply_2q_mps(mps, sw, k, trunc_thr=trunc_thr)
+    return mps
+
+
+def apply_gate_mps(mps: MPS, gate, *, trunc_thr: float = _NO_TRUNCATION_THR) -> MPS:
+    """Applies one :class:`Gate` record."""
+    mat = gate_matrix(gate, mps.gammas.dtype, mps.gammas.device)
+    if len(gate.qubits) == 1:
+        return apply_1q_mps(mps, mat, gate.qubits[0])
+    ctrl, targ = gate.qubits
+    lo, hi = min(ctrl, targ), max(ctrl, targ)
+    g = mat.reshape(2, 2, 2, 2)
+    if ctrl > targ:  # (ctrl, targ) = (hi, lo) -> (lo, hi) order
+        g = g.permute(1, 0, 3, 2)
+    return apply_2q_any_mps(mps, g.reshape(4, 4), lo, hi, trunc_thr=trunc_thr)
+
+
+def mps_from_program(
+    program: GateProgram,
+    num_qubits: int,
+    *,
+    chi_max: int = 64,
+    trunc_thr: Optional[float] = None,
+    dtype=None,
+    device=None,
+) -> MPS:
+    """``program @ |0...0>`` in MPS form."""
+    thr = _NO_TRUNCATION_THR if trunc_thr is None else float(trunc_thr)
+    mps = mps_zero(num_qubits, chi_max, dtype, device)
+    for gate in program:
+        mps = apply_gate_mps(mps, gate, trunc_thr=thr)
+    return mps
+
+
+# -----------------------------------------------------------------------------
+# Inner products / conversion.
+# -----------------------------------------------------------------------------
+
+
+def _folded_tensors(mps: MPS) -> torch.Tensor:
+    """A_i = Γ_i diag(λ_i) for i < n-1, A_{n-1} = Γ_{n-1}; (..., n, 2, chi, chi)."""
+    lam = mps.lambdas
+    lam_ext = torch.cat([lam, _boundary(mps.chi, lam.shape[:-2], lam.dtype, lam.device)], dim=-2)
+    return mps.gammas * lam_ext[..., :, None, None, :].to(mps.gammas.dtype)
+
+
+def mps_dot(mps1: MPS, mps2: MPS) -> torch.Tensor:
+    """``<mps1 | mps2>`` by transfer-matrix contraction, O(n chi^3); the two
+    states may have different (padded) bond dimensions."""
+    a1 = _folded_tensors(mps1)
+    a2 = _folded_tensors(mps2)
+    env = torch.zeros((mps1.chi, mps2.chi), dtype=a1.dtype, device=a1.device)
+    env[0, 0] = 1.0
+    a1c = a1.conj()
+    for q in range(mps1.num_sites):
+        env = torch.einsum("sab,aA,sAB->bB", a1c[q], env, a2[q])
+    return env[0, 0]
+
+
+def mps_flip_amplitudes(mps: MPS, base_bits: Tuple[int, ...]) -> torch.Tensor:
+    """Amplitudes of the base basis state and all its single-bit flips:
+    ``amps[0] = <base|mps>``, ``amps[1 + q] = <base ^ (1 << q)|mps>`` — one
+    prefix/suffix sweep of bond vectors, O(n chi^2)."""
+    n, chi = mps.num_sites, mps.chi
+    if len(base_bits) != n:
+        raise ValueError("base_bits needs one bit per site")
+    a = _folded_tensors(mps)
+    e0 = torch.zeros(chi, dtype=a.dtype, device=a.device)
+    e0[0] = 1.0
+    pre = [e0]
+    for q in range(n):
+        pre.append(pre[-1] @ a[q, base_bits[q]])
+    suffix_from = [None] * (n + 1)
+    suffix_from[n] = e0
+    for q in range(n - 1, -1, -1):
+        suffix_from[q] = a[q, base_bits[q]] @ suffix_from[q + 1]
+    amps = [pre[n][0]]
+    for q in range(n):
+        amps.append(pre[q] @ a[q, 1 - base_bits[q]] @ suffix_from[q + 1])
+    return torch.stack(amps)
+
+
+def mps_to_vector(mps: MPS) -> torch.Tensor:
+    """Dense state vector (exponential — tests only)."""
+    a = _folded_tensors(mps)
+    v = a[0][:, 0, :]  # (2, chi) — left boundary bond is 0
+    for i in range(1, mps.num_sites):
+        v = torch.einsum("...b,sbc->s...c", v, a[i])
+    # Axes are (s_n, ..., s_1): C-order ravel is the little-endian index.
+    return v[..., 0].reshape(-1)
+
+
+# -----------------------------------------------------------------------------
+# Ansatz application (fused blocks — one SVD per unit block or pair run).
+# -----------------------------------------------------------------------------
+
+
+def _gate_lo_hi(circ, g4: torch.Tensor, k: int):
+    """Block k's gate reordered into (lo, hi) site order; returns (gate, lo, hi)."""
+    ctrl, targ = int(circ.blocks[0, k]), int(circ.blocks[1, k])
+    g = g4.reshape(2, 2, 2, 2)
+    if ctrl > targ:
+        g = g.permute(1, 0, 3, 2)
+    return g.reshape(4, 4), min(ctrl, targ), max(ctrl, targ)
+
+
+def _plan_runs(circ, ks):
+    """Splits a block-index sequence into maximal runs whose pairs are
+    pairwise disjoint-or-identical (such runs commute freely)."""
+    runs, current, pairs = [], [], set()
+    for k in ks:
+        lo = min(int(circ.blocks[0, k]), int(circ.blocks[1, k]))
+        if current and any(abs(lo - p) == 1 for p in pairs):
+            runs.append(current)
+            current, pairs = [], set()
+        current.append(k)
+        pairs.add(lo)
+    if current:
+        runs.append(current)
+    return runs
+
+
+def _apply_run(circ, mps: MPS, ks, gate_of, thr: float) -> MPS:
+    """Applies a run of adjacent-pair blocks: same-pair gates multiply into
+    one 4x4, disjoint pairs batch into one pair update."""
+    per_pair: dict = {}
+    for k in ks:
+        g, lo, _ = _gate_lo_hi(circ, gate_of(k), k)
+        per_pair[lo] = g if lo not in per_pair else torch.matmul(g, per_pair[lo])
+    los = tuple(sorted(per_pair))
+    return apply_pairs_mps(mps, torch.stack([per_pair[lo] for lo in los]), los, trunc_thr=thr)
+
+
+def _front_layer(circ, mps: MPS, f1q: torch.Tensor) -> MPS:
+    for q in range(circ.num_qubits):
+        mps = apply_1q_mps(mps, f1q[q], q)
+    return mps
+
+
+def v_dagger_layer_cache_eligible(circ) -> bool:
+    """True when :func:`v_dagger_mul_mps_layers` supports ``circ`` (layered
+    adjacent-pair Trotter structure)."""
+    nb = circ.num_blocks
+    bpl = circ.bpl if circ.is_trotterized else 0
+    return (
+        circ.is_trotterized
+        and circ.circuit_power == 1
+        and nb > 0
+        and bpl > 0
+        and nb % bpl == 0
+        and nb // bpl >= 2
+        and all(
+            abs(int(circ.blocks[0, k]) - int(circ.blocks[1, k])) == 1
+            and circ.blocks[0, k] == circ.blocks[0, k % bpl]
+            and circ.blocks[1, k] == circ.blocks[1, k % bpl]
+            for k in range(nb)
+        )
+    )
+
+
+def v_mul_mps_growing(
+    circ,
+    thetas: torch.Tensor,
+    bits: Tuple[int, ...],
+    chi_max: int,
+    *,
+    trunc_thr: Optional[float] = None,
+    dtype=None,
+) -> MPS:
+    """``V(Θ) @ |bits>`` with χ-growth scheduling: the head phases run at a
+    growing static bond dimension χ_p = min(chi_max, 2^p) — exact, because
+    χ_p covers the attainable rank, the discarded-weight rule is
+    scale-relative and the rank cap binds only at chi_max — then the layers
+    continue at full χ.  Requires :func:`v_dagger_layer_cache_eligible`."""
+    if not v_dagger_layer_cache_eligible(circ):
+        raise ValueError("v_mul_mps_growing needs a layered adjacent-pair Trotter ansatz")
+    dtype = complex_dtype() if dtype is None else dtype
+    thr = _NO_TRUNCATION_THR if trunc_thr is None else float(trunc_thr)
+    f1q = front_gates(circ, circ.subset1q(thetas), dtype, dagger=False)
+    gates = block_gates(circ, circ.subset2q(thetas), dtype, dagger=False)
+    nb, bpl = circ.num_blocks, circ.bpl
+    layers = nb // bpl
+    runs = _plan_runs(circ, range(bpl))
+    half = circ.half_layer_num_blocks
+    half_runs = _plan_runs(circ, range(half)) if half else []
+    g_layers = gates[: layers * bpl].reshape(layers, bpl, 4, 4)
+
+    mps = _front_layer(circ, mps_basis_state(tuple(int(b) for b in bits), 1, dtype, thetas.device), f1q)
+    # Head: grow χ by x2 before each phase until chi_max, stopping at a
+    # layer boundary.
+    chi_cur, layer_start = 1, 0
+    for j in range(layers):
+        if chi_cur >= chi_max:
+            break
+        for run in runs:
+            if chi_cur < chi_max:
+                chi_cur = min(chi_max, 2 * chi_cur)
+                mps = mps_resize(mps, chi_cur)
+            mps = _apply_run(circ, mps, run, lambda k: g_layers[j][k], thr)
+        layer_start = j + 1
+    mps = mps_resize(mps, chi_max)
+    for j in range(layer_start, layers):
+        for run in runs:
+            mps = _apply_run(circ, mps, run, lambda k: g_layers[j][k], thr)
+    for run in half_runs:
+        mps = _apply_run(circ, mps, run, lambda k: gates[k], thr)
+    return mps
+
+
+def v_dagger_mul_mps_layers(
+    circ, thetas: torch.Tensor, mps: MPS, *, trunc_thr: Optional[float] = None
+) -> Tuple[MPS, MPS]:
+    """``V† @ mps`` plus the per-layer intermediate cache of the co-sweep
+    gradient: ``cache[j]`` (leading axis) is the state entering gradient
+    layer j (``V_{layers>j}† @ mps``), ``cache[L]`` the state entering the
+    trailing 2nd-order half-layer.  Requires
+    :func:`v_dagger_layer_cache_eligible`."""
+    if not v_dagger_layer_cache_eligible(circ):
+        raise ValueError("v_dagger_mul_mps_layers needs a layered adjacent-pair Trotter ansatz")
+    thr = _NO_TRUNCATION_THR if trunc_thr is None else float(trunc_thr)
+    dtype = mps.gammas.dtype
+    f1q = front_gates(circ, circ.subset1q(thetas), dtype, dagger=True)
+    gates = block_gates(circ, circ.subset2q(thetas), dtype, dagger=True)
+    nb, bpl = circ.num_blocks, circ.bpl
+    half = circ.half_layer_num_blocks
+    layers = nb // bpl
+
+    out = mps
+    if half:  # trailing half-layer first (V† order), saved as cache[L]
+        for run in _plan_runs(circ, range(half - 1, -1, -1)):
+            out = _apply_run(circ, out, run, lambda k: gates[k], thr)
+    c_last = out
+
+    g_layers = gates[: layers * bpl].reshape(layers, bpl, 4, 4)
+    runs = _plan_runs(circ, range(bpl - 1, -1, -1))
+    states = []  # states[i] = after i+1 daggered layers (from the last layer)
+    for j in range(layers - 1, -1, -1):
+        for run in runs:
+            out = _apply_run(circ, out, run, lambda k: g_layers[j][k], thr)
+        states.append(out)
+    out = _front_layer(circ, out, f1q)
+
+    ordered = states[::-1] + [c_last]
+    cache = MPS(
+        torch.stack([s.gammas for s in ordered]), torch.stack([s.lambdas for s in ordered])
+    )
+    return out, cache
+
+
+def v_dagger_mul_mps(circ, thetas, mps: MPS, *, trunc_thr: Optional[float] = None) -> MPS:
+    """``V(Θ)† @ mps``: the trailing half-layer, the blocks in reverse order
+    (runs of disjoint pairs batched; non-adjacent blocks through the swap
+    network), then the front layer — ``circuit_power`` times."""
+    thr = _NO_TRUNCATION_THR if trunc_thr is None else float(trunc_thr)
+    dtype = mps.gammas.dtype
+    f1q = front_gates(circ, circ.subset1q(thetas), dtype, dagger=True)
+    gates = block_gates(circ, circ.subset2q(thetas), dtype, dagger=True)
+    nb = circ.num_blocks
+    half = circ.half_layer_num_blocks if circ.is_trotterized else 0
+    all_adjacent = all(
+        abs(int(circ.blocks[0, k]) - int(circ.blocks[1, k])) == 1 for k in range(nb)
+    )
+
+    def apply_seq(mps_, order):
+        if not all_adjacent:
+            for k in order:
+                g, lo, hi = _gate_lo_hi(circ, gates[k], k)
+                mps_ = apply_2q_any_mps(mps_, g, lo, hi, trunc_thr=thr)
+            return mps_
+        for run in _plan_runs(circ, order):
+            mps_ = _apply_run(circ, mps_, run, lambda k: gates[k], thr)
+        return mps_
+
+    for _ in range(circ.circuit_power):
+        mps = apply_seq(mps, range(half - 1, -1, -1))
+        mps = apply_seq(mps, range(nb - 1, -1, -1))
+        mps = _front_layer(circ, mps, f1q)
+    return mps

@@ -1,0 +1,431 @@
+"""Analytic co-sweep gradient of ``<lvec | V† | phi>`` in MPS form (twin of
+``aqc_research_tpu/ops/mps_gradient.py``, the path the ASP horizon takes).
+
+This slice ports the layer-batched Trotter path that consumes the V† sweep's
+per-layer z cache (``_fast_dot_gradient_layered_zcache``): within a
+chessboard half-layer the triplets act on disjoint pairs, so each triplet
+composes into one 4x4 prefix per pair, every per-parameter dot becomes 4x4
+algebra against one two-site environment tensor, and the w state takes one
+batched pair update per half-layer.  The z side needs no truncated update
+at all: the cached layer boundaries substitute for it.  The per-gate sweep
+(``_fast_dot_gradient_impl``) and the plain-ansatz layered path are not
+ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..circuit import gates as G
+from ..circuit.ansatz import Ansatz
+from .mps import (
+    MPS,
+    _folded_tensors,
+    apply_1q_many,
+    apply_pairs_mps,
+    mps_resize,
+    no_truncation_threshold,
+)
+
+
+def _e0(cw: int, cz: int, dtype, device) -> torch.Tensor:
+    e0 = torch.zeros((cw, cz), dtype=dtype, device=device)
+    e0[0, 0] = 1.0
+    return e0
+
+
+def _env_left_step(env, aw, az):
+    """env'[b,B] = sum_s conj(aw)[s,a,b] env[a,A] az[s,A,B]."""
+    return torch.einsum("aA,sab,sAB->bB", env, aw.conj(), az)
+
+
+def _env_right_step(aw, az, env):
+    """env'[a,A] = sum_s conj(aw)[s,a,b] az[s,A,B] env[b,B]."""
+    return torch.einsum("sab,sAB,bB->aA", aw.conj(), az, env)
+
+
+def _env_stacks(w: MPS, z: MPS):
+    """Left/right environment stacks of <w|z>: L[q] covers sites < q,
+    R[q] covers sites >= q (both (n+1, cw, cz)).  A dot inserted at site s
+    uses L[s] · T_s · R[s+1]."""
+    aw, az = _folded_tensors(w), _folded_tensors(z)
+    n = w.num_sites
+    e0 = _e0(w.chi, z.chi, aw.dtype, aw.device)
+    left = [e0]
+    for q in range(n):
+        left.append(_env_left_step(left[-1], aw[q], az[q]))
+    right = [e0]
+    for q in range(n - 1, -1, -1):
+        right.append(_env_right_step(aw[q], az[q], right[-1]))
+    return aw, az, torch.stack(left), torch.stack(right[::-1])
+
+
+def _dots_from_stacks(w: MPS, z: MPS, l_stack, r_stack, pauli_mats, sites):
+    """All ``<P_k w | z>`` for distinct sites in one batched contraction
+    against pre-built environment stacks (valid across 1-qubit gates applied
+    to both states: the per-site transfer matrix is invariant)."""
+    idx = torch.as_tensor(sites, dtype=torch.long, device=l_stack.device)
+    aw, az = _folded_tensors(w), _folded_tensors(z)
+    paw = torch.einsum("pij,pjab->piab", pauli_mats.to(aw.dtype), aw[idx])
+    x = torch.einsum("paA,psab->pAsb", l_stack[idx], paw.conj())
+    x = torch.einsum("pAsb,psAB->pbB", x, az[idx])
+    return (x * r_stack[idx + 1]).sum((-2, -1))
+
+
+def _layered_plan(circ: Ansatz):
+    """Static structure of one layer: half-layer groups of (triplet index,
+    lo site), each group sorted by lo."""
+    bpl = circ.bpl
+    triplets = []
+    for t in range(bpl // 3):
+        c0 = int(circ.blocks[0, 3 * t])
+        t0 = int(circ.blocks[1, 3 * t])
+        triplets.append((t, min(c0, t0)))
+    groups, current, used = [], [], set()
+    for t, lo in triplets:
+        if any(abs(lo - u) <= 1 for u in used):
+            groups.append(current)
+            current, used = [], set()
+        current.append((t, lo))
+        used.add(lo)
+    if current:
+        groups.append(current)
+    return [sorted(g, key=lambda tl: tl[1]) for g in groups]
+
+
+def _cx_lo_hi(ctrl_is_hi: bool, dtype, device):
+    """CX in (lo, hi) row ordering (row index = s_lo * 2 + s_hi)."""
+    mat = G.controlled(G.x(dtype, device)).reshape(2, 2, 2, 2)  # (ctrl, targ)
+    if ctrl_is_hi:
+        mat = mat.permute(1, 0, 3, 2)
+    return mat.reshape(4, 4)
+
+
+def _rz_frame_lo_hi(angle, on_hi: bool, dtype, device):
+    """1q Rz framing embedded as a 4x4 in (lo, hi) ordering."""
+    rz = G.rz(angle, dtype, device)
+    eye = G.eye2(dtype, device)
+    return G.kron2(eye, rz) if on_hi else G.kron2(rz, eye)
+
+
+def _pair_env_tensors(w: MPS, z: MPS, l_stack, r_stack, los):
+    """The 4x4 two-site environment tensors N_p of <w|z> at pairs
+    (lo, lo+1): ``<(Y w)|z> = sum(conj(Y) * N)`` for any pair-local Y."""
+    idx = torch.as_tensor(los, dtype=torch.long, device=l_stack.device)
+    aw, az = _folded_tensors(w), _folded_tensors(z)
+    tw = torch.einsum("psam,ptmb->pstab", aw[idx], aw[idx + 1])
+    tz = torch.einsum("puAM,pvMB->puvAB", az[idx], az[idx + 1])
+    tz = torch.einsum("puvAB,pbB->puvAb", tz, r_stack[idx + 2])
+    x = torch.einsum("paA,pstab->pstAb", l_stack[idx], tw.conj())
+    n4 = torch.einsum("pstAb,puvAb->puvst", x, tz)
+    return n4.reshape(len(los), 4, 4)  # rows = z phys (u,v), cols = w phys (s,t)
+
+
+def _embed_1q_batch(g, on_hi: bool):
+    """Batched 1q gates (P, 2, 2) embedded as 4x4 in lo-major ordering."""
+    eye = torch.eye(2, dtype=g.dtype, device=g.device)
+    if on_hi:
+        out = torch.einsum("ij,pkl->pikjl", eye, g)
+    else:
+        out = torch.einsum("pij,kl->pikjl", g, eye)
+    return out.reshape(g.shape[0], 4, 4)
+
+
+def _embed_pauli(p, on_hi: bool):
+    eye = torch.eye(2, dtype=p.dtype, device=p.device)
+    return torch.kron(eye, p) if on_hi else torch.kron(p, eye)
+
+
+def _triplet_prefixes(group, layer_thetas, layer_masks, dtype, device):
+    """Pure 4x4 algebra of one half-layer group: the composed triplet
+    prefixes F_p (P, 4, 4) and, per parameter column, the sandwiches
+    ``pre^H P pre`` at that point of the triplet.
+
+    Returns (prefix, [(blk, col, msk, y4), ...])."""
+    y_mat, z_mat, x_mat = G.y(dtype, device), G.z(dtype, device), G.x(dtype, device)
+    tidx = [t for t, _ in group]
+    P = len(group)
+    prefix = torch.eye(4, dtype=dtype, device=device).expand(P, 4, 4)
+    sandwiches = []
+    for b in range(3):
+        ctrl_is_hi = b != 1  # triplet blocks 0/2 have ctrl = hi, block 1 flipped
+        ent = _cx_lo_hi(ctrl_is_hi, dtype, device)
+        if b == 0:
+            # Leading triplet framing Rz(-pi/2) on ctrl (= hi) folds into E.
+            ent = torch.matmul(ent, _rz_frame_lo_hi(-np.pi / 2, True, dtype, device))
+        prefix = torch.einsum("ij,pjk->pik", ent, prefix)
+
+        blk = torch.as_tensor([3 * t + b for t in tidx], dtype=torch.long, device=device)
+        th = layer_thetas[blk]  # (P, tpb)
+        msk = layer_masks[blk].to(dtype)  # (P,)
+        specs = (
+            (G.ry, y_mat, ctrl_is_hi, 0),  # on ctrl
+            (G.rz, z_mat, ctrl_is_hi, 1),  # on ctrl
+            (G.ry, y_mat, not ctrl_is_hi, 2),  # on targ
+            (G.rx, x_mat, not ctrl_is_hi, 3),  # on targ
+        )
+        for gate_fn, pauli, on_hi, col in specs:
+            g4 = _embed_1q_batch(gate_fn(th[:, col], dtype), on_hi)
+            prefix = torch.einsum("pij,pjk->pik", g4, prefix)
+            p4 = _embed_pauli(pauli, on_hi)
+            y4 = torch.einsum("pji,jk,pkl->pil", prefix.conj(), p4, prefix)
+            sandwiches.append((blk, col, msk, y4))
+        if b == 2:
+            # Trailing triplet framing Rz(pi/2) on targ (= lo).
+            frame = G.rz(np.pi / 2, dtype, device).expand(P, 2, 2)
+            prefix = torch.einsum("pij,pjk->pik", _embed_1q_batch(frame, not ctrl_is_hi), prefix)
+    return prefix, sandwiches
+
+
+def _half_layer_cosweep(circ, group, layer_thetas, layer_masks, w: MPS, z: MPS, trunc_thr, dtype):
+    """One chessboard half-layer against the layer-entry z: returns
+    (w', dots (bpl, 4)) with rows only for this group's blocks filled.  The
+    z side is not updated (the caller substitutes the cached boundary)."""
+    device = w.gammas.device
+    los = tuple(lo for _, lo in group)
+    _, _, l_stack, r_stack = _env_stacks(w, z)
+    n4 = _pair_env_tensors(w, z, l_stack, r_stack, los)
+    prefix, sandwiches = _triplet_prefixes(group, layer_thetas, layer_masks, dtype, device)
+    dots = torch.zeros((circ.bpl, 4), dtype=dtype, device=device)
+    for blk, col, msk, y4 in sandwiches:
+        dots[blk, col] += 0.5j * torch.einsum("pij,pij->p", y4.conj(), n4) * msk
+    return apply_pairs_mps(w, prefix, los, trunc_thr=trunc_thr), dots
+
+
+def _half_layer_cosweep_znext(circ, group, layer_thetas, layer_masks, w: MPS, z_next: MPS, trunc_thr, dtype):
+    """Group co-sweep against the cached POST-group boundary ``z_next``:
+    with G = prod_p F_p and z_mid = G† z_next, every dot satisfies
+    ``<Y_p w | z_mid> = <(F_p Y_p) w | z_next>``, where the OTHER pairs' F_q
+    fold into the w-side two-site transfers of <w|z_next>.  Every
+    environment cut lands between pairs, so the z side needs zero truncated
+    decompositions.  Returns (w', dots)."""
+    device = w.gammas.device
+    los = tuple(lo for _, lo in group)
+    prefix, sandwiches = _triplet_prefixes(group, layer_thetas, layer_masks, dtype, device)
+
+    aw, az = _folded_tensors(w), _folded_tensors(z_next)
+    n = w.num_sites
+    e0 = _e0(w.chi, z_next.chi, dtype, device)
+    pair_of_lo = {lo: i for i, lo in enumerate(los)}
+
+    def fold_pair_w(lo, f4):
+        """tw[s,t,a,c] = sum_{uv,b} f4[(st),(uv)] aw_lo[u,a,b] aw_hi[v,b,c]."""
+        two = torch.einsum("uab,vbc->uvac", aw[lo], aw[lo + 1])
+        return torch.einsum("stuv,uvac->stac", f4.reshape(2, 2, 2, 2), two)
+
+    def pair_z(lo):
+        return torch.einsum("uAB,vBC->uvAC", az[lo], az[lo + 1])
+
+    units, q = [], 0
+    while q < n:
+        if q in pair_of_lo:
+            units.append(("pair", q))
+            q += 2
+        else:
+            units.append(("site", q))
+            q += 1
+
+    l_envs, env = {}, e0
+    for kind, q in units:
+        if kind == "pair":
+            l_envs[q] = env
+            tw = fold_pair_w(q, prefix[pair_of_lo[q]])
+            env = torch.einsum("aA,stac,stAC->cC", env, tw.conj(), pair_z(q))
+        else:
+            env = _env_left_step(env, aw[q], az[q])
+
+    r_envs, env = {}, e0
+    for kind, q in reversed(units):
+        if kind == "pair":
+            r_envs[q] = env
+            tw = fold_pair_w(q, prefix[pair_of_lo[q]])
+            env = torch.einsum("stac,stAC,cC->aA", tw.conj(), pair_z(q), env)
+        else:
+            env = _env_right_step(aw[q], az[q], env)
+
+    def n4_at(lo):
+        tw = torch.einsum("uab,vbc->uvac", aw[lo], aw[lo + 1])  # open w legs
+        x = torch.einsum("aA,stac->stAc", l_envs[lo], tw.conj())
+        x = torch.einsum("stAc,cC->stAC", x, r_envs[lo])
+        return torch.einsum("stAC,uvAC->uvst", x, pair_z(lo)).reshape(4, 4)
+
+    n4 = torch.stack([n4_at(lo) for lo in los])
+    dots = torch.zeros((circ.bpl, 4), dtype=dtype, device=device)
+    for blk, col, msk, y4 in sandwiches:
+        y4f = torch.einsum("pij,pjk->pik", prefix, y4)
+        dots[blk, col] += 0.5j * torch.einsum("pij,pij->p", y4f.conj(), n4) * msk
+    return apply_pairs_mps(w, prefix, los, trunc_thr=trunc_thr), dots
+
+
+def _front_cosweep_batched(circ, thetas1q, w: MPS, z: MPS, front_layer: bool, dtype):
+    """Front Rz·Ry·Rz layer: batched 1q applies + batched dots."""
+    n = circ.num_qubits
+    device = w.gammas.device
+    sites = tuple(range(n))
+    grads = torch.zeros((n, 3), dtype=dtype, device=device)
+    if front_layer:  # one stack build serves all three dot rounds
+        _, _, l_stack, r_stack = _env_stacks(w, z)
+    for col, gate_fn, pauli in ((2, G.rz, G.z), (1, G.ry, G.y), (0, G.rz, G.z)):
+        g1q = gate_fn(thetas1q[:, col], dtype)
+        w = apply_1q_many(w, g1q, sites)
+        z = apply_1q_many(z, g1q, sites)
+        if front_layer:
+            paulis = pauli(dtype, device).expand(n, 2, 2)
+            grads[:, col] = 0.5j * _dots_from_stacks(w, z, l_stack, r_stack, paulis, sites)
+    return w, z, grads
+
+
+def _fast_dot_gradient_layered_zcache(
+    circ: Ansatz,
+    thetas: torch.Tensor,
+    lvec: MPS,
+    vh_phi: MPS,
+    z_layers: MPS,
+    trunc_thr: float,
+    block_range: Tuple[int, int],
+    front_layer: bool,
+    grow_w: bool = False,
+):
+    """Layered co-sweep consuming the V† sweep's per-layer z cache: no z-side
+    truncated update at all.  ``grow_w``: with a rank-1 product ``lvec`` the
+    head layers run the w side at a growing bond dimension (exact).
+    Returns (gradient, final w = V @ lvec)."""
+    dtype = lvec.gammas.dtype
+    device = lvec.gammas.device
+    nb, bpl, tpb = circ.num_blocks, circ.bpl, circ.tpb
+    layers = nb // bpl
+    groups = _layered_plan(circ)
+    if len(groups) != 2:
+        raise NotImplementedError(
+            "the z-cached co-sweep supports chessboard (2-group) layers only in this port"
+        )
+
+    thetas1q = circ.subset1q(thetas)
+    thetas2q = circ.subset2q(thetas)
+    masks = torch.zeros(nb, dtype=thetas.dtype, device=device)
+    masks[block_range[0] : block_range[1]] = 1.0
+
+    chi_z = vh_phi.chi
+    if grow_w:
+        lvec = mps_resize(lvec, 1)  # exact for a rank-1 product lvec
+
+    w, z, grad1q = _front_cosweep_batched(circ, thetas1q, lvec, vh_phi, front_layer, dtype)
+
+    th_layers = thetas2q.reshape(layers, bpl, tpb)
+    m_layers = masks.reshape(layers, bpl)
+    z_next = z_layers[1:]  # z_next[j] = z state after layer j
+
+    rows = []
+    chi_w = w.chi
+    for j in range(layers):
+        th_l, m_l, znx = th_layers[j], m_layers[j], z_next[j]
+        # Head layers grow w's bond dimension x2 before each half-layer.
+        grow = grow_w and chi_w < chi_z
+        if grow:
+            chi_w = min(chi_z, 2 * chi_w)
+            w = mps_resize(w, chi_w)
+        # Group 1 dots use the layer-entry boundary z; group 2 contracts
+        # against the NEXT cached boundary with the group prefixes folded
+        # into the w-side transfers.
+        w, d1 = _half_layer_cosweep(circ, groups[0], th_l, m_l, w, z, trunc_thr, dtype)
+        if grow:
+            chi_w = min(chi_z, 2 * chi_w)
+            w = mps_resize(w, chi_w)
+        w, d2 = _half_layer_cosweep_znext(circ, groups[1], th_l, m_l, w, znx, trunc_thr, dtype)
+        z = znx
+        rows.append(d1 + d2)
+    if grow_w:
+        w = mps_resize(w, max(w.chi, chi_z))
+    grad2q = torch.stack(rows).reshape(nb, tpb)
+
+    if circ.half_layer_num_blocks:
+        # Trailing half-layer == leading even group of layer 0; z already
+        # holds cache[L].
+        w, d = _half_layer_cosweep(circ, groups[0], th_layers[0], m_layers[0], w, z, trunc_thr, dtype)
+        grad2q[:bpl] += d
+
+    # The co-sweep's final w IS V @ lvec.
+    return torch.cat([grad1q.reshape(-1), grad2q.reshape(-1)]), w
+
+
+def _layered_eligible(circ: Ansatz) -> bool:
+    if not (circ.is_trotterized and circ.entangler == "cx"):
+        return False
+    nb, bpl = circ.num_blocks, circ.bpl
+    if nb == 0 or bpl == 0 or nb % bpl != 0:
+        return False
+    return all(
+        circ.blocks[0, k] == circ.blocks[0, k % bpl] and circ.blocks[1, k] == circ.blocks[1, k % bpl]
+        for k in range(nb)
+    )
+
+
+def _check_grow_w_contract(grow_w: bool, lvec: MPS) -> None:
+    """grow_w truncates ``lvec`` to chi=1, which is exact ONLY for a rank-1
+    product state with all bond weight at index 0."""
+    if grow_w and bool((lvec.lambdas[..., 1:] != 0).any()):
+        raise ValueError(
+            "grow_w=True requires a chi=1 product-state lvec "
+            "(all bond spectra confined to index 0)"
+        )
+
+
+def fast_dot_gradient(
+    circ: Ansatz,
+    thetas: torch.Tensor,
+    lvec: MPS,
+    vh_phi: MPS,
+    *,
+    trunc_thr: float = no_truncation_threshold(),
+    block_range: Optional[Tuple[int, int]] = None,
+    front_layer: bool = True,
+    z_layers: Optional[MPS] = None,
+    grow_w: bool = False,
+) -> torch.Tensor:
+    """Complex gradient of ``<lvec | V† | phi>`` with MPS states; ``vh_phi``
+    must hold ``V† phi`` and ``z_layers`` the per-layer cache of
+    ``v_dagger_mul_mps_layers``.  Only that z-cached layered Trotter path is
+    ported so far."""
+    if circ.circuit_power != 1:
+        raise ValueError("analytic gradient requires circuit_power == 1")
+    if z_layers is None or not _layered_eligible(circ):
+        raise NotImplementedError(
+            "only the z-cached layered Trotter co-sweep is ported (pass z_layers "
+            "from v_dagger_mul_mps_layers with a TrotterAnsatz)"
+        )
+    _check_grow_w_contract(grow_w, lvec)
+    block_range = (0, circ.num_blocks) if block_range is None else tuple(block_range)
+    if not 0 <= block_range[0] < block_range[1] <= circ.num_blocks:
+        raise ValueError(f"bad block_range {block_range}")
+    grad, _ = _fast_dot_gradient_layered_zcache(
+        circ, thetas, lvec, vh_phi, z_layers, float(trunc_thr), block_range,
+        bool(front_layer), bool(grow_w),
+    )
+    return grad
+
+
+def fast_dot_gradient_with_state(
+    circ: Ansatz,
+    thetas: torch.Tensor,
+    lvec: MPS,
+    vh_phi: MPS,
+    z_layers: MPS,
+    *,
+    trunc_thr: float = no_truncation_threshold(),
+    grow_w: bool = False,
+) -> Tuple[torch.Tensor, MPS]:
+    """Full gradient PLUS the co-sweep's final w state (= ``V @ lvec``), from
+    which the objective overlap ``<V lvec | phi>`` is read
+    forward-consistently."""
+    if not _layered_eligible(circ):
+        raise ValueError("fast_dot_gradient_with_state needs a layered Trotter ansatz")
+    if circ.circuit_power != 1:
+        raise ValueError("analytic gradient requires circuit_power == 1")
+    _check_grow_w_contract(grow_w, lvec)
+    return _fast_dot_gradient_layered_zcache(
+        circ, thetas, lvec, vh_phi, z_layers, float(trunc_thr), (0, circ.num_blocks),
+        True, bool(grow_w),
+    )

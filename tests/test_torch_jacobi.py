@@ -1,0 +1,183 @@
+"""The one-sided Jacobi route of the port (ops/jacobi_kernel.py,
+ops/jacobi_svd.py) held against the JAX package's Pallas kernel in
+interpret mode (ops/pallas_jacobi.py) and its XLA spec (ops/jacobi_svd.py).
+
+Tolerances: singular values 1e-5 * s_max and reconstruction 1e-5 relative —
+the f32 convergence floor of the adaptive loop (tol 1e-6 per entry,
+pallas_jacobi.py:85-93, plus f32 rounding of the two implementations);
+kept-subspace projectors 1e-4 — the projector is sensitive to the spectral
+gap as well.  Raw factors are not compared (phases are arbitrary).
+
+The kernel itself runs only on a CUDA card: tests/test_torch_kernel.py."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from aqc_research_tpu import config as jcfg
+from aqc_research_tpu.ops import jacobi_svd as jspec
+from aqc_research_tpu.ops import pallas_jacobi as jpj
+from aqc_research_tpu_torch import config
+from aqc_research_tpu_torch.ops import jacobi_kernel as jk
+from aqc_research_tpu_torch.ops import jacobi_svd as tspec
+
+S_TOL = 1e-5
+REC_TOL = 1e-5
+PROJ_TOL = 1e-4
+
+
+def graded(seed: int, batch: int, n: int, decades: float = 2.0) -> np.ndarray:
+    """Complex64 matrices with a log-spaced spectrum 1 .. 10^-decades."""
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((batch, n, n)) + 1j * rng.standard_normal((batch, n, n))
+    u, _, vh = np.linalg.svd(a)
+    s = 10.0 ** (-decades * np.arange(n) / (n - 1))
+    return ((u * s[None, None, :]) @ vh).astype(np.complex64)
+
+
+@pytest.fixture
+def jax_criterion():
+    """Sets both packages' Jacobi criterion and the JAX kernel's chunk to 1
+    (per-matrix adaptive loop, the port's semantics); restores both."""
+    previous = config.jacobi_criterion()
+
+    def use(criterion):
+        jcfg.set_jacobi_criterion(criterion)
+        config.set_jacobi_criterion(criterion)
+        jcfg.set_svd_chunk(1)
+        jax.clear_caches()
+
+    yield use
+    jcfg.set_jacobi_criterion(None)
+    jcfg.set_svd_chunk(None)
+    config.set_jacobi_criterion(previous)
+    jax.clear_caches()
+
+
+@pytest.mark.parametrize("criterion", ["entry", "hybrid"])
+@pytest.mark.parametrize("n", [8, 16, 32])
+def test_twin_matches_pallas_interpret(jax_criterion, n, criterion):
+    jax_criterion(criterion)
+    m = graded(n, 3, n)
+    k = n // 2
+    ju, js, jvh = (np.asarray(x) for x in jpj.jacobi_svd_pallas_top_k(jnp.asarray(m), k))
+    tu, ts, tvh = jk.jacobi_svd_kernel_top_k(torch.tensor(m), k)
+    smax = js[:, :1]
+    assert np.abs(ts.numpy() - js).max() <= S_TOL * smax.max()
+    # Full factorization of the port reconstructs m.
+    fu, fs, fvh = jk.jacobi_svd_kernel_top_k(torch.tensor(m), n)
+    rec = torch.matmul(fu * fs[:, None, :].to(fu.dtype), fvh)
+    rel = torch.linalg.matrix_norm(rec - torch.tensor(m)) / torch.linalg.matrix_norm(torch.tensor(m))
+    assert float(rel.max()) <= REC_TOL
+    # Kept subspaces agree (left and right projectors).
+    tpu = tu.numpy() @ np.conj(np.swapaxes(tu.numpy(), -1, -2))
+    jpu = ju @ np.conj(np.swapaxes(ju, -1, -2))
+    assert np.abs(tpu - jpu).max() <= PROJ_TOL
+    tpv = np.conj(np.swapaxes(tvh.numpy(), -1, -2)) @ tvh.numpy()
+    jpv = np.conj(np.swapaxes(jvh, -1, -2)) @ jvh
+    assert np.abs(tpv - jpv).max() <= PROJ_TOL
+
+
+@pytest.mark.parametrize("criterion", ["entry", "hybrid"])
+def test_twin_sweep_counts_match_jax(jax_criterion, criterion):
+    """Per-matrix adaptive sweep counts equal the JAX spec's count of each
+    matrix (jacobi_sweeps_used runs the identical schedule/tolerance)."""
+    jax_criterion(criterion)
+    m = graded(5, 3, 16)
+    mt = torch.tensor(m).transpose(-1, -2)
+    _, _, sweeps = jk.jacobi_rows_reference(mt.real.contiguous(), mt.imag.contiguous(), 12)
+    want = [int(jspec.jacobi_sweeps_used(jnp.asarray(m[i]), 12, criterion)) for i in range(3)]
+    assert sweeps.tolist() == want
+
+
+@pytest.mark.parametrize("dtype", [np.complex128, np.complex64])
+def test_spec_matches_jax_at_n4(dtype):
+    """Matrices below 8 columns take the spec (the χ-growth heads)."""
+    rng = np.random.default_rng(11)
+    m = (rng.standard_normal((3, 4, 4)) + 1j * rng.standard_normal((3, 4, 4))).astype(dtype)
+    ju, js, jvh = (np.asarray(x) for x in jspec.jacobi_svd_top_k(jnp.asarray(m), 2))
+    tu, ts, tvh = tspec.jacobi_svd_top_k(torch.tensor(m), 2)
+    tol = 1e-12 if dtype == np.complex128 else S_TOL
+    np.testing.assert_allclose(ts.numpy(), js, atol=tol * js.max())
+    fu, fs, fvh = tspec.jacobi_svd(torch.tensor(m))
+    rec = (fu * fs[:, None, :].to(fu.dtype)) @ fvh
+    np.testing.assert_allclose(rec.numpy(), m, atol=(1e-12 if dtype == np.complex128 else 1e-5))
+    np.testing.assert_allclose(
+        np.abs(tu.numpy() @ np.conj(np.swapaxes(tu.numpy(), -1, -2))),
+        np.abs(ju @ np.conj(np.swapaxes(ju, -1, -2))),
+        atol=(1e-10 if dtype == np.complex128 else PROJ_TOL),
+    )
+
+
+def test_sort_guard_matches_jax_on_rank_deficient_rows():
+    """Rows below 32*eps*s_max come back as exact zeros, as in JAX."""
+    rng = np.random.default_rng(2)
+    norms = np.array([1.0, 0.7, 0.5, 0.3, 0.1, 5e-2, 1e-2, 1e-3, 1e-4, 1e-5, 5e-6, 3e-6, 1e-6, 1e-7, 1e-8, 0.0])
+    rows = rng.standard_normal((2, 16, 16)) + 1j * rng.standard_normal((2, 16, 16))
+    rows = rows / np.linalg.norm(rows, axis=-1, keepdims=True) * norms[None, :, None]
+    w_re, w_im = rows.real.astype(np.float32), rows.imag.astype(np.float32)
+    jw, js, jinv = jpj._sort_guard_top_k(jnp.asarray(w_re), jnp.asarray(w_im), 16, jnp.complex64)
+    tw, ts, tinv = jk._sort_guard_top_k(torch.tensor(w_re), torch.tensor(w_im), 16, torch.complex64)
+    assert (ts.numpy() == 0).any()
+    np.testing.assert_array_equal(ts.numpy() == 0, np.asarray(js) == 0)
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-6)
+    np.testing.assert_allclose(tinv.numpy(), np.asarray(jinv), rtol=1e-6)
+    np.testing.assert_allclose(tw.numpy(), np.asarray(jw), atol=1e-7)
+
+
+def test_cpu_tensors_take_the_twin_and_count_no_launch():
+    m = graded(3, 2, 16)
+    mt = torch.tensor(m).transpose(-1, -2)
+    re, im = mt.real.contiguous(), mt.imag.contiguous()
+    before = jk.jacobi_rows.launches
+    got = jk.jacobi_rows(re, im, 12)
+    want = jk.jacobi_rows_reference(re, im, 12)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert jk.jacobi_rows.launches == before
+
+
+def test_rows_reject_other_devices():
+    meta = torch.empty((1, 8, 8), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        jk.jacobi_rows(meta, meta, 12)
+
+
+@pytest.mark.parametrize(
+    "shape,dtype,why",
+    [
+        ((2, 8, 8), torch.float64, "float32"),
+        ((8, 8), torch.float32, r"\(B, c, r\)"),
+        ((2, 7, 8), torch.float32, "even c"),
+        ((2, 8, 6), torch.float32, "r >= c"),
+        ((1, 256, 256), torch.float32, "shared memory"),
+    ],
+)
+def test_kernel_argument_checks_raise(shape, dtype, why):
+    t = torch.zeros(shape, dtype=dtype)
+    with pytest.raises(ValueError, match=why):
+        jk.check_rows_args(t, t, 232448)
+
+
+def test_kernel_argument_checks_accept_the_slice_shapes():
+    for n in (8, 16, 32, 64, 128):
+        t = torch.zeros((10, n, n))
+        jk.check_rows_args(t, t, 232448)
+    assert jk.rows_smem_bytes(128, 128) == 4 * (2 * 128 * 128 + 3 * 128)
+    t = torch.zeros((2, 16, 8)).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        jk.check_rows_args(t, t, 232448)
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setattr(jk.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        jk._nvcc()
+
+
+def test_truncation_supported_matches_jax():
+    for thr in (1e-16, 1.4e-14, 1e-13, 1e-12, 1e-8, 1e-6, 1e-3):
+        assert jk.truncation_supported(thr) == jpj.truncation_supported(thr)
