@@ -10,10 +10,15 @@ The mode is process-global (it decides the dtype of newly created tensors);
 functions also accept explicit dtypes where that matters.  It is read from
 ``AQC_TORCH_PRECISION`` (default ``"high"``).
 
-The truncated-SVD route of the MPS engine is chosen per tensor: ``"jacobi"``
-(the hand-written one-sided Jacobi kernel, ops/jacobi_kernel.py) for CUDA
-tensors, ``"native"`` (``torch.linalg.svd``) for CPU tensors — the twin of
-the JAX package's "TPU kernel on the accelerator, LAPACK elsewhere" rule.
+The truncated-SVD route of the MPS engine is chosen per tensor: ``"rand"``
+(the fused randomized-projection pair update, ops/fused_rand.py, with the
+hand-written kernels) for CUDA tensors, ``"native"`` (``torch.linalg.svd``)
+for CPU tensors — the twin of the JAX package's "rand route on the
+accelerator, LAPACK elsewhere" rule (its ``config.svd_impl``).
+
+Tensors the port creates without an input to follow go to :func:`device`,
+which never falls back to the CPU on its own: without a CUDA card the CPU
+must be asked for (``set_device("cpu")`` or ``AQC_TORCH_DEVICE=cpu``).
 """
 
 from __future__ import annotations
@@ -78,18 +83,27 @@ _DEVICE = os.environ.get("AQC_TORCH_DEVICE") or None
 
 def set_device(device) -> None:
     """Default device for tensors the port creates without an input to
-    follow (``None``: CUDA when present, else CPU)."""
+    follow (``None``: the CUDA card, which must then be present)."""
     global _DEVICE
     _DEVICE = None if device is None else str(device)
 
 
 def device() -> torch.device:
+    """The default device: the one set, else the CUDA card.  Raises when
+    nothing was set and there is no card — the port runs on the CPU only
+    when asked to."""
     if _DEVICE is not None:
         return torch.device(_DEVICE)
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available and no default device was set; "
+            'to run the port on the CPU call config.set_device("cpu") or set '
+            "AQC_TORCH_DEVICE=cpu"
+        )
+    return torch.device("cuda")
 
 
-_SVD_IMPLS = ("native", "jacobi")
+_SVD_IMPLS = ("native", "jacobi", "rand")
 _SVD_IMPL: str | None = os.environ.get("AQC_TORCH_SVD_IMPL") or None
 if _SVD_IMPL is not None and _SVD_IMPL not in _SVD_IMPLS:
     raise ValueError(f"AQC_TORCH_SVD_IMPL must be one of {_SVD_IMPLS}")
@@ -102,7 +116,12 @@ def set_svd_impl(impl: str | None) -> None:
     * ``"jacobi"`` — batched one-sided Jacobi (ops/jacobi_kernel.py): the
       hand-written CUDA kernel on CUDA tensors, its plain-torch twin on CPU
       tensors.  f32 arithmetic regardless of the precision mode.
-    * ``None`` — auto, per tensor: "jacobi" on CUDA, "native" on CPU.
+    * ``"rand"`` — the fused randomized-projection pair update
+      (ops/fused_rand.py): the θ-build kernel, a torch range-finder, the
+      reduced-Jacobi tail kernel.  Taken for complex64 pair updates with
+      χ % 8 == 0 and 2χ >= ``rand_svd.RAND_MIN_N``; every other pair update
+      takes the "jacobi" route (never an unfused rand SVD).
+    * ``None`` — auto, per tensor: "rand" on CUDA, "native" on CPU.
     """
     global _SVD_IMPL
     if impl is not None and impl not in _SVD_IMPLS:
@@ -118,7 +137,7 @@ def svd_impl(dev=None) -> str:
     if isinstance(dev, torch.Tensor):
         dev = dev.device
     dev = device() if dev is None else torch.device(dev)
-    return "jacobi" if dev.type == "cuda" else "native"
+    return "rand" if dev.type == "cuda" else "native"
 
 
 @contextmanager
@@ -137,8 +156,9 @@ def svd_impl_override(impl: str):
 
 def mps_watchdog_enabled() -> bool:
     """The MPS optimization watchdog (models/sp_lhs/jit_asp.py): after a
-    horizon optimized under the jacobi route, the returned iterate's
-    objective is re-evaluated under ``"native"`` and the horizon is flagged
+    horizon optimized under a route other than the reference one
+    (``"jacobi"`` on CUDA, ``"native"`` on the CPU), the returned iterate's
+    objective is re-evaluated under the reference and the horizon is flagged
     and re-optimized when the two disagree grossly.  Disable with
     ``AQC_TORCH_MPS_WATCHDOG=0``."""
     return os.environ.get("AQC_TORCH_MPS_WATCHDOG", "1") != "0"

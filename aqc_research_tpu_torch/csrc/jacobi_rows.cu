@@ -5,173 +5,47 @@
 // _jacobi_pallas_raw (body _jacobi_kernel_body, loop _adaptive_seat_sweeps)
 // and computes what it computes: for every (c, r) plane pair — row j is
 // column j of the input matrix — rotate the c rows pairwise until they are
-// mutually orthogonal, returning W = (m V)^T.  Each sweep is 2p-1 phases
-// (p = c/2); a phase rotates the p disjoint row pairs (L[j], R[j]).  A
-// matrix stops after the sweep whose largest entry-absolute residual
-// |c| / sqrt(s_max^2 * max(|w_i|^2, |w_j|^2)) ("entry"; "hybrid" gates with
-// max(min(|w_i|^2, |w_j|^2), (32 eps)^2 s_max^2)) falls below 1e-6, or after
-// max_sweeps sweeps.  The rotation formulas are those of the Pallas kernel,
-// term for term, so the two agree to f32 rounding.
+// mutually orthogonal, returning W = (m V)^T and each matrix's sweep count.
+// The loop itself (schedule, rotation, criteria, stopping) lives in
+// seat_sweeps.cuh, shared with the rand-tail kernel.
 //
 // Design.  One thread block per matrix; both planes live in dynamic shared
 // memory (128 KB at 128x128) for the whole run, so device memory is touched
-// once on the way in and once on the way out.  Each warp takes a share of
-// the p pairs of a phase: its lanes stride over the r entries, and warp
-// shuffles reduce the pair's Gram entries (aa, bb, c) so that every lane
-// holds the rotation and applies it in place.  The round robin moves no
-// rows: a full tour is one cycle of the 2p-1 non-fixed seats, so the row in
-// seat j at phase t is computed in closed form, and after every complete
-// sweep each row is back in its own place (output rows are in input order).
-// One __syncthreads() separates phases.  The phase residual needs the
-// phase's s_max, so the pair statistics go to a double-buffered shared array
-// and warp 0 reduces phase t while the other warps already rotate phase t+1.
+// once on the way in and once on the way out.  Output rows are in input
+// order (every complete sweep returns each row to its seat).
 //
 // Bounds.  At the MPS slice's 128x128 shape the kernel is bound by shared
-// memory traffic (every phase reads both planes twice and writes them once)
-// and by the per-phase barrier, not by device memory.  A half-layer batch of
-// B ~ 10 matrices fills only ~10 of the H100's 132 SMs.  Splitting one
-// matrix over a thread-block cluster (distributed shared memory), which is
-// also what the 256x256 shape (512 KB of planes) needs, is later work.
+// memory traffic and by the per-phase barrier, not by device memory.  A
+// half-layer batch of B ~ 10 matrices fills only ~10 of the H100's 132 SMs.
+// Splitting one matrix over a thread-block cluster (distributed shared
+// memory), which is also what the 256x256 shape (512 KB of planes) needs, is
+// later work.
 
 #include <cuda_runtime.h>
 
+#include "seat_sweeps.cuh"
+
 namespace {
 
-constexpr float kEps32 = 1.1920928955078125e-07f;  // FLT_EPSILON
-constexpr float kConvTol = 1e-6f;
-constexpr int kMaxThreads = 256;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// Position i on the seat cycle L1 -> ... -> L_{p-1} -> R_{p-1} -> ... -> R0
-// -> L1, mapped to the row that sits there at the start of a sweep.
-__device__ __forceinline__ int cycle_row(int i, int p) {
-  return i < p - 1 ? i + 1 : 3 * p - 2 - i;
-}
-
-// Rows seated at L[j] / R[j] in phase t: every phase moves each non-fixed
-// row one step along the cycle (L[0] keeps row 0).
-__device__ __forceinline__ int seat_l(int j, int t, int p) {
-  if (j == 0) return 0;
-  const int m = 2 * p - 1;
-  return cycle_row(((j - 1 - t) % m + m) % m, p);
-}
-
-__device__ __forceinline__ int seat_r(int j, int t, int p) {
-  const int m = 2 * p - 1;
-  return cycle_row(((2 * p - 2 - j - t) % m + m) % m, p);
-}
-
-__global__ void __launch_bounds__(kMaxThreads)
+__global__ void __launch_bounds__(aqc::kMaxThreads)
 jacobi_rows_kernel(const float* __restrict__ in_re, const float* __restrict__ in_im,
                    float* __restrict__ out_re, float* __restrict__ out_im,
                    int* __restrict__ sweeps_out, int c, int r, int max_sweeps,
                    int hybrid) {
   extern __shared__ float smem[];
   __shared__ int s_go;
-  const int p = c / 2;
   float* w_re = smem;
   float* w_im = w_re + c * r;
-  float* st_aa = w_im + c * r;  // [2][p]: phase parity x pair
-  float* st_bb = st_aa + 2 * p;
-  float* st_c = st_bb + 2 * p;  // |c|
+  float* stats = w_im + c * r;
 
   const size_t base = static_cast<size_t>(blockIdx.x) * c * r;
   for (int i = threadIdx.x; i < c * r; i += blockDim.x) {
     w_re[i] = in_re[base + i];
     w_im[i] = in_im[base + i];
   }
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int nwarps = blockDim.x >> 5;
-  const int phases = 2 * p - 1;
   __syncthreads();
 
-  int k = 0;
-  bool go = max_sweeps > 0;
-  while (go) {
-    float resid = 0.f;  // meaningful in warp 0 only
-    for (int t = 0; t < phases; ++t) {
-      const int buf = (t & 1) * p;
-      for (int j = warp; j < p; j += nwarps) {
-        float* lre = w_re + seat_l(j, t, p) * r;
-        float* lim = w_im + seat_l(j, t, p) * r;
-        float* rre = w_re + seat_r(j, t, p) * r;
-        float* rim = w_im + seat_r(j, t, p) * r;
-        float aa = 0.f, bb = 0.f, cre = 0.f, cim = 0.f;
-        for (int e = lane; e < r; e += 32) {
-          const float a_r = lre[e], a_i = lim[e], b_r = rre[e], b_i = rim[e];
-          aa += a_r * a_r + a_i * a_i;
-          bb += b_r * b_r + b_i * b_i;
-          cre += a_r * b_r + a_i * b_i;
-          cim += a_r * b_i - a_i * b_r;
-        }
-        aa = warp_sum(aa);
-        bb = warp_sum(bb);
-        cre = warp_sum(cre);
-        cim = warp_sum(cim);
-
-        const float abs_c = sqrtf(cre * cre + cim * cim);
-        const float norm_ab = sqrtf(fmaxf(aa * bb, 1e-30f));
-        const bool active = abs_c > kEps32 * norm_ab;
-        if (lane == 0) {
-          st_aa[buf + j] = aa;
-          st_bb[buf + j] = bb;
-          st_c[buf + j] = abs_c;
-        }
-        if (active) {  // an inactive pair's rotation is the identity
-          const float ph_re = cre / abs_c;
-          const float ph_im = cim / abs_c;
-          const float tau = (bb - aa) / (2.f * abs_c);
-          const float sgn = tau >= 0.f ? 1.f : -1.f;  // sign(0) = +1
-          const float tt = sgn / (fabsf(tau) + sqrtf(1.f + tau * tau));
-          const float cs = rsqrtf(1.f + tt * tt);
-          const float sn_r = tt * cs;
-          const float sn_re = sn_r * ph_re;
-          const float sn_im = sn_r * ph_im;
-          // L' = cs L - conj(sn) R ;  R' = sn L + cs R
-          for (int e = lane; e < r; e += 32) {
-            const float a_r = lre[e], a_i = lim[e], b_r = rre[e], b_i = rim[e];
-            lre[e] = cs * a_r - (sn_re * b_r + sn_im * b_i);
-            lim[e] = cs * a_i - (sn_re * b_i - sn_im * b_r);
-            rre[e] = sn_re * a_r - sn_im * a_i + cs * b_r;
-            rim[e] = sn_re * a_i + sn_im * a_r + cs * b_i;
-          }
-        }
-      }
-      __syncthreads();
-      if (warp == 0) {
-        // Phase residual against this phase's s_max^2 (the other warps are
-        // already in phase t+1, writing the other stats buffer).
-        float smax2 = 0.f;
-        for (int j = lane; j < p; j += 32)
-          smax2 = fmaxf(smax2, fmaxf(st_aa[buf + j], st_bb[buf + j]));
-        smax2 = warp_max(smax2);
-        const float floor2 = (32.f * kEps32) * (32.f * kEps32) * smax2;
-        float worst = 0.f;
-        for (int j = lane; j < p; j += 32) {
-          const float a = st_aa[buf + j], b = st_bb[buf + j];
-          const float gate = hybrid ? fmaxf(fminf(a, b), floor2) : fmaxf(a, b);
-          worst = fmaxf(worst, st_c[buf + j] / sqrtf(fmaxf(smax2 * gate, 1e-30f)));
-        }
-        resid = fmaxf(resid, warp_max(worst));
-      }
-    }
-    ++k;
-    if (threadIdx.x == 0) s_go = (k < max_sweeps) && (resid >= kConvTol);
-    __syncthreads();
-    go = s_go;
-  }
+  const int k = aqc::adaptive_seat_sweeps(w_re, w_im, stats, &s_go, c, r, max_sweeps, hybrid);
 
   for (int i = threadIdx.x; i < c * r; i += blockDim.x) {
     out_re[base + i] = w_re[i];
@@ -189,27 +63,15 @@ extern "C" {
 int jacobi_rows_launch(const float* in_re, const float* in_im, float* out_re,
                        float* out_im, int* sweeps, int batch, int c, int r,
                        int max_sweeps, int hybrid, int threads, void* stream) {
-  if (threads < 32 || threads > kMaxThreads || threads % 32) return cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (2 * static_cast<size_t>(c) * r + 3 * c);
+  if (threads < 32 || threads > aqc::kMaxThreads || threads % 32) return cudaErrorInvalidValue;
+  const size_t smem =
+      sizeof(float) * (2 * static_cast<size_t>(c) * r + aqc::seat_stats_floats(c));
   cudaError_t err = cudaFuncSetAttribute(
       jacobi_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   jacobi_rows_kernel<<<batch, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       in_re, in_im, out_re, out_im, sweeps, c, r, max_sweeps, hybrid);
   return static_cast<int>(cudaGetLastError());
-}
-
-// Largest dynamic shared memory one block may opt into on ``device``.
-int jacobi_rows_max_smem(int device) {
-  int bytes = 0;
-  if (cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) !=
-      cudaSuccess)
-    return 0;
-  return bytes;
-}
-
-const char* jacobi_rows_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 }  // extern "C"

@@ -93,10 +93,10 @@ def _run_horizon(circ, x0, tgt, base_bits, trunc_thr, fobj_thr, maxiter, no_impr
 
 # -----------------------------------------------------------------------------
 # MPS optimization watchdog (the fobj=1.0 collapse fence): after a horizon
-# optimized under the jacobi route, re-evaluate the returned iterate under
-# the reference decomposition ("native"); a gross disagreement flags the run
-# (logger + ``watchdog_events``) and re-optimizes the horizon under
-# "native".  One extra objective evaluation per horizon.
+# optimized under a fast route, re-evaluate the returned iterate under the
+# reference decomposition; a gross disagreement flags the run (logger +
+# ``watchdog_events``) and re-optimizes the horizon under the reference.  One
+# extra objective evaluation per horizon.
 # -----------------------------------------------------------------------------
 
 _watchdog_logger = logging.getLogger(__name__)
@@ -108,16 +108,25 @@ watchdog_events: list = []
 # ~1e-5-class, the collapse signature is O(1).
 _WATCHDOG_ABS = 1e-2
 _WATCHDOG_REL = 1.0
-_WATCHDOG_REFERENCE = "native"
+
+
+def _watchdog_reference_impl(dev) -> str:
+    """The decomposition the watchdog trusts for tensors on ``dev`` (a
+    device or a tensor): the hand-written Jacobi kernel on CUDA, LAPACK
+    elsewhere — the JAX package's rule (its Pallas Jacobi kernel on the
+    accelerator, LAPACK elsewhere)."""
+    dev = dev.device if isinstance(dev, torch.Tensor) else torch.device(dev)
+    return "jacobi" if dev.type == "cuda" else "native"
 
 
 def _mps_watchdog(circ, thetas0, target, res: JitHorizonResult, *, base_bits, trunc_thr,
                   fobj_thr, maxiter, no_improve_iters) -> JitHorizonResult:
     route = svd_impl(target.device)
-    if not mps_watchdog_enabled() or route == _WATCHDOG_REFERENCE:
+    reference = _watchdog_reference_impl(target.device)
+    if not mps_watchdog_enabled() or route == reference:
         return res
     value, _ = _mps_value_fns(circ, base_bits, trunc_thr)
-    with svd_impl_override(_WATCHDOG_REFERENCE):
+    with svd_impl_override(reference):
         fobj_ref = float(value(res.thetas, target))
     fobj_opt = float(res.fobj)
     diff = abs(fobj_opt - fobj_ref)
@@ -128,7 +137,7 @@ def _mps_watchdog(circ, thetas0, target, res: JitHorizonResult, *, base_bits, tr
         "fobj_optimized": fobj_opt,
         "fobj_reference": fobj_ref,
         "svd_impl": route,
-        "reference_impl": _WATCHDOG_REFERENCE,
+        "reference_impl": reference,
         "num_qubits": circ.num_qubits,
     }
     watchdog_events.append(event)
@@ -136,9 +145,9 @@ def _mps_watchdog(circ, thetas0, target, res: JitHorizonResult, *, base_bits, tr
         "MPS watchdog: optimized fobj %0.6g disagrees with the reference "
         "decomposition's %0.6g at the returned iterate (svd_impl=%s) — "
         "re-optimizing this horizon under %s",
-        fobj_opt, fobj_ref, route, _WATCHDOG_REFERENCE,
+        fobj_opt, fobj_ref, route, reference,
     )
-    with svd_impl_override(_WATCHDOG_REFERENCE):
+    with svd_impl_override(reference):
         return _run_horizon(circ, thetas0, target, base_bits, trunc_thr, fobj_thr,
                             maxiter, no_improve_iters)
 
@@ -159,7 +168,8 @@ def optimize_horizon_mps_jit(
     ``thetas0`` lives on the target's device; ``base_bits`` encodes the
     X-layer product prep.
 
-    Under the jacobi route the result passes the collapse watchdog."""
+    Under a route other than the watchdog's reference for the target's
+    device the result passes the collapse watchdog."""
     if len(base_bits) != circ.num_qubits:
         raise ValueError(
             f"base_bits must give one 0/1 occupation per site: got "

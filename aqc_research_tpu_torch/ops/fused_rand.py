@@ -1,0 +1,189 @@
+"""Fused randomized-projection pair update (twin of
+``aqc_research_tpu/ops/fused_rand.py``): the rand route of the MPS engine.
+
+  pass A (kernel)  θ build — ops/fused_pair.theta_build (csrc/theta_build.cu);
+  middle (torch)   the HMT range-finder and projection B = Q^H θ
+                   (ops/rand_svd._range_project);
+  pass C (kernel)  :func:`rand_tail` (csrc/rand_tail.cu): the reduced
+                   one-sided Jacobi on conj(B), the stable top-chi selection,
+                   the 32 eps noise guard, the discarded-weight rule against
+                   the FULL θ weight, λ, 1/s and the vh rows;
+  tail (torch)     u = θ vhᴴ diag(1/s) in one product, then the Vidal gauge
+                   scalings.
+
+The kernel sees only the projected (l, n) problem, but the truncation rule
+and the norm rescale are defined against the full θ Frobenius weight
+(ops/mps._pair_update): pass A's output gives it in one reduction.
+
+Dispatch rule of :func:`rand_tail`: CPU tensors go to the plain twin
+:func:`rand_tail_reference`, CUDA tensors to the kernel — no fallback in
+between; the kernel route raises on anything it does not take, including a
+shape whose planes do not fit one block's shared memory (chi = 128).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from ..config import jacobi_criterion
+from . import cuda_build, rand_svd
+from .fused_pair import _prep_planes, theta_build
+from .jacobi_kernel import block_threads, jacobi_rows_reference, rows_smem_bytes
+from .jacobi_svd import DEFAULT_SWEEPS
+
+_EPS32 = float(torch.finfo(torch.float32).eps)
+
+
+def rand_tail_reference(
+    m_re: torch.Tensor,
+    m_im: torch.Tensor,
+    tot2: torch.Tensor,
+    thr2: float,
+    chi: int,
+    max_sweeps: int = DEFAULT_SWEEPS,
+    criterion: str | None = None,
+):
+    """Plain-torch twin of the kernel.  ``m_re``/``m_im``: the (B, l, n) f32
+    planes (Re B, -Im B); ``tot2``: (B,) full θ weight; ``thr2``: trunc_thr².
+
+    Returns (vh_re, vh_im (B, chi, n), lam (B, chi), inv (B, chi), sweeps
+    (B,) int32): the masked vh rows, the truncated and rescaled singular
+    values, the mask-safe 1/s and each matrix's sweep count."""
+    w_re, w_im, sweeps = jacobi_rows_reference(m_re, m_im, max_sweeps, criterion)
+    s2 = (w_re * w_re + w_im * w_im).sum(-1)
+    order = torch.argsort(-s2, dim=-1, stable=True)[:, :chi]
+    s2s = torch.take_along_dim(s2, order, dim=-1)
+    ws_re = torch.take_along_dim(w_re, order[..., None], dim=-2)
+    ws_im = torch.take_along_dim(w_im, order[..., None], dim=-2)
+
+    zero = torch.zeros_like(s2s)
+    guard = s2s > (32.0 * _EPS32) ** 2 * s2s[:, :1]
+    s2g = torch.where(guard, s2s, zero)
+    seen2 = torch.flip(torch.cumsum(torch.flip(s2g, [-1]), -1), [-1])
+    t2 = tot2[:, None]
+    rest2 = torch.clamp(t2 - s2s.sum(-1, keepdim=True) - 16.0 * _EPS32 * t2, min=0.0)
+    keep = (seen2 + rest2 > thr2 * t2) & guard
+    kept2 = torch.where(keep, s2s, zero).sum(-1, keepdim=True)
+    rescale = torch.sqrt(t2 / torch.clamp(kept2, min=1e-38))
+    s = torch.sqrt(s2s)
+    lam = torch.where(keep, s * rescale, zero)
+    inv = torch.where(keep, 1.0 / torch.clamp(s, min=1e-38), zero)
+    return ws_re * inv[..., None], -(ws_im * inv[..., None]), lam, inv, sweeps
+
+
+def tail_smem_bytes(ell: int, n: int, chi: int) -> int:
+    """Dynamic shared memory of one block: the Jacobi planes and statistics
+    plus the row norms, selected values, 1/s and selected rows."""
+    return rows_smem_bytes(ell, n) + 4 * (ell + 3 * chi)
+
+
+def check_tail_args(m_re, m_im, tot2, chi: int, max_smem: int) -> None:
+    """Raises ValueError unless the inputs are what the kernel takes."""
+    if any(t.dtype != torch.float32 for t in (m_re, m_im, tot2)):
+        raise ValueError(f"rand_tail takes float32 planes and weights, got {m_re.dtype}/{m_im.dtype}/{tot2.dtype}")
+    if m_re.ndim != 3 or m_re.shape != m_im.shape or tuple(tot2.shape) != (m_re.shape[0],):
+        raise ValueError(
+            f"rand_tail takes two (B, l, n) planes and (B,) weights, got "
+            f"{tuple(m_re.shape)}/{tuple(m_im.shape)}/{tuple(tot2.shape)}"
+        )
+    if m_im.device != m_re.device or tot2.device != m_re.device:
+        raise ValueError("rand_tail: inputs on different devices")
+    if not (m_re.is_contiguous() and m_im.is_contiguous() and tot2.is_contiguous()):
+        raise ValueError("rand_tail takes contiguous inputs")
+    _, ell, n = m_re.shape
+    if ell < 2 or ell % 2 or n < ell or not 1 <= chi <= ell:
+        raise ValueError(f"rand_tail needs an even l >= 2, n >= l and 1 <= chi <= l, got l={ell} n={n} chi={chi}")
+    need = tail_smem_bytes(ell, n, chi)
+    if need > max_smem:
+        raise ValueError(
+            f"rand_tail: the ({ell}, {n}) planes at chi={chi} need {need} B of shared memory, "
+            f"the device allows {max_smem} B per block"
+        )
+
+
+def rand_tail(
+    m_re: torch.Tensor,
+    m_im: torch.Tensor,
+    tot2: torch.Tensor,
+    thr2: float,
+    chi: int,
+    max_sweeps: int = DEFAULT_SWEEPS,
+    criterion: str | None = None,
+):
+    """Reduced Jacobi + selection + truncation + vh rows of the rand route
+    (see :func:`rand_tail_reference` for the contract).
+
+    CPU tensors run the plain twin; CUDA tensors launch the kernel (one
+    thread block per matrix) and every launch adds one to
+    ``rand_tail.launches``; any other device raises."""
+    criterion = criterion or jacobi_criterion()
+    if m_re.device.type == "cpu":
+        return rand_tail_reference(m_re, m_im, tot2, thr2, chi, max_sweeps, criterion)
+    if m_re.device.type != "cuda":
+        raise ValueError(f"rand_tail: unsupported device {m_re.device}")
+    dev = cuda_build.device_index(m_re)
+    check_tail_args(m_re, m_im, tot2, chi, cuda_build.max_smem(dev))
+    b, ell, n = m_re.shape
+    vh_re = torch.empty((b, chi, n), dtype=torch.float32, device=m_re.device)
+    vh_im = torch.empty_like(vh_re)
+    lam = torch.empty((b, chi), dtype=torch.float32, device=m_re.device)
+    inv = torch.empty_like(lam)
+    sweeps = torch.empty(b, dtype=torch.int32, device=m_re.device)
+    if b == 0:
+        return vh_re, vh_im, lam, inv, sweeps
+    cuda_build.launch(
+        "rand_tail_launch", dev,
+        m_re.data_ptr(), m_im.data_ptr(), tot2.data_ptr(), vh_re.data_ptr(), vh_im.data_ptr(),
+        lam.data_ptr(), inv.data_ptr(), sweeps.data_ptr(), b, ell, n, chi, int(max_sweeps),
+        int(criterion == "hybrid"), float(thr2), block_threads(ell),
+    )
+    rand_tail.launches += 1
+    return vh_re, vh_im, lam, inv, sweeps
+
+
+rand_tail.launches = 0
+
+
+def fused_rand_pair_update(
+    lam_l, lam_c, lam_r, g1, g2, gate4, chi: int, trunc_thr: float, dtype, rdtype,
+    sweeps: int = DEFAULT_SWEEPS,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The rand-route computation of ops.mps._pair_update (same contract:
+    ``lam_*`` (..., chi), ``g1/g2`` (..., 2, chi, chi), ``gate4`` (..., 4,
+    4); returns (new_g1, new_g2, new_lam)).  complex64 only; the caller
+    checks the shape guards (ops.mps._fused_rand_eligible)."""
+    from .mps import _safe_inv
+
+    batch_shape, b_count, ll, lr, a_re, a_im, b_re, b_im, gate_planes = _prep_planes(
+        lam_l, lam_c, lam_r, g1, g2, gate4, chi, dtype
+    )
+    n = 2 * chi
+    ell = rand_svd.rand_ell(n, chi)
+
+    # ---- pass A: θᵀ planes ----
+    w0_re, w0_im = theta_build(gate_planes, a_re, a_im, b_re, b_im)
+
+    # ---- middle: range-finder + projection on θ = W0ᵀ ----
+    a = torch.complex(w0_re, w0_im).transpose(-1, -2)
+    total2 = (w0_re * w0_re + w0_im * w0_im).sum((-2, -1))
+    bm = rand_svd._range_project(a, ell, rand_svd._POWER_ITERS)
+    m_re = bm.real.contiguous()
+    m_im = (-bm.imag).contiguous()
+
+    # ---- pass C: reduced Jacobi + truncation + vh rows ----
+    vh_re, vh_im, lam, inv, _ = rand_tail(m_re, m_im, total2, float(trunc_thr) ** 2, chi, sweeps)
+
+    # ---- tail: u = θ vhᴴ diag(1/s), then the gauge scalings ----
+    vh = torch.complex(vh_re, vh_im).to(dtype)
+    u = torch.matmul(a.to(dtype), vh.conj().transpose(-1, -2)) * inv[:, None, :].to(dtype)
+    inv_l = _safe_inv(ll).to(dtype)
+    inv_r = _safe_inv(lr).to(dtype)
+    new_g1 = u.reshape((b_count, 2, chi, chi)) * inv_l[:, None, :, None]
+    new_g2 = vh.reshape((b_count, chi, 2, chi)).transpose(-3, -2) * inv_r[:, None, None, :]
+    return (
+        new_g1.reshape(batch_shape + (2, chi, chi)),
+        new_g2.reshape(batch_shape + (2, chi, chi)),
+        lam.to(rdtype).reshape(batch_shape + (chi,)),
+    )

@@ -14,24 +14,19 @@ m`` (one batched product).
 Dispatch rule of :func:`jacobi_rows`: CPU tensors go to the plain twin
 :func:`jacobi_rows_reference`, CUDA tensors to the kernel — no fallback in
 between; the kernel route raises on anything it does not take.  The kernel
-library is built with ``nvcc`` from ``csrc/*.cu`` at first use, into
-``aqc_research_tpu_torch/_build/``.
+library is built with ``nvcc`` from ``csrc/`` at first use, into
+``aqc_research_tpu_torch/_build/`` (ops/cuda_build.py).
 """
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import Tuple
 
 import torch
 
 from ..config import jacobi_criterion
+from . import cuda_build
 from .jacobi_svd import DEFAULT_SWEEPS
 
 _EPS32 = float(torch.finfo(torch.float32).eps)
@@ -143,64 +138,13 @@ def jacobi_rows_reference(
 
 
 # -----------------------------------------------------------------------------
-# The CUDA kernel: build, load, launch.
+# The CUDA kernel (built and launched through ops/cuda_build.py).
 # -----------------------------------------------------------------------------
 
-_PKG = Path(__file__).resolve().parent.parent
-_CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG / "_build"
-_NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
-_LIB = None
-_MAX_SMEM: dict = {}
 
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    candidate = os.path.join(cuda_home, "bin", "nvcc")
-    if os.path.exists(candidate):
-        return candidate
-    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin): cannot build the Jacobi kernel")
-
-
-def build_kernel_library() -> Path:
-    """Compiles ``csrc/*.cu`` into one shared library (plain C interface) for
-    sm_90a, keyed by the sources' hash; returns its path.  The ptxas report
-    (registers, shared memory, spills) is kept beside it."""
-    sources = sorted(_CSRC.glob("*.cu"))
-    digest = hashlib.sha256(b"".join(s.read_bytes() for s in sources)).hexdigest()[:12]
-    lib = BUILD_DIR / f"libaqc_kernels_{digest}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{proc.stderr}")
-    lib.with_suffix(".ptxas.txt").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
-    return lib
-
-
-def _load():
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build_kernel_library()))
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.jacobi_rows_launch.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
-        lib.jacobi_rows_launch.restype = ci
-        lib.jacobi_rows_max_smem.argtypes = [ci]
-        lib.jacobi_rows_max_smem.restype = ci
-        lib.jacobi_rows_error_string.argtypes = [ci]
-        lib.jacobi_rows_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
+def block_threads(c: int) -> int:
+    """Threads of one block working on c rows: a warp per row pair, up to 8."""
+    return 32 * min(8, c // 2)
 
 
 def rows_smem_bytes(c: int, r: int) -> int:
@@ -247,28 +191,20 @@ def jacobi_rows(
         return jacobi_rows_reference(w_re, w_im, max_sweeps, criterion)
     if w_re.device.type != "cuda":
         raise ValueError(f"jacobi_rows: unsupported device {w_re.device}")
-    lib = _load()
-    dev = w_re.device.index if w_re.device.index is not None else torch.cuda.current_device()
-    if dev not in _MAX_SMEM:
-        _MAX_SMEM[dev] = int(lib.jacobi_rows_max_smem(dev))
-    check_rows_args(w_re, w_im, _MAX_SMEM[dev])
+    dev = cuda_build.device_index(w_re)
+    check_rows_args(w_re, w_im, cuda_build.max_smem(dev))
     b, c, r = w_re.shape
     out_re = torch.empty_like(w_re)
     out_im = torch.empty_like(w_im)
     sweeps = torch.empty(b, dtype=torch.int32, device=w_re.device)
     if b == 0:
         return out_re, out_im, sweeps
-    threads = 32 * min(8, c // 2)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.jacobi_rows_launch(
-            w_re.data_ptr(), w_im.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
-            sweeps.data_ptr(), b, c, r, int(max_sweeps), int(criterion == "hybrid"),
-            threads, stream,
-        )
-    if err != 0:
-        msg = lib.jacobi_rows_error_string(err).decode()
-        raise RuntimeError(f"jacobi_rows kernel launch failed: CUDA error {err} ({msg})")
+    cuda_build.launch(
+        "jacobi_rows_launch", dev,
+        w_re.data_ptr(), w_im.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
+        sweeps.data_ptr(), b, c, r, int(max_sweeps), int(criterion == "hybrid"),
+        block_threads(c),
+    )
     jacobi_rows.launches += 1
     return out_re, out_im, sweeps
 

@@ -27,6 +27,8 @@ import torch
 
 from ..circuit.program import GateProgram, gate_matrix
 from ..config import complex_dtype, device as default_device, jacobi_sweeps, real_of, svd_impl
+from . import rand_svd
+from .fused_rand import fused_rand_pair_update
 from .jacobi_kernel import jacobi_svd_kernel_top_k, truncation_supported
 from .jacobi_svd import DEFAULT_SWEEPS, jacobi_svd_top_k
 from .statevector import block_gates, front_gates
@@ -183,8 +185,9 @@ def _truncated_svd(m: torch.Tensor, chi: int, trunc_thr: float):
         u, s, vh = torch.linalg.svd(m, full_matrices=False)
         mask, total = _truncation_mask(s, chi, trunc_thr)
         return u[..., :, :chi], s[..., :chi], vh[..., :chi, :], mask[..., :chi], total
-    # "jacobi": the hand-written kernel on CUDA (its plain twin on CPU);
-    # matrices below 8 columns (χ-growth heads) take the spec.
+    # "jacobi" (and "rand" where its fused update does not apply): the
+    # hand-written kernel on CUDA (its plain twin on CPU); matrices below 8
+    # columns (χ-growth heads) take the spec.
     if m.dtype == torch.complex64 and not truncation_supported(trunc_thr):
         warnings.warn(
             f"trunc_thr={trunc_thr:g} is finer than the f32 Jacobi convergence "
@@ -216,10 +219,31 @@ def _pair_theta(lam_l, lam_c, lam_r, g1, g2, gate4, chi, dtype):
     return theta.transpose(-3, -2).reshape(batch_shape + (2 * chi, 2 * chi))
 
 
+def _fused_rand_eligible(chi: int, dtype) -> bool:
+    """The shape guards of the fused rand pair update (the JAX package's
+    ops/mps.py:446-465): complex64, chi % 8 == 0, and a matrix large enough
+    for the projection to pay with a sketch width that is a multiple of 8
+    (module attributes read at call time)."""
+    return (
+        chi >= 8
+        and chi % 8 == 0
+        and dtype == torch.complex64
+        and 2 * chi >= rand_svd.RAND_MIN_N
+        and rand_svd.rand_ell(2 * chi, chi) % 8 == 0
+    )
+
+
 def _pair_update(lam_l, lam_c, lam_r, g1, g2, gate4, chi, trunc_thr, dtype, rdtype):
     """Core Vidal pair update on raw tensors; returns (g1', g2', lam').
     Natively batched over identical leading axes: one call is one batched
-    decomposition."""
+    decomposition.  On the "rand" route eligible updates take the fused
+    randomized-projection update (ops/fused_rand.py); the rest take the
+    "jacobi" route."""
+    if svd_impl(g1.device) == "rand" and _fused_rand_eligible(chi, dtype):
+        return fused_rand_pair_update(
+            lam_l, lam_c, lam_r, g1, g2, gate4, chi, trunc_thr, dtype, rdtype,
+            jacobi_sweeps() or DEFAULT_SWEEPS,
+        )
     m = _pair_theta(lam_l, lam_c, lam_r, g1, g2, gate4, chi, dtype)
     batch_shape = m.shape[:-2]
 

@@ -30,6 +30,16 @@ from aqc_research_tpu_torch.ops import mps as tm
 from aqc_research_tpu_torch.optim import lbfgs as tlbfgs
 from aqc_research_tpu_torch.targets import trotter as ttrot
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _pin_cpu():
+    """The port runs on the CPU only when asked to: pin it, restore after."""
+    previous = config._DEVICE
+    config.set_device("cpu")
+    yield
+    config.set_device(previous)
+
+
 N, CHI, LAYERS, THR, MAXITER = 6, 8, 2, 1e-6, 8
 C128 = torch.complex128
 BASE = tuple(1 if q % 2 == 0 else 0 for q in range(N))

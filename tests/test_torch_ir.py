@@ -27,6 +27,16 @@ from aqc_research_tpu_torch.circuit.ansatz import Ansatz, TrotterAnsatz
 from aqc_research_tpu_torch.ops import statevector as tsv
 from aqc_research_tpu_torch.targets import trotter as ttrot
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _pin_cpu():
+    """The port runs on the CPU only when asked to: pin it, restore after."""
+    previous = config._DEVICE
+    config.set_device("cpu")
+    yield
+    config.set_device(previous)
+
+
 REPO = Path(__file__).resolve().parent.parent
 C128 = torch.complex128
 GATE_TOL = 1e-14  # same closed forms in complex128
@@ -194,7 +204,7 @@ def test_checking_predicates_take_tensors():
 
 
 def test_config_routes_and_precision():
-    assert config.svd_impl(torch.device("cpu")) in ("native", "jacobi")
+    assert config.svd_impl(torch.device("cpu")) in ("native", "jacobi", "rand")
     previous = config.svd_impl(torch.zeros(1))
     with config.svd_impl_override("jacobi"):
         assert config.svd_impl(torch.zeros(1)) == "jacobi"
@@ -202,11 +212,11 @@ def test_config_routes_and_precision():
     config.set_svd_impl(None)
     try:
         assert config.svd_impl(torch.device("cpu")) == "native"
-        assert config.svd_impl(torch.device("cuda")) == "jacobi"
+        assert config.svd_impl(torch.device("cuda")) == "rand"
     finally:
         config.set_svd_impl(None)
     with pytest.raises(ValueError):
-        config.set_svd_impl("rand")
+        config.set_svd_impl("gram")
     with pytest.raises(ValueError):
         config.set_precision("medium")
     assert config.real_of(torch.complex64) == torch.float32
@@ -222,6 +232,9 @@ def test_port_import_leaves_jax_out():
         "aqc_research_tpu_torch.models.sp_lhs.jit_asp",
         "aqc_research_tpu_torch.models.sp_lhs.target_states",
         "aqc_research_tpu_torch.ops.jacobi_kernel",
+        "aqc_research_tpu_torch.ops.fused_rand",
+        "aqc_research_tpu_torch.kernel_checks",
+        "chip_smoke",
     ]
     code = "import sys\n" + "".join(f"import {m}\n" for m in modules) + (
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'aqc_research_tpu.')))\n"
@@ -231,3 +244,19 @@ def test_port_import_leaves_jax_out():
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120, check=False
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("alone", [False, True], ids=["checkout", "script-alone"])
+def test_chip_smoke_refuses_without_a_card(tmp_path, alone):
+    """Without CUDA (here), or without the rest of the repository, the smoke
+    run exits non-zero and prints no result line."""
+    script = REPO / "chip_smoke.py"
+    if alone:
+        (tmp_path / "chip_smoke.py").write_text(script.read_text())
+        script = tmp_path / "chip_smoke.py"
+    proc = subprocess.run(
+        [sys.executable, str(script)], cwd=script.parent, capture_output=True, text=True,
+        timeout=120, check=False,
+    )
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout

@@ -20,8 +20,19 @@ from aqc_research_tpu import config as jcfg
 from aqc_research_tpu.ops import jacobi_svd as jspec
 from aqc_research_tpu.ops import pallas_jacobi as jpj
 from aqc_research_tpu_torch import config
+from aqc_research_tpu_torch.ops import cuda_build
 from aqc_research_tpu_torch.ops import jacobi_kernel as jk
 from aqc_research_tpu_torch.ops import jacobi_svd as tspec
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _pin_cpu():
+    """The port runs on the CPU only when asked to: pin it, restore after."""
+    previous = config._DEVICE
+    config.set_device("cpu")
+    yield
+    config.set_device(previous)
+
 
 S_TOL = 1e-5
 REC_TOL = 1e-5
@@ -172,10 +183,10 @@ def test_kernel_argument_checks_accept_the_slice_shapes():
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
-    monkeypatch.setattr(jk.shutil, "which", lambda name: None)
+    monkeypatch.setattr(cuda_build.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        jk._nvcc()
+        cuda_build._nvcc()
 
 
 def test_truncation_supported_matches_jax():

@@ -1,27 +1,44 @@
-"""The hand-written Jacobi kernel (csrc/jacobi_rows.cu) against its plain
-twin, on a CUDA card.  Marked ``cuda``: skips without a card.  This file
-imports no JAX, so it also runs where JAX is not installed:
+"""The hand-written kernels (csrc/jacobi_rows.cu, csrc/theta_build.cu,
+csrc/rand_tail.cu) against their plain twins, on a CUDA card.  Marked
+``cuda``: skips without a card.  This file imports no JAX, so it also runs
+where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernel.py -q
 
 Tolerances: singular values within 1e-5 * s_max (the f32 convergence floor
 of the adaptive loop, tol 1e-6 per entry, plus two rounding orders); sweep
 counts within 1 (a sweep's residual can land on either side of the tolerance
-under different rounding)."""
+under different rounding); the θ build within 1e-5 relative Frobenius (f32
+products in two orders); kept vh projectors within 2e-5; keep masks equal
+except where a value's keep decision lies within the λ tolerance of the
+truncation threshold (aqc_research_tpu_torch.kernel_checks.near_threshold)."""
 
 import numpy as np
 import pytest
 import torch
 
 from aqc_research_tpu_torch import config
+from aqc_research_tpu_torch.kernel_checks import near_threshold, padded_pair_batch, path_planes
+from aqc_research_tpu_torch.ops import fused_pair as tfp
+from aqc_research_tpu_torch.ops import fused_rand as tfr
 from aqc_research_tpu_torch.ops import jacobi_kernel as jk
 from aqc_research_tpu_torch.ops import mps as tm
+from aqc_research_tpu_torch.ops import rand_svd as trs
 from aqc_research_tpu_torch.targets.trotter import (
     Trotter,
     _block_4x4_lo_hi,
     neel_init_state,
     trotter_alphas,
 )
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _pin_cpu():
+    """The port runs on the CPU only when asked to: pin it, restore after."""
+    previous = config._DEVICE
+    config.set_device("cpu")
+    yield
+    config.set_device(previous)
 
 
 def graded(seed: int, batch: int, n: int) -> np.ndarray:
@@ -36,7 +53,7 @@ def graded(seed: int, batch: int, n: int) -> np.ndarray:
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the Jacobi kernel has no CPU mode")
+        pytest.skip("needs a CUDA card: the hand-written kernels have no CPU mode")
     return torch.device("cuda", 0)
 
 
@@ -86,3 +103,105 @@ def test_pair_update_routes_agree_on_card(cuda_device):
             assert jk.jacobi_rows.launches == before + (route == "jacobi")
     np.testing.assert_allclose(out["jacobi"], out["native"], atol=1e-4)
     assert abs(np.vdot(out["jacobi"], out["native"])) >= 1 - 1e-5
+
+
+def tail_inputs(seed: int, batch: int, chi: int, dev):
+    """conj(B) planes, full weights and B's singular values of projected
+    rand-route pair matrices (the twin builds θ, torch projects it)."""
+    w_re, w_im = tfp.theta_build_reference(*path_planes(np.random.default_rng(seed), batch, chi, dev))
+    a = torch.complex(w_re, w_im).transpose(-1, -2)
+    bm = trs._range_project(a, trs.rand_ell(2 * chi, chi), trs._POWER_ITERS)
+    tot2 = (w_re * w_re + w_im * w_im).sum((-2, -1))
+    return bm.real.contiguous(), (-bm.imag).contiguous(), tot2, torch.linalg.svdvals(bm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chi", [16, 64])
+def test_theta_build_matches_twin_on_card(cuda_device, chi):
+    planes = path_planes(np.random.default_rng(chi), 10, chi, cuda_device)
+    before = tfp.theta_build.launches
+    k_re, k_im = tfp.theta_build(*planes)
+    assert tfp.theta_build.launches == before + 1
+    p_re, p_im = tfp.theta_build_reference(*planes)
+    torch.cuda.synchronize()
+    err = torch.linalg.matrix_norm(torch.complex(k_re - p_re, k_im - p_im))
+    assert float((err / torch.linalg.matrix_norm(torch.complex(p_re, p_im))).max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chi", [16, 64])
+def test_rand_tail_matches_twin_on_card(cuda_device, chi):
+    m_re, m_im, tot2, s = tail_inputs(chi + 1, 10, chi, cuda_device)
+    thr2 = 1e-4  # trunc_thr 1e-2: the cut sits well above the f32 noise
+    before = tfr.rand_tail.launches
+    k_vh_re, k_vh_im, k_lam, k_inv, k_sw = tfr.rand_tail(m_re, m_im, tot2, thr2, chi, 12)
+    assert tfr.rand_tail.launches == before + 1
+    p_vh_re, p_vh_im, p_lam, p_inv, p_sw = tfr.rand_tail_reference(m_re, m_im, tot2, thr2, chi, 12)
+    torch.cuda.synchronize()
+    smax = float(p_lam.max())
+    assert float((k_lam - p_lam).abs().max()) <= 1e-5 * smax
+    k_keep, p_keep = k_lam > 0, p_lam > 0
+    assert not bool(p_keep.all())  # truncation is active
+    assert bool(((k_keep == p_keep) | near_threshold(s, tot2, thr2, chi)).all())
+    assert int((k_sw - p_sw).abs().max()) <= 1
+    both = (k_keep & p_keep)[..., None].to(torch.complex64)
+    kv = torch.complex(k_vh_re, k_vh_im) * both
+    pv = torch.complex(p_vh_re, p_vh_im) * both
+    proj = kv.conj().transpose(-1, -2) @ kv - pv.conj().transpose(-1, -2) @ pv
+    assert float(proj.abs().max()) <= 2e-5
+
+
+@pytest.mark.cuda
+def test_rand_tail_raises_on_card(cuda_device):
+    big = torch.zeros((1, 136, 256), device=cuda_device)
+    with pytest.raises(ValueError, match="shared memory"):
+        tfr.rand_tail(big, big, torch.ones(1, device=cuda_device), 1e-12, 128)
+    f64 = torch.zeros((2, 24, 32), dtype=torch.float64, device=cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        tfr.rand_tail(f64, f64, torch.ones(2, dtype=torch.float64, device=cuda_device), 1e-12, 16)
+
+
+@pytest.mark.cuda
+def test_rand_route_pair_update_agrees_with_native_on_card(cuda_device):
+    """The same χ=64 half-layer as above on the rand route: one θ-build and
+    one rand-tail launch, the state within 1e-4 of the native route's."""
+    n = 8
+    trot = Trotter(num_qubits=n, evol_time=0.8, num_steps=2, delta=1.0, second_order=True)
+    with config.svd_impl_override("native"):
+        state = trot.as_mps(neel_init_state(n), trunc_thr=1e-6, chi_max=64,
+                            dtype=torch.complex64, device=cuda_device)
+    block = _block_4x4_lo_hi(trotter_alphas(0.3, 1.0), torch.complex64, cuda_device)
+    out = {}
+    for route in ("rand", "native"):
+        with config.svd_impl_override(route):
+            before = (tfp.theta_build.launches, tfr.rand_tail.launches)
+            out[route] = tm.mps_to_vector(
+                tm.apply_pairs_mps(state, block.expand(3, 4, 4), (1, 3, 5), trunc_thr=1e-6)
+            ).cpu().numpy()
+            launched = (route == "rand") * 1
+            assert (tfp.theta_build.launches, tfr.rand_tail.launches) == (
+                before[0] + launched, before[1] + launched)
+    np.testing.assert_allclose(out["rand"], out["native"], atol=1e-4)
+    assert abs(np.vdot(out["rand"], out["native"])) >= 1 - 1e-5
+
+
+@pytest.mark.cuda
+def test_range_finder_handles_rank_deficient_batches_on_card(cuda_device):
+    """Pair matrices of rank-4 bonds held at χ=64, zero-padded as θ is
+    (nonzero rows in two blocks at 0 and χ), in a batch of 10: torch's
+    batched CUDA QR returns NaN on their samples, so this batch shows the
+    fault that ``rand_svd._orth`` works around.  The range-finder must
+    return a finite B whose singular values match LAPACK's on the host."""
+    a = padded_pair_batch(np.random.default_rng(3), 10, 128, 4)
+    ell = trs.rand_ell(128, 64)
+    y = torch.matmul(a.to(cuda_device), trs.sketch(10, 128, ell, a.dtype, cuda_device))
+    batched = torch.linalg.qr(y, mode="reduced")[0]
+    # If this fails, torch's batched QR handles the padding now and _orth
+    # may send the whole batch at once.
+    assert not bool(torch.isfinite(torch.view_as_real(batched)).all())
+    assert bool(torch.isfinite(torch.view_as_real(trs._orth(y))).all())
+    got = trs._range_project(a.to(cuda_device), ell, trs._POWER_ITERS).cpu()
+    want = trs._range_project(a, ell, trs._POWER_ITERS)
+    assert bool(torch.isfinite(torch.view_as_real(got)).all())
+    s_got, s_want = torch.linalg.svdvals(got), torch.linalg.svdvals(want)
+    assert float((s_got - s_want).abs().max()) <= 1e-5 * float(s_want.max())

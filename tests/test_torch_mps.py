@@ -30,6 +30,16 @@ from aqc_research_tpu_torch.ops import mps as tm
 from aqc_research_tpu_torch.ops import mps_gradient as tg
 from aqc_research_tpu_torch.targets import trotter as ttrot
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _pin_cpu():
+    """The port runs on the CPU only when asked to: pin it, restore after."""
+    previous = config._DEVICE
+    config.set_device("cpu")
+    yield
+    config.set_device(previous)
+
+
 N, CHI, LAYERS, THR = 6, 8, 2, 1e-6
 PARITY = 1e-10  # complex128, same decomposition route
 JAC_F, JAC_G = 1e-5, 1e-4  # f32 decompositions
