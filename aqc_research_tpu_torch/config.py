@@ -154,6 +154,41 @@ def svd_impl_override(impl: str):
         _SVD_IMPL = previous
 
 
+_FUSED_PAIR: bool | None = {"1": True, "0": False}.get(os.environ.get("AQC_TORCH_FUSED_PAIR", ""))
+
+# The JAX package's threshold (its config.py:249-254): its on-chip A/B found
+# the fused kernel a wash at chi = 64 and ahead at chi = 128, so the auto
+# rule routes by bond dimension.
+_FUSED_PAIR_MIN_CHI = 96
+
+
+def set_fused_pair(enabled: bool | None) -> None:
+    """The fused pair-update kernel K4 (ops/fused_pair.fused_pair_update: θ
+    build, adaptive Jacobi, truncation and both factors in one kernel) on
+    the ``"jacobi"`` route:
+
+    * ``True``  — whenever eligible (complex64 pair updates with chi >= 8);
+      on CPU tensors that runs K4's plain twin,
+    * ``False`` — never (the jacobi route then runs K1 on every pair update),
+    * ``None``  — auto, per tensor: on for CUDA tensors at chi >= 96, off
+      for CPU tensors (env override ``AQC_TORCH_FUSED_PAIR=1/0``).
+
+    Unlike the JAX package's switch it does not gate the rand route."""
+    global _FUSED_PAIR
+    _FUSED_PAIR = enabled
+
+
+def fused_pair_enabled(chi: int | None = None, dev=None) -> bool:
+    """Whether the jacobi route's pair update at bond dimension ``chi`` on
+    ``dev`` (a device, a tensor or None for the default device) takes K4."""
+    if _FUSED_PAIR is not None:
+        return _FUSED_PAIR
+    if isinstance(dev, torch.Tensor):
+        dev = dev.device
+    dev = device() if dev is None else torch.device(dev)
+    return dev.type == "cuda" and chi is not None and chi >= _FUSED_PAIR_MIN_CHI
+
+
 def mps_watchdog_enabled() -> bool:
     """The MPS optimization watchdog (models/sp_lhs/jit_asp.py): after a
     horizon optimized under a route other than the reference one

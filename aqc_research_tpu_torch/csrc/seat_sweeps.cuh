@@ -1,6 +1,6 @@
 // seat_sweeps.cuh — the adaptive one-sided complex Jacobi loop (Brent-Luk
-// round robin) on transposed re/im planes held in shared memory, shared by
-// jacobi_rows.cu (K1) and rand_tail.cu (K3).
+// round robin) on transposed re/im planes in shared or device memory, shared
+// by jacobi_rows.cu (K1), rand_tail.cu (K3) and fused_pair.cu (K4).
 //
 // Replaces the shared Pallas loop aqc_research_tpu/ops/pallas_jacobi.py:
 // _adaptive_seat_sweeps and computes what it computes: for a (c, r) plane
@@ -14,22 +14,46 @@
 // rotation formulas are those of the Pallas kernel, term for term, so the
 // two agree to f32 rounding.
 //
-// Design.  The caller gives one thread block to one matrix, with both planes
-// in shared memory.  Each warp takes a share of the p pairs of a phase: its
-// lanes stride over the r entries, and warp shuffles reduce the pair's Gram
-// entries (aa, bb, c) so that every lane holds the rotation and applies it in
-// place.  The butterfly reductions leave every lane with bit-identical sums,
-// so the active/inactive branch is warp-uniform.  The round robin moves no
-// rows: a full tour is one cycle of the 2p-1 non-fixed seats, so the row in
-// seat j at phase t is computed in closed form, and after every complete
-// sweep each row is back in its own place.  One __syncthreads() separates
-// phases.  The phase residual needs the phase's s_max, so the pair
-// statistics go to a double-buffered shared array and warp 0 reduces phase t
-// while the other warps already rotate phase t+1.
+// Design.  The caller gives one thread block to one matrix.  Each warp takes
+// a share of the p pairs of a phase: its lanes stride over the r entries,
+// and warp shuffles reduce the pair's Gram entries (aa, bb, c) so that every
+// lane holds the rotation and applies it in place.  The butterfly reductions
+// leave every lane with bit-identical sums, so the active/inactive branch is
+// warp-uniform.  The round robin moves no rows: a full tour is one cycle of
+// the 2p-1 non-fixed seats, so the row in seat j at phase t is computed in
+// closed form, and after every complete sweep each row is back in its own
+// place.  One __syncthreads() separates phases.  The phase residual needs
+// the phase's s_max, so the pair statistics go to a double-buffered shared
+// array and warp 0 reduces phase t while the other warps already rotate
+// phase t+1.
 //
-// Bounds.  At the MPS shapes (c <= 128 rows of r <= 128 lanes) the loop is
-// bound by shared-memory traffic (every phase reads both planes twice and
-// writes them once) and by the per-phase barrier, not by device memory.
+// Where the planes live ("plane home").  The loop takes plain float*
+// planes; only the statistics and the go flag must be in shared memory.
+// A plane pair that fits one block's shared memory (with the caller's own
+// shared arrays) is loaded there, by a block of at most kSmemThreads
+// threads.  A larger one (256 x 256 for K1 at 28 qubits chi = 128, 136 x 256
+// for K3, every 2chi >= 176 for K4) stays in device memory, in a buffer the
+// wrapper allocates with torch.empty (the kernel's output or scratch), and
+// the block works on it in place with up to kMaxThreads threads (32 warps
+// for the 128 pairs of a 256-row matrix).  At most 1 MB per matrix and B <= 14
+// matrices per launch at 28 qubits, so the planes stay resident in the
+// 50 MB L2.  __syncthreads() makes a block's global writes visible to the
+// whole block; the planes are never read through __ldg or a const
+// __restrict__ pointer, since the block writes them.  The wrappers decide
+// the home with one Python function of (c, r, max_smem)
+// (ops/jacobi_kernel.plane_home), so the CPU tests see the rule.
+//
+// A thread-block cluster holding the planes in distributed shared memory is
+// the faster design: but the seat map pairs rows held by different blocks in
+// every phase, so every phase would end in a cluster barrier.  It belongs
+// to the later work that redesigns these kernels for speed.
+//
+// Bounds.  At the shared-memory shapes (c <= 128 rows of r <= 128 lanes)
+// the loop is bound by shared-memory traffic (every phase reads both planes
+// twice and writes them once) and by the per-phase barrier; in device
+// memory by the one SM's L2 bandwidth for the same traffic.  Neither is
+// near the card's memory or f32 bound: B ~ 10-14 blocks fill 10-14 of 132
+// SMs.
 
 #pragma once
 
@@ -39,7 +63,8 @@ namespace aqc {
 
 constexpr float kEps32 = 1.1920928955078125e-07f;  // FLT_EPSILON
 constexpr float kConvTol = 1e-6f;
-constexpr int kMaxThreads = 256;
+constexpr int kSmemThreads = 256;  // block size cap, planes in shared memory
+constexpr int kMaxThreads = 1024;  // block size cap, planes in device memory
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -76,11 +101,12 @@ __device__ __forceinline__ int seat_r(int j, int t, int p) {
 // per-pair statistics, 3 x 2 x c/2.
 __host__ __device__ constexpr int seat_stats_floats(int c) { return 3 * c; }
 
-// Runs the adaptive sweeps on the (c, r) planes w_re/w_im in shared memory;
-// ``stats`` holds seat_stats_floats(c) shared floats and ``go_flag`` one
-// shared int.  Every thread of the block calls it after the planes are loaded and
-// a __syncthreads(); it returns (in every thread) the number of sweeps run,
-// with the rows back in input order and the block synchronised.
+// Runs the adaptive sweeps on the (c, r) planes w_re/w_im (shared or device
+// memory, written by this block only); ``stats`` holds seat_stats_floats(c)
+// shared floats and ``go_flag`` one shared int.  Every thread of the block
+// calls it after the planes are loaded and a __syncthreads(); it returns (in
+// every thread) the number of sweeps run, with the rows back in input order
+// and the block synchronised.
 __device__ inline int adaptive_seat_sweeps(float* w_re, float* w_im, float* stats, int* go_flag,
                                            int c, int r, int max_sweeps, int hybrid) {
   const int p = c / 2;

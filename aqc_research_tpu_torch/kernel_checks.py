@@ -1,6 +1,7 @@
 """Inputs and tolerance masks shared by the kernel-vs-twin checks of the
-rand route: ``chip_smoke.py`` (phase 2b) and ``tests/test_torch_kernel.py``.
-Nothing on the engine's path imports this module."""
+θ-build, rand-tail and fused-pair kernels: ``chip_smoke.py`` and
+``tests/test_torch_kernel.py``.  Nothing on the engine's path imports this
+module."""
 
 from __future__ import annotations
 
@@ -12,19 +13,25 @@ from .ops.fused_pair import _prep_planes
 _EPS32 = float(np.finfo(np.float32).eps)
 
 
-def path_planes(rng, batch: int, chi: int, dev):
-    """θ-build inputs as the rand route makes them (ops/fused_pair._prep_planes):
-    random Γ planes, graded bond values 1 .. 1e-6 (as the JAX package's
-    tests/test_fused_rand.py grades them, so that truncation bites) and
-    random gates.  Returns (gate, a_re, a_im, b_re, b_im) on ``dev``."""
+def path_planes(rng, batch: int, chi: int, dev, rank: int | None = None, decades: float = 6.0):
+    """θ-build inputs as the fused routes make them (ops/fused_pair._prep_planes):
+    random Γ planes, graded bond values 1 .. 10^-decades (1e-6 by default,
+    as the JAX package's tests/test_fused_rand.py grades them, so that
+    truncation bites) and random gates.  With ``rank`` every bond holds
+    only its first ``rank`` values (the rest exactly zero), so θ is zero
+    outside the row and column blocks {0..rank-1} and {chi..chi+rank-1}, as
+    on the MPS path where bond ranks stay far below chi.  Returns (gate,
+    a_re, a_im, b_re, b_im) on ``dev``."""
 
     def c64(*shape):
         return torch.tensor(rng.standard_normal(shape) + 1j * rng.standard_normal(shape),
                             dtype=torch.complex64)
 
     def lams():
-        lam = (rng.random((batch, chi)) + 0.05) * np.logspace(0, -6, chi)[None, :]
+        lam = (rng.random((batch, chi)) + 0.05) * np.logspace(0, -decades, chi)[None, :]
         lam = np.sort(lam, axis=-1)[..., ::-1]
+        if rank is not None:
+            lam[:, rank:] = 0.0
         return torch.tensor(lam / np.linalg.norm(lam, axis=-1, keepdims=True), dtype=torch.float32)
 
     g1, g2 = c64(batch, 2, chi, chi), c64(batch, 2, chi, chi)

@@ -1,15 +1,18 @@
-"""The θ build of the fused pair updates: the hand-written CUDA kernel
-``csrc/theta_build.cu`` and its plain-torch twin.
+"""The fused pair updates' hand-written CUDA kernels and their plain-torch
+twins (twin of ``aqc_research_tpu/ops/fused_pair.py``):
 
-Twin of the θ-build part of ``aqc_research_tpu/ops/fused_pair.py``: the
-kernel replaces the Pallas TPU kernel ``theta_build_raw`` (body
-``_theta_build``), pass A of the fused randomized-projection pair update
-(ops/fused_rand.py); :func:`_prep_planes` is ported from the same module.
-The fused half-layer megakernel ``_fused_pair_raw`` is not ported yet.
+* K2 :func:`theta_build` (``csrc/theta_build.cu``, replaces the Pallas
+  kernel ``theta_build_raw``): the gated θᵀ planes, pass A of the fused
+  randomized-projection pair update (ops/fused_rand.py);
+* K4 :func:`fused_pair` (``csrc/fused_pair.cu``, replaces
+  ``_fused_pair_raw``): θ build, adaptive Jacobi, selection, truncation and
+  both factors in one kernel — the jacobi route's pair update at χ >= 96
+  on CUDA (:func:`fused_pair_update`, dispatched by ops/mps._pair_update
+  under ``config.fused_pair_enabled``).
 
-Dispatch rule of :func:`theta_build`: CPU tensors go to the plain twin
-:func:`theta_build_reference`, CUDA tensors to the kernel — no fallback in
-between; the kernel route raises on anything it does not take.
+:func:`_prep_planes` is ported from the same module.  Dispatch rule of both
+wrappers: CPU tensors go to the plain twin, CUDA tensors to the kernel — no
+fallback in between; the kernel route raises on anything it does not take.
 """
 
 from __future__ import annotations
@@ -19,7 +22,10 @@ from typing import Tuple
 
 import torch
 
+from ..config import jacobi_criterion
 from . import cuda_build
+from .jacobi_kernel import jacobi_rows_reference, plane_home, rank_truncate_reference
+from .jacobi_svd import DEFAULT_SWEEPS
 
 
 def _prep_planes(lam_l, lam_c, lam_r, g1, g2, gate4, chi: int, dtype):
@@ -72,24 +78,25 @@ def theta_build_reference(
     return w0.real.contiguous(), w0.imag.contiguous()
 
 
-def check_theta_args(gate_planes, a_re, a_im, b_re, b_im) -> None:
-    """Raises ValueError unless the inputs are what the kernel takes."""
+def check_theta_args(gate_planes, a_re, a_im, b_re, b_im, name: str = "theta_build") -> None:
+    """Raises ValueError unless the inputs are what the kernel ``name``
+    takes (K2 and K4 take the same inputs)."""
     planes = (a_re, a_im, b_re, b_im)
     if any(t.dtype != torch.float32 for t in (gate_planes, *planes)):
-        raise ValueError("theta_build takes float32 planes and gate table")
+        raise ValueError(f"{name} takes float32 planes and gate table")
     shape = a_re.shape
     if len(shape) != 4 or shape[1] != 2 or shape[2] != shape[3] or any(t.shape != shape for t in planes):
         raise ValueError(
-            f"theta_build takes four (B, 2, chi, chi) planes, got {[tuple(t.shape) for t in planes]}"
+            f"{name} takes four (B, 2, chi, chi) planes, got {[tuple(t.shape) for t in planes]}"
         )
     if tuple(gate_planes.shape) != (shape[0], 32):
-        raise ValueError(f"theta_build takes a (B, 32) gate table, got {tuple(gate_planes.shape)}")
+        raise ValueError(f"{name} takes a (B, 32) gate table, got {tuple(gate_planes.shape)}")
     if any(t.device != a_re.device for t in (gate_planes, *planes)):
-        raise ValueError("theta_build: inputs on different devices")
+        raise ValueError(f"{name}: inputs on different devices")
     if not all(t.is_contiguous() for t in (gate_planes, *planes)):
-        raise ValueError("theta_build takes contiguous inputs")
+        raise ValueError(f"{name} takes contiguous inputs")
     if not 1 <= shape[0] <= 65535:
-        raise ValueError(f"theta_build takes 1 to 65535 matrices, got {shape[0]}")
+        raise ValueError(f"{name} takes 1 to 65535 matrices, got {shape[0]}")
 
 
 def theta_build(
@@ -118,7 +125,142 @@ def theta_build(
         b_im.data_ptr(), w0_re.data_ptr(), w0_im.data_ptr(), b, chi,
     )
     theta_build.launches += 1
+    theta_build.launches_at[2 * chi] = theta_build.launches_at.get(2 * chi, 0) + 1
     return w0_re, w0_im
 
 
 theta_build.launches = 0
+theta_build.launches_at = {}
+
+
+# -----------------------------------------------------------------------------
+# K4: the fused pair update of the jacobi route.
+# -----------------------------------------------------------------------------
+
+# Static shared memory of a block whose planes live in shared memory: one
+# 16x16 tile group's buffers (8 KB, csrc/theta_tiles.cuh), the gate table
+# and the go flag.
+_FUSED_STATIC_SMEM = 8 * 1024 + 256
+
+
+def fused_plane_home(chi: int, max_smem: int) -> str:
+    """Where one K4 block keeps its (2chi, 2chi) working planes
+    (ops/jacobi_kernel.plane_home, beside the epilogue's arrays and the
+    kernel's static tile buffers); θᵀ itself always stays in device memory."""
+    n = 2 * chi
+    return plane_home(n, n, max_smem, 4 * (n + 3 * chi) + _FUSED_STATIC_SMEM)
+
+
+def fused_pair_reference(
+    gate_planes: torch.Tensor,
+    a_re: torch.Tensor,
+    a_im: torch.Tensor,
+    b_re: torch.Tensor,
+    b_im: torch.Tensor,
+    thr2: float,
+    max_sweeps: int = DEFAULT_SWEEPS,
+    criterion: str | None = None,
+):
+    """Plain-torch twin of K4 on the :func:`_prep_planes` outputs:
+    θᵀ = W0 (K2's twin), the adaptive Jacobi on its rows (K1's twin, L = rows
+    0..chi-1, R = rows chi..2chi-1), the selection and the discarded-weight
+    rule against W0's own rotated weight (the epilogue twin), then
+
+        uᵀ = inv * (selected rows),   vh = inv * conj(uᵀ) @ W0ᵀ.
+
+    Returns (ut_re, ut_im, vh_re, vh_im (B, chi, 2chi), lam (B, chi),
+    sweeps (B,) int32)."""
+    w0_re, w0_im = theta_build_reference(gate_planes, a_re, a_im, b_re, b_im)
+    w_re, w_im, sweeps = jacobi_rows_reference(w0_re, w0_im, max_sweeps, criterion)
+    chi = a_re.shape[-1]
+    ws_re, ws_im, lam, inv = rank_truncate_reference(w_re, w_im, None, thr2, chi)
+    ut_re, ut_im = ws_re * inv[..., None], ws_im * inv[..., None]
+    vh = torch.matmul(torch.complex(ut_re, ut_im).conj(), torch.complex(w0_re, w0_im).transpose(-1, -2))
+    vh = vh * inv[..., None]
+    return ut_re, ut_im, vh.real.contiguous(), vh.imag.contiguous(), lam, sweeps
+
+
+def fused_pair(
+    gate_planes: torch.Tensor,
+    a_re: torch.Tensor,
+    a_im: torch.Tensor,
+    b_re: torch.Tensor,
+    b_im: torch.Tensor,
+    thr2: float,
+    max_sweeps: int = DEFAULT_SWEEPS,
+    criterion: str | None = None,
+):
+    """The fused pair update of a batch from the :func:`_prep_planes`
+    outputs — see :func:`fused_pair_reference` for the contract.
+
+    CPU tensors run the plain twin; CUDA tensors launch the kernel (one
+    thread block per matrix, the working planes where
+    :func:`fused_plane_home` puts them) and every launch adds one to
+    ``fused_pair.launches`` and to ``fused_pair.launches_at[2 chi]``; any
+    other device raises."""
+    criterion = criterion or jacobi_criterion()
+    if a_re.device.type == "cpu":
+        return fused_pair_reference(gate_planes, a_re, a_im, b_re, b_im, thr2, max_sweeps, criterion)
+    if a_re.device.type != "cuda":
+        raise ValueError(f"fused_pair: unsupported device {a_re.device}")
+    check_theta_args(gate_planes, a_re, a_im, b_re, b_im, name="fused_pair")
+    dev = cuda_build.device_index(a_re)
+    b, _, chi, _ = a_re.shape
+    n = 2 * chi
+    home = fused_plane_home(chi, cuda_build.max_smem(dev))
+
+    def planes(rows):
+        return tuple(torch.empty((b, rows, n), dtype=torch.float32, device=a_re.device) for _ in range(2))
+
+    w0_re, w0_im = planes(n)  # θᵀ, kept for the vh product
+    wk_re, wk_im = planes(n) if home == "global" else (None, None)  # working planes in device memory
+    ut_re, ut_im = planes(chi)
+    vh_re, vh_im = planes(chi)
+    lam = torch.empty((b, chi), dtype=torch.float32, device=a_re.device)
+    sweeps = torch.empty(b, dtype=torch.int32, device=a_re.device)
+    cuda_build.launch(
+        "fused_pair_launch", dev,
+        gate_planes.data_ptr(), a_re.data_ptr(), a_im.data_ptr(), b_re.data_ptr(), b_im.data_ptr(),
+        w0_re.data_ptr(), w0_im.data_ptr(),
+        None if wk_re is None else wk_re.data_ptr(), None if wk_im is None else wk_im.data_ptr(),
+        ut_re.data_ptr(), ut_im.data_ptr(), vh_re.data_ptr(), vh_im.data_ptr(), lam.data_ptr(),
+        sweeps.data_ptr(), b, chi, int(max_sweeps), int(criterion == "hybrid"), float(thr2),
+        int(home == "shared"),
+    )
+    fused_pair.launches += 1
+    fused_pair.launches_at[n] = fused_pair.launches_at.get(n, 0) + 1
+    return ut_re, ut_im, vh_re, vh_im, lam, sweeps
+
+
+fused_pair.launches = 0
+fused_pair.launches_at = {}
+
+
+def fused_pair_update(
+    lam_l, lam_c, lam_r, g1, g2, gate4, chi: int, trunc_thr: float, dtype, rdtype,
+    sweeps: int = DEFAULT_SWEEPS,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The fused computation of ops.mps._pair_update on the jacobi route
+    (same contract: ``lam_*`` (..., chi), ``g1/g2`` (..., 2, chi, chi),
+    ``gate4`` (..., 4, 4); returns (new_g1, new_g2, new_lam)); the gauge
+    scalings stay in torch, as in the JAX package.  complex64 only; the
+    caller checks the guards (ops.mps._pair_update)."""
+    from .mps import _safe_inv
+
+    batch_shape, b_count, ll, lr, a_re, a_im, b_re, b_im, gate_planes = _prep_planes(
+        lam_l, lam_c, lam_r, g1, g2, gate4, chi, dtype
+    )
+    ut_re, ut_im, vh_re, vh_im, lam, _ = fused_pair(
+        gate_planes, a_re, a_im, b_re, b_im, float(trunc_thr) ** 2, sweeps
+    )
+    utc = torch.complex(ut_re, ut_im).to(dtype)
+    vhc = torch.complex(vh_re, vh_im).to(dtype)
+    inv_l = _safe_inv(ll).to(dtype)
+    inv_r = _safe_inv(lr).to(dtype)
+    new_g1 = utc.transpose(-1, -2).reshape((b_count, 2, chi, chi)) * inv_l[:, None, :, None]
+    new_g2 = vhc.reshape((b_count, chi, 2, chi)).transpose(-3, -2) * inv_r[:, None, None, :]
+    return (
+        new_g1.reshape(batch_shape + (2, chi, chi)),
+        new_g2.reshape(batch_shape + (2, chi, chi)),
+        lam.to(rdtype).reshape(batch_shape + (chi,)),
+    )

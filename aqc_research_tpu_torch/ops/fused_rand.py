@@ -17,8 +17,9 @@ and the norm rescale are defined against the full θ Frobenius weight
 
 Dispatch rule of :func:`rand_tail`: CPU tensors go to the plain twin
 :func:`rand_tail_reference`, CUDA tensors to the kernel — no fallback in
-between; the kernel route raises on anything it does not take, including a
-shape whose planes do not fit one block's shared memory (chi = 128).
+between; the kernel route raises on anything it does not take.  Planes
+that do not fit one block's shared memory (chi = 128) stay in device memory
+(ops/jacobi_kernel.plane_home).
 """
 
 from __future__ import annotations
@@ -30,10 +31,8 @@ import torch
 from ..config import jacobi_criterion
 from . import cuda_build, rand_svd
 from .fused_pair import _prep_planes, theta_build
-from .jacobi_kernel import block_threads, jacobi_rows_reference, rows_smem_bytes
+from .jacobi_kernel import block_threads, jacobi_rows_reference, plane_home, rank_truncate_reference
 from .jacobi_svd import DEFAULT_SWEEPS
-
-_EPS32 = float(torch.finfo(torch.float32).eps)
 
 
 def rand_tail_reference(
@@ -52,35 +51,19 @@ def rand_tail_reference(
     (B,) int32): the masked vh rows, the truncated and rescaled singular
     values, the mask-safe 1/s and each matrix's sweep count."""
     w_re, w_im, sweeps = jacobi_rows_reference(m_re, m_im, max_sweeps, criterion)
-    s2 = (w_re * w_re + w_im * w_im).sum(-1)
-    order = torch.argsort(-s2, dim=-1, stable=True)[:, :chi]
-    s2s = torch.take_along_dim(s2, order, dim=-1)
-    ws_re = torch.take_along_dim(w_re, order[..., None], dim=-2)
-    ws_im = torch.take_along_dim(w_im, order[..., None], dim=-2)
-
-    zero = torch.zeros_like(s2s)
-    guard = s2s > (32.0 * _EPS32) ** 2 * s2s[:, :1]
-    s2g = torch.where(guard, s2s, zero)
-    seen2 = torch.flip(torch.cumsum(torch.flip(s2g, [-1]), -1), [-1])
-    t2 = tot2[:, None]
-    rest2 = torch.clamp(t2 - s2s.sum(-1, keepdim=True) - 16.0 * _EPS32 * t2, min=0.0)
-    keep = (seen2 + rest2 > thr2 * t2) & guard
-    kept2 = torch.where(keep, s2s, zero).sum(-1, keepdim=True)
-    rescale = torch.sqrt(t2 / torch.clamp(kept2, min=1e-38))
-    s = torch.sqrt(s2s)
-    lam = torch.where(keep, s * rescale, zero)
-    inv = torch.where(keep, 1.0 / torch.clamp(s, min=1e-38), zero)
+    ws_re, ws_im, lam, inv = rank_truncate_reference(w_re, w_im, tot2, thr2, chi)
     return ws_re * inv[..., None], -(ws_im * inv[..., None]), lam, inv, sweeps
 
 
-def tail_smem_bytes(ell: int, n: int, chi: int) -> int:
-    """Dynamic shared memory of one block: the Jacobi planes and statistics
-    plus the row norms, selected values, 1/s and selected rows."""
-    return rows_smem_bytes(ell, n) + 4 * (ell + 3 * chi)
+def tail_plane_home(ell: int, n: int, chi: int, max_smem: int) -> str:
+    """Where one block keeps the (l, n) planes (ops/jacobi_kernel.plane_home,
+    beside the epilogue's row norms, selected values, 1/s and rows)."""
+    return plane_home(ell, n, max_smem, 4 * (ell + 3 * chi))
 
 
-def check_tail_args(m_re, m_im, tot2, chi: int, max_smem: int) -> None:
-    """Raises ValueError unless the inputs are what the kernel takes."""
+def check_tail_args(m_re, m_im, tot2, chi: int) -> None:
+    """Raises ValueError unless the inputs are what the kernel takes (any
+    size: planes that do not fit shared memory stay in device memory)."""
     if any(t.dtype != torch.float32 for t in (m_re, m_im, tot2)):
         raise ValueError(f"rand_tail takes float32 planes and weights, got {m_re.dtype}/{m_im.dtype}/{tot2.dtype}")
     if m_re.ndim != 3 or m_re.shape != m_im.shape or tuple(tot2.shape) != (m_re.shape[0],):
@@ -95,12 +78,6 @@ def check_tail_args(m_re, m_im, tot2, chi: int, max_smem: int) -> None:
     _, ell, n = m_re.shape
     if ell < 2 or ell % 2 or n < ell or not 1 <= chi <= ell:
         raise ValueError(f"rand_tail needs an even l >= 2, n >= l and 1 <= chi <= l, got l={ell} n={n} chi={chi}")
-    need = tail_smem_bytes(ell, n, chi)
-    if need > max_smem:
-        raise ValueError(
-            f"rand_tail: the ({ell}, {n}) planes at chi={chi} need {need} B of shared memory, "
-            f"the device allows {max_smem} B per block"
-        )
 
 
 def rand_tail(
@@ -116,16 +93,20 @@ def rand_tail(
     (see :func:`rand_tail_reference` for the contract).
 
     CPU tensors run the plain twin; CUDA tensors launch the kernel (one
-    thread block per matrix) and every launch adds one to
-    ``rand_tail.launches``; any other device raises."""
+    thread block per matrix, the planes where :func:`tail_plane_home` puts
+    them) and every launch adds one to ``rand_tail.launches`` and to
+    ``rand_tail.launches_at[n]``; any other device raises."""
     criterion = criterion or jacobi_criterion()
     if m_re.device.type == "cpu":
         return rand_tail_reference(m_re, m_im, tot2, thr2, chi, max_sweeps, criterion)
     if m_re.device.type != "cuda":
         raise ValueError(f"rand_tail: unsupported device {m_re.device}")
+    check_tail_args(m_re, m_im, tot2, chi)
     dev = cuda_build.device_index(m_re)
-    check_tail_args(m_re, m_im, tot2, chi, cuda_build.max_smem(dev))
     b, ell, n = m_re.shape
+    home = tail_plane_home(ell, n, chi, cuda_build.max_smem(dev))
+    # Planes in device memory are rotated in place in a scratch pair.
+    wk_re, wk_im = (torch.empty_like(m_re), torch.empty_like(m_im)) if home == "global" else (None, None)
     vh_re = torch.empty((b, chi, n), dtype=torch.float32, device=m_re.device)
     vh_im = torch.empty_like(vh_re)
     lam = torch.empty((b, chi), dtype=torch.float32, device=m_re.device)
@@ -135,15 +116,19 @@ def rand_tail(
         return vh_re, vh_im, lam, inv, sweeps
     cuda_build.launch(
         "rand_tail_launch", dev,
-        m_re.data_ptr(), m_im.data_ptr(), tot2.data_ptr(), vh_re.data_ptr(), vh_im.data_ptr(),
-        lam.data_ptr(), inv.data_ptr(), sweeps.data_ptr(), b, ell, n, chi, int(max_sweeps),
-        int(criterion == "hybrid"), float(thr2), block_threads(ell),
+        m_re.data_ptr(), m_im.data_ptr(), tot2.data_ptr(),
+        None if wk_re is None else wk_re.data_ptr(), None if wk_im is None else wk_im.data_ptr(),
+        vh_re.data_ptr(), vh_im.data_ptr(), lam.data_ptr(), inv.data_ptr(), sweeps.data_ptr(),
+        b, ell, n, chi, int(max_sweeps), int(criterion == "hybrid"), float(thr2),
+        block_threads(ell, home), int(home == "shared"),
     )
     rand_tail.launches += 1
+    rand_tail.launches_at[n] = rand_tail.launches_at.get(n, 0) + 1
     return vh_re, vh_im, lam, inv, sweeps
 
 
 rand_tail.launches = 0
+rand_tail.launches_at = {}
 
 
 def fused_rand_pair_update(

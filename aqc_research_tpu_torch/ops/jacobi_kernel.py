@@ -13,7 +13,9 @@ m`` (one batched product).
 
 Dispatch rule of :func:`jacobi_rows`: CPU tensors go to the plain twin
 :func:`jacobi_rows_reference`, CUDA tensors to the kernel — no fallback in
-between; the kernel route raises on anything it does not take.  The kernel
+between; the kernel route raises on anything it does not take.  Planes that
+fit one block's shared memory are held there, larger ones stay in device
+memory (:func:`plane_home`).  The kernel
 library is built with ``nvcc`` from ``csrc/`` at first use, into
 ``aqc_research_tpu_torch/_build/`` (ops/cuda_build.py).
 """
@@ -142,19 +144,34 @@ def jacobi_rows_reference(
 # -----------------------------------------------------------------------------
 
 
-def block_threads(c: int) -> int:
-    """Threads of one block working on c rows: a warp per row pair, up to 8."""
-    return 32 * min(8, c // 2)
+SMEM_THREADS = 256  # block size cap with the planes in shared memory (seat_sweeps.cuh)
+MAX_THREADS = 1024  # block size cap with the planes in device memory
 
 
 def rows_smem_bytes(c: int, r: int) -> int:
-    """Dynamic shared memory of one block: both planes plus the
-    double-buffered per-pair statistics (3 x 2 x c/2 floats)."""
+    """Shared memory of one block holding a (c, r) plane pair: both planes
+    plus the double-buffered per-pair statistics (3 x 2 x c/2 floats)."""
     return 4 * (2 * c * r + 3 * c)
 
 
-def check_rows_args(w_re: torch.Tensor, w_im: torch.Tensor, max_smem: int) -> None:
-    """Raises ValueError unless the planes are what the kernel takes."""
+def plane_home(c: int, r: int, max_smem: int, extra_bytes: int = 0) -> str:
+    """Where one block keeps a (c, r) plane pair: ``"shared"`` when both
+    planes, the loop's statistics and ``extra_bytes`` of the caller's own
+    shared arrays fit the ``max_smem`` bytes one block may use, else
+    ``"global"`` (device memory, L2-resident; csrc/seat_sweeps.cuh)."""
+    return "shared" if rows_smem_bytes(c, r) + extra_bytes <= max_smem else "global"
+
+
+def block_threads(c: int, home: str = "shared") -> int:
+    """Threads of one block working on c rows: a warp per row pair, up to 8
+    with the planes in shared memory, up to 32 in device memory."""
+    cap = (SMEM_THREADS if home == "shared" else MAX_THREADS) // 32
+    return 32 * min(cap, c // 2)
+
+
+def check_rows_args(w_re: torch.Tensor, w_im: torch.Tensor) -> None:
+    """Raises ValueError unless the planes are what the kernel takes (any
+    size: planes that do not fit shared memory stay in device memory)."""
     if w_re.dtype != torch.float32 or w_im.dtype != torch.float32:
         raise ValueError(f"jacobi_rows takes float32 planes, got {w_re.dtype}/{w_im.dtype}")
     if w_re.ndim != 3 or w_re.shape != w_im.shape:
@@ -166,12 +183,6 @@ def check_rows_args(w_re: torch.Tensor, w_im: torch.Tensor, max_smem: int) -> No
     _, c, r = w_re.shape
     if c < 2 or c % 2 or r < c:
         raise ValueError(f"jacobi_rows needs an even c >= 2 and r >= c, got c={c} r={r}")
-    need = rows_smem_bytes(c, r)
-    if need > max_smem:
-        raise ValueError(
-            f"jacobi_rows: a {c}x{r} plane pair needs {need} B of shared memory, "
-            f"the device allows {max_smem} B per block"
-        )
 
 
 def jacobi_rows(
@@ -184,16 +195,18 @@ def jacobi_rows(
     w_im, sweeps) — see :func:`jacobi_rows_reference` for the contract.
 
     CPU tensors run the plain twin; CUDA tensors launch the kernel (one
-    thread block per matrix) and every launch adds one to
-    ``jacobi_rows.launches``; any other device raises."""
+    thread block per matrix, the planes where :func:`plane_home` puts them)
+    and every launch adds one to ``jacobi_rows.launches`` and to
+    ``jacobi_rows.launches_at[c]``; any other device raises."""
     criterion = criterion or jacobi_criterion()
     if w_re.device.type == "cpu":
         return jacobi_rows_reference(w_re, w_im, max_sweeps, criterion)
     if w_re.device.type != "cuda":
         raise ValueError(f"jacobi_rows: unsupported device {w_re.device}")
+    check_rows_args(w_re, w_im)
     dev = cuda_build.device_index(w_re)
-    check_rows_args(w_re, w_im, cuda_build.max_smem(dev))
     b, c, r = w_re.shape
+    home = plane_home(c, r, cuda_build.max_smem(dev))
     out_re = torch.empty_like(w_re)
     out_im = torch.empty_like(w_im)
     sweeps = torch.empty(b, dtype=torch.int32, device=w_re.device)
@@ -203,13 +216,48 @@ def jacobi_rows(
         "jacobi_rows_launch", dev,
         w_re.data_ptr(), w_im.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
         sweeps.data_ptr(), b, c, r, int(max_sweeps), int(criterion == "hybrid"),
-        block_threads(c),
+        block_threads(c, home), int(home == "shared"),
     )
     jacobi_rows.launches += 1
+    jacobi_rows.launches_at[c] = jacobi_rows.launches_at.get(c, 0) + 1
     return out_re, out_im, sweeps
 
 
 jacobi_rows.launches = 0
+jacobi_rows.launches_at = {}
+
+
+def rank_truncate_reference(w_re, w_im, tot2, thr2: float, chi: int):
+    """Plain-torch twin of the epilogue the rand tail and the fused pair
+    kernels share (csrc/rank_truncate.cuh), on rotated (B, rows, n) planes:
+    the stable top-chi selection by row norm, the 32 eps noise guard and the
+    discarded-weight rule against the full weight ``tot2`` (B,) — None for
+    the rows' own total, as the fused kernel takes it.
+
+    Returns (ws_re, ws_im (B, chi, n) the selected rows unscaled, lam
+    (B, chi) the truncated and rescaled singular values, inv (B, chi) the
+    mask-safe 1/s)."""
+    s2 = (w_re * w_re + w_im * w_im).sum(-1)
+    if tot2 is None:
+        tot2 = s2.sum(-1)
+    order = torch.argsort(-s2, dim=-1, stable=True)[:, :chi]
+    s2s = torch.take_along_dim(s2, order, dim=-1)
+    ws_re = torch.take_along_dim(w_re, order[..., None], dim=-2)
+    ws_im = torch.take_along_dim(w_im, order[..., None], dim=-2)
+
+    zero = torch.zeros_like(s2s)
+    guard = s2s > (32.0 * _EPS32) ** 2 * s2s[:, :1]
+    s2g = torch.where(guard, s2s, zero)
+    seen2 = torch.flip(torch.cumsum(torch.flip(s2g, [-1]), -1), [-1])
+    t2 = tot2[:, None]
+    rest2 = torch.clamp(t2 - s2s.sum(-1, keepdim=True) - 16.0 * _EPS32 * t2, min=0.0)
+    keep = (seen2 + rest2 > thr2 * t2) & guard
+    kept2 = torch.where(keep, s2s, zero).sum(-1, keepdim=True)
+    rescale = torch.sqrt(t2 / torch.clamp(kept2, min=1e-38))
+    s = torch.sqrt(s2s)
+    lam = torch.where(keep, s * rescale, zero)
+    inv = torch.where(keep, 1.0 / torch.clamp(s, min=1e-38), zero)
+    return ws_re, ws_im, lam, inv
 
 
 # -----------------------------------------------------------------------------

@@ -26,8 +26,16 @@ import numpy as np
 import torch
 
 from ..circuit.program import GateProgram, gate_matrix
-from ..config import complex_dtype, device as default_device, jacobi_sweeps, real_of, svd_impl
+from ..config import (
+    complex_dtype,
+    device as default_device,
+    fused_pair_enabled,
+    jacobi_sweeps,
+    real_of,
+    svd_impl,
+)
 from . import rand_svd
+from .fused_pair import fused_pair_update
 from .fused_rand import fused_rand_pair_update
 from .jacobi_kernel import jacobi_svd_kernel_top_k, truncation_supported
 from .jacobi_svd import DEFAULT_SWEEPS, jacobi_svd_top_k
@@ -236,10 +244,19 @@ def _fused_rand_eligible(chi: int, dtype) -> bool:
 def _pair_update(lam_l, lam_c, lam_r, g1, g2, gate4, chi, trunc_thr, dtype, rdtype):
     """Core Vidal pair update on raw tensors; returns (g1', g2', lam').
     Natively batched over identical leading axes: one call is one batched
-    decomposition.  On the "rand" route eligible updates take the fused
+    decomposition.  On the "jacobi" route complex64 updates with chi >= 8
+    take the fused kernel K4 (ops/fused_pair.py) where
+    ``config.fused_pair_enabled`` says so (the JAX package's
+    ops/mps.py:428-444); on the "rand" route eligible updates take the fused
     randomized-projection update (ops/fused_rand.py); the rest take the
-    "jacobi" route."""
-    if svd_impl(g1.device) == "rand" and _fused_rand_eligible(chi, dtype):
+    unfused "jacobi" route."""
+    impl = svd_impl(g1.device)
+    if impl == "jacobi" and chi >= 8 and dtype == torch.complex64 and fused_pair_enabled(chi, g1.device):
+        return fused_pair_update(
+            lam_l, lam_c, lam_r, g1, g2, gate4, chi, trunc_thr, dtype, rdtype,
+            jacobi_sweeps() or DEFAULT_SWEEPS,
+        )
+    if impl == "rand" and _fused_rand_eligible(chi, dtype):
         return fused_rand_pair_update(
             lam_l, lam_c, lam_r, g1, g2, gate4, chi, trunc_thr, dtype, rdtype,
             jacobi_sweeps() or DEFAULT_SWEEPS,

@@ -1,24 +1,34 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: builds the hand-written
-kernels, holds each against its plain-torch twin, then drives one ASP
-horizon of the 20-qubit χ=64 MPS configuration on the jacobi route and one
-on the default (rand) route.
+kernels, holds each against its plain-torch twin, then drives ASP horizons
+of the 20-qubit χ=64 and the 28-qubit χ=128 MPS configurations on the jacobi
+route and on the default (rand) route.
 
 Usage:  python3 chip_smoke.py        (from the root of a checkout; one card)
 
 Phases, one line each:
   1. device   — the card's name and power limit; build and load the kernels
                 (one nvcc per source, all started together).
-  2. kernel   — K1 jacobi_rows vs plain twin at B=10, c=r in {8..128}:
-                singular values, reconstruction, orthogonality, sweep counts;
-                then timed at B=10, 128x128 with CUDA events beside its twin
-                and torch.linalg.svd.
+  2. kernel   — K1 jacobi_rows vs plain twin at B=10, c=r in {8..128} (planes
+                in shared memory) and at B=4, c=r=256 (planes in device
+                memory): singular values, reconstruction, orthogonality,
+                sweep counts; then timed at B=10 128x128 and B=14 256x256
+                with CUDA events beside its twin and torch.linalg.svd.
   2b. kernels — K2 theta_build and K3 rand_tail vs their plain twins at
-                B=10, χ in {8, 16, 32, 64, 96} on rand-route inputs (graded
-                bond values); timed at B=10, χ=64 beside their twins and a
-                library call; rand_tail must refuse χ=128.
-                Also the range-finder on zero-padded pair matrices, where
-                torch's batched CUDA QR returns NaN.
+                B=10, χ in {8, 16, 32, 64, 96, 128} on rand-route inputs
+                (graded bond values; K3 at χ=128 with its planes in device
+                memory); timed at B=10 χ=64 and B=14 χ=128 beside their
+                twins and a library call.  Also the range-finder on
+                zero-padded pair matrices of 128 and 256 rows, where torch's
+                batched CUDA QR returns NaN.
+  2c. fused   — K4 fused_pair vs its plain twin at B=10, χ in {8, 16, 32,
+                64, 96, 128} and on zero-padded θ (bonds of rank 20 at
+                χ=128), bonds graded over 2 decades, trunc 1e-6 and 1e-2:
+                λ, keep masks, kept uᵀ and vh projectors (weighted by
+                s_k / s_max), reconstruction, sweep counts; at χ=128 with
+                bonds graded over 6 decades λ, keep masks and sweep counts
+                only (see K4_DECADES); timed at B=14 χ=128 beside its twin
+                and torch.linalg.svd.
   3. slice    — 20 qubits, χ=64, 4-layer Trotter ansatz, trunc 1e-6, Neel
                 prep, target Trotter(1.2, 3 steps, delta 1, 2nd order);
                 perfect init + 0.05 rad perturbation (seed 5); one L-BFGS
@@ -31,6 +41,17 @@ Phases, one line each:
                 point, timed in turns in this process (rand, jacobi, jacobi,
                 rand, twice), then one profiled sweep each: device busy
                 time, idle share, launches, host aten calls.
+  6. slice28  — phase 3 at 28 qubits, χ=128 (BASELINE config 5): the jacobi
+                route runs K4 for every pair update at χ=128 and K1 for the
+                χ-growth heads; the final objective is re-evaluated in c128
+                under "native" on the card.
+  7. rand28   — the same horizon under the default route, "rand": K2 and K3
+                (K3 at χ=64 and χ=128), K1 for the heads, K4 in the
+                watchdog's "jacobi" re-check.
+  8. routes28 — phase 5 at 28 qubits: rand, jacobi (K4) and jacobi with K4
+                off (K1 at 256x256) in turns (rand, jacobi, unfused,
+                unfused, jacobi, rand, twice; 3 sweeps each), then one
+                profiled sweep each.
 The last three lines are the kernel record, the card's name and power limit,
 and ``{"ok": true, "device": ...}``.  Exits non-zero, printing no result,
 when CUDA is missing or any check fails.
@@ -43,15 +64,28 @@ import os
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 
 import numpy as np
 import torch
 
 CARD_QUERY = ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]
 SHAPES = (8, 16, 32, 64, 128)
-RAND_CHIS = (8, 16, 32, 64, 96)
+BIG_SHAPE, BIG_BATCH = 256, 4  # K1 with its planes in device memory
+RAND_CHIS = (8, 16, 32, 64, 96, 128)
+FUSED_CHIS = (8, 16, 32, 64, 96, 128)
 PATH_CHI = 64
 BATCH = 10
+PATH28_CHI, PATH28_BATCH = 128, 14  # the 28q half-layer: 14 disjoint pairs
+PAD_RANK = 20  # zero-padded θ: bonds far below χ, as on the MPS path
+# K4's inputs grade each bond over 2 decades, so that the kept spectrum of
+# θ stays above the 32 eps s_max guard floor.  With the rand route's 6
+# decades, trunc 1e-6 keeps values within a few times that floor, whose
+# directions the f32 Jacobi does not fix within its 12 sweeps: kernel and
+# twin agree on λ and the keep masks there, but not on those values' vh
+# rows, so that case is checked on λ, masks and sweeps only and its other
+# differences are reported.
+K4_DECADES = 2.0
 MAX_SWEEPS = 12
 CRITERIA = ("hybrid", "entry")  # the port's default first
 # Tolerances of the kernel-vs-twin checks, relative to s_max / ||m||_F: the
@@ -60,14 +94,14 @@ TOL_S = 1e-5
 TOL_RECON = 2e-5
 TOL_ORTH = 1e-5
 TOL_THETA = 1e-5  # θ build, per-matrix relative Frobenius (f32, two orders)
-TOL_PROJ = 2e-5  # kept vh projector of the rand tail
+TOL_PROJ = 2e-5  # kept vh projector of the rand tail; K4's weighted uᵀ and vh projectors
 # The rand tail's truncation thresholds: the slice's, and a coarse one whose
 # cut sits far above the f32 noise of the unseen remainder.
 TAIL_THRESHOLDS = (1e-6, 1e-2)
 # Route vs native objective at the same iterate: f32 decompositions.
 TOL_ROUTES = 1e-4
-# Final objective vs its f64 LAPACK re-evaluation: f32 engine + decomposition
-# noise (7.2e-5 measured on an H100 at this iterate); the collapse class the
+# Final objective vs its f64 re-evaluation: f32 engine + decomposition noise
+# (7.2e-5 measured on an H100 at the 20q iterate); the collapse class the
 # check exists for is O(1).
 TOL_FINAL = 3e-4
 # Peak rates of one H100 SXM for the bounds: f32 outside the tensor cores and
@@ -129,20 +163,27 @@ def median_ms(fn, runs: int = 20, warmup: int = 3) -> float:
 
 
 def kernel_counters():
-    from aqc_research_tpu_torch.ops.fused_pair import theta_build
+    from aqc_research_tpu_torch.ops.fused_pair import fused_pair, theta_build
     from aqc_research_tpu_torch.ops.fused_rand import rand_tail
     from aqc_research_tpu_torch.ops.jacobi_kernel import jacobi_rows
 
-    return {"jacobi_rows": jacobi_rows, "theta_build": theta_build, "rand_tail": rand_tail}
+    return {"jacobi_rows": jacobi_rows, "theta_build": theta_build, "rand_tail": rand_tail,
+            "fused_pair": fused_pair}
 
 
 def reset_counts() -> None:
     for fn in kernel_counters().values():
         fn.launches = 0
+        fn.launches_at = {}
 
 
 def read_counts() -> dict:
     return {name: fn.launches for name, fn in kernel_counters().items()}
+
+
+def read_counts_at() -> dict:
+    """Launches by pair-matrix size n = 2χ (K1: its row count)."""
+    return {name: dict(sorted(fn.launches_at.items())) for name, fn in kernel_counters().items()}
 
 
 def phase_device():
@@ -173,15 +214,15 @@ def _factor(w_re, w_im, m):
     return s, u, vh
 
 
-def phase_kernel(dev, shapes=SHAPES):
+def phase_kernel(dev):
     from aqc_research_tpu_torch.ops.jacobi_kernel import jacobi_rows, jacobi_rows_reference
 
     rng = np.random.default_rng(1234)
-    max_err = 0.0
     worst = {}
-    for n, criterion in ((n, c) for n in shapes for c in CRITERIA):
+    cases = [(n, BATCH) for n in SHAPES] + [(BIG_SHAPE, BIG_BATCH)]
+    for (n, batch), criterion in ((nb, c) for nb in cases for c in CRITERIA):
         if criterion == CRITERIA[0]:
-            m = torch.tensor(graded_matrices(rng, BATCH, n), device=dev)
+            m = torch.tensor(graded_matrices(rng, batch, n), device=dev)
             mt = m.transpose(-1, -2)
             re, im = mt.real.contiguous(), mt.imag.contiguous()
         k_re, k_im, k_sw = jacobi_rows(re, im, MAX_SWEEPS, criterion)
@@ -203,7 +244,6 @@ def phase_kernel(dev, shapes=SHAPES):
         err_orth = orth(ku)
         d_sweeps = int((k_sw - p_sw).abs().max())
         worst[(n, criterion)] = (err_s, err_rec, err_orth, orth(pu), d_sweeps, k_sw.tolist())
-        max_err = max(max_err, err_s)
         at = f"n={n} {criterion}"
         check(np.isfinite(err_s) and err_s <= TOL_S, f"{at}: |ds|/s_max {err_s:.3g} > {TOL_S}")
         check(err_rec <= TOL_RECON, f"{at}: reconstruction {err_rec:.3g} > {TOL_RECON}")
@@ -211,26 +251,33 @@ def phase_kernel(dev, shapes=SHAPES):
         check(d_sweeps <= 1, f"{at}: sweep counts differ by {d_sweeps} "
                              f"(kernel {k_sw.tolist()}, plain {p_sw.tolist()})")
 
-    n = shapes[-1]
-    m = torch.tensor(graded_matrices(rng, BATCH, n), device=dev)
-    mt = m.transpose(-1, -2)
-    re, im = mt.real.contiguous(), mt.imag.contiguous()
-    sweeps = jacobi_rows(re, im, MAX_SWEEPS)[2].cpu().numpy()
-    ms = median_ms(lambda: jacobi_rows(re, im, MAX_SWEEPS))
-    plain_ms = median_ms(lambda: jacobi_rows_reference(re, im, MAX_SWEEPS))
-    library_ms = median_ms(lambda: torch.linalg.svd(m, full_matrices=False))
-    bound_ms, bound_by = bound(jacobi_flops(n, n, sweeps), 4 * 4 * BATCH * n * n + 4 * BATCH)
+    def timed(n, batch, plain_runs):
+        m = torch.tensor(graded_matrices(rng, batch, n), device=dev)
+        mt = m.transpose(-1, -2)
+        re, im = mt.real.contiguous(), mt.imag.contiguous()
+        sweeps = jacobi_rows(re, im, MAX_SWEEPS)[2].cpu().numpy()
+        ms = median_ms(lambda: jacobi_rows(re, im, MAX_SWEEPS))
+        plain_ms = median_ms(lambda: jacobi_rows_reference(re, im, MAX_SWEEPS), runs=plain_runs, warmup=1)
+        library_ms = median_ms(lambda: torch.linalg.svd(m, full_matrices=False))
+        bound_ms, bound_by = bound(jacobi_flops(n, n, sweeps), 4 * 4 * batch * n * n + 4 * batch)
+        line = (f"B={batch} {n}x{n} ({CRITERIA[0]}, sweeps {sweeps.tolist()}): kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms, torch.linalg.svd {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({bound_by})")
+        return line, {"shape": f"B={batch} {n}x{n}", "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "library_ms": library_ms}
+
+    line, stats = timed(SHAPES[-1], BATCH, 20)
+    line28, stats28 = timed(BIG_SHAPE, PATH28_BATCH, 3)
     detail = "; ".join(
         f"c=r={n} {crit}: ds {e[0]:.2e} rec {e[1]:.2e} orth {e[2]:.2e} (plain {e[3]:.2e}) "
         f"dsweeps {e[4]} sweeps {e[5]}"
         for (n, crit), e in worst.items()
     )
-    print(f"[kernel] jacobi_rows vs plain twin, B={BATCH}: {detail} | B={BATCH} {n}x{n} "
-          f"({CRITERIA[0]}, sweeps {sweeps.tolist()}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"torch.linalg.svd {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) "
-          f"(CUDA events, median of 20)", flush=True)
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+    print(f"[kernel] jacobi_rows vs plain twin, B={BATCH} (c=r={BIG_SHAPE}: B={BIG_BATCH}, planes in device "
+          f"memory): {detail} | {line} | {line28} (CUDA events, median of 20; plain at 256: of 3)", flush=True)
+    max_err = max(e[0] for (n, _), e in worst.items() if n != BIG_SHAPE)
+    err256 = max(e[0] for (n, _), e in worst.items() if n == BIG_SHAPE)
+    return {"max_abs_err": max_err, **stats, "shapes": [{"max_abs_err": err256, **stats28}]}
 
 
 def phase_rand_kernels(dev):
@@ -292,93 +339,202 @@ def phase_rand_kernels(dev):
                            f"kept {int(k_keep.sum())}/{int(p_keep.sum())} dsweeps {d_sweeps}")
         details.append(f"chi={chi} theta rel {e_theta:.2e}")
 
-    big = torch.zeros((1, 136, 256), device=dev)
-    try:
-        rand_tail(big, big, torch.ones(1, device=dev), 1e-12, 128)
-    except ValueError as exc:
-        check("shared memory" in str(exc), f"rand_tail refused chi=128 for another reason: {exc}")
-    else:
-        raise SmokeFailure("rand_tail took the chi=128 shape it cannot hold")
-
     # The range-finder on pair matrices in the θ layout's zero padding
-    # (bonds of rank 4 of χ=64): torch's batched CUDA QR returns NaN there.
-    chi = PATH_CHI
-    n, ell = 2 * chi, rand_svd.rand_ell(2 * chi, chi)
-    pad = padded_pair_batch(rng, BATCH, n, 4)
-    y = torch.matmul(pad.to(dev), rand_svd.sketch(BATCH, n, ell, pad.dtype, dev))
-    batched_nan = int((~torch.isfinite(torch.view_as_real(torch.linalg.qr(y, mode="reduced")[0])))
-                      .flatten(1).any(-1).sum())
-    got = rand_svd._range_project(pad.to(dev), ell, rand_svd._POWER_ITERS)
-    check(bool(torch.isfinite(torch.view_as_real(got)).all()), "range-finder: non-finite B on padded pairs")
-    s_got = torch.linalg.svdvals(got).cpu()
-    s_want = torch.linalg.svdvals(rand_svd._range_project(pad, ell, rand_svd._POWER_ITERS))
-    d_pad = float((s_got - s_want).abs().max() / s_want.max())
-    check(d_pad <= TOL_S, f"range-finder on padded pairs: |ds|/s_max {d_pad:.3g} vs LAPACK > {TOL_S}")
+    # (bonds of rank 4 of χ=64; rank 20 of χ=128): torch's batched CUDA QR
+    # returns NaN there, so rand_svd._orth factors chunks of qr_chunk(rows)
+    # matrices (7 at 128 rows, 15 at 256), which stay on cuSOLVER's
+    # one-matrix path; 16 matrices of 256 rows are one chunk past it.
+    pads = []
+    for n, batch, rank in ((2 * PATH_CHI, BATCH, 4), (2 * PATH28_CHI, 16, PAD_RANK)):
+        ell = rand_svd.rand_ell(n, n // 2)
+        pad = padded_pair_batch(rng, batch, n, rank)
+        y = torch.matmul(pad.to(dev), rand_svd.sketch(batch, n, ell, pad.dtype, dev))
+        batched_nan = int((~torch.isfinite(torch.view_as_real(torch.linalg.qr(y, mode="reduced")[0])))
+                          .flatten(1).any(-1).sum())
+        got = rand_svd._range_project(pad.to(dev), ell, rand_svd._POWER_ITERS)
+        check(bool(torch.isfinite(torch.view_as_real(got)).all()),
+              f"range-finder: non-finite B on padded pairs of {n} rows")
+        s_got = torch.linalg.svdvals(got).cpu()
+        s_want = torch.linalg.svdvals(rand_svd._range_project(pad, ell, rand_svd._POWER_ITERS))
+        d_pad = float((s_got - s_want).abs().max() / s_want.max())
+        check(d_pad <= TOL_S, f"range-finder on padded pairs of {n} rows: |ds|/s_max {d_pad:.3g} vs LAPACK > {TOL_S}")
+        pads.append(f"{batch}x{n}x{n} ({2 * rank} nonzero rows, qr_chunk {rand_svd.qr_chunk(n)}): batched "
+                    f"torch.linalg.qr NaN in {batched_nan}/{batch} matrices, rand_svd._orth finite, "
+                    f"|ds|/s_max vs LAPACK {d_pad:.2e}")
 
-    # Timing at the path shape (B=10, χ=64), inputs as above.
-    planes = path_planes(rng, BATCH, chi, dev)
-    th_ms = median_ms(lambda: theta_build(*planes))
-    th_plain = median_ms(lambda: theta_build_reference(*planes))
-    gate, a_re, a_im, b_re, b_im = planes
-    a_c = torch.complex(a_re, a_im)[:, :, None]  # [b, u, 1, x, a']
-    b_c = torch.complex(b_re, b_im)[:, None]  # [b, 1, v, c, x]
-    th_lib = median_ms(lambda: torch.matmul(b_c, a_c))  # the four products only
-    th_flops = BATCH * (32.0 * chi**3 + 128.0 * chi**2)
-    th_bytes = 4 * BATCH * (4 * 2 * chi * chi + 32 + 2 * n * n)
-    th_bound, th_by = bound(th_flops, th_bytes)
+    def timed(chi, batch, plain_runs):
+        """K2 and K3 at one path shape, inputs as above."""
+        n, ell = 2 * chi, rand_svd.rand_ell(2 * chi, chi)
+        planes = path_planes(rng, batch, chi, dev)
+        th_ms = median_ms(lambda: theta_build(*planes))
+        th_plain = median_ms(lambda: theta_build_reference(*planes))
+        gate, a_re, a_im, b_re, b_im = planes
+        a_c = torch.complex(a_re, a_im)[:, :, None]  # [b, u, 1, x, a']
+        b_c = torch.complex(b_re, b_im)[:, None]  # [b, 1, v, c, x]
+        th_lib = median_ms(lambda: torch.matmul(b_c, a_c))  # the four products only
+        th_flops = batch * (32.0 * chi**3 + 128.0 * chi**2)
+        th_bytes = 4 * batch * (4 * 2 * chi * chi + 32 + 2 * n * n)
+        th_bound, th_by = bound(th_flops, th_bytes)
 
-    w_re, w_im = theta_build(*planes)
-    a = torch.complex(w_re, w_im).transpose(-1, -2)
-    bm = rand_svd._range_project(a, ell, rand_svd._POWER_ITERS)
-    m_re, m_im = bm.real.contiguous(), (-bm.imag).contiguous()
-    tot2 = (w_re * w_re + w_im * w_im).sum((-2, -1))
-    thr2 = TAIL_THRESHOLDS[0] ** 2
-    sweeps = rand_tail(m_re, m_im, tot2, thr2, chi, MAX_SWEEPS)[4].cpu().numpy()
-    tail_ms = median_ms(lambda: rand_tail(m_re, m_im, tot2, thr2, chi, MAX_SWEEPS))
-    tail_plain = median_ms(lambda: rand_tail_reference(m_re, m_im, tot2, thr2, chi, MAX_SWEEPS))
-    tail_lib = median_ms(lambda: torch.linalg.svd(bm, full_matrices=False))
-    tail_flops = jacobi_flops(ell, n, sweeps) + BATCH * 2.0 * chi * n
-    tail_bytes = 4 * BATCH * (2 * ell * n + 1 + 2 * chi * n + 2 * chi + 1)
-    tail_bound, tail_by = bound(tail_flops, tail_bytes)
-    print(f"[kernels] theta_build and rand_tail vs plain twins, B={BATCH}: {'; '.join(details)} | "
+        w_re, w_im = theta_build(*planes)
+        a = torch.complex(w_re, w_im).transpose(-1, -2)
+        bm = rand_svd._range_project(a, ell, rand_svd._POWER_ITERS)
+        m_re, m_im = bm.real.contiguous(), (-bm.imag).contiguous()
+        tot2 = (w_re * w_re + w_im * w_im).sum((-2, -1))
+        thr2 = TAIL_THRESHOLDS[0] ** 2
+        sweeps = rand_tail(m_re, m_im, tot2, thr2, chi, MAX_SWEEPS)[4].cpu().numpy()
+        tail_ms = median_ms(lambda: rand_tail(m_re, m_im, tot2, thr2, chi, MAX_SWEEPS))
+        # No sweep: the load, the epilogue (rank, one-thread rule) and the vh rows.
+        tail_rest = median_ms(lambda: rand_tail(m_re, m_im, tot2, thr2, chi, 0))
+        tail_plain = median_ms(lambda: rand_tail_reference(m_re, m_im, tot2, thr2, chi, MAX_SWEEPS),
+                               runs=plain_runs, warmup=1)
+        tail_lib = median_ms(lambda: torch.linalg.svd(bm, full_matrices=False))
+        tail_flops = jacobi_flops(ell, n, sweeps) + batch * 2.0 * chi * n
+        tail_bytes = 4 * batch * (2 * ell * n + 1 + 2 * chi * n + 2 * chi + 1)
+        tail_bound, tail_by = bound(tail_flops, tail_bytes)
+        line = (f"B={batch} chi={chi}: theta_build {th_ms:.4f} ms, plain {th_plain:.4f} ms, batched matmul of "
+                f"the four products {th_lib:.4f} ms, bound {th_bound:.5f} ms ({th_by}); rand_tail ({ell}x{n}, "
+                f"sweeps {sweeps.tolist()}) {tail_ms:.4f} ms (without the sweeps {tail_rest:.4f} ms), "
+                f"plain {tail_plain:.4f} ms, torch.linalg.svd "
+                f"{tail_lib:.4f} ms, bound {tail_bound:.5f} ms ({tail_by})")
+        return line, (
+            {"shape": f"B={batch} chi={chi}", "ms": th_ms, "plain_ms": th_plain, "bound_ms": th_bound,
+             "bound_by": th_by, "library_ms": th_lib},
+            {"shape": f"B={batch} chi={chi} ({ell}x{n})", "ms": tail_ms, "plain_ms": tail_plain,
+             "bound_ms": tail_bound, "bound_by": tail_by, "library_ms": tail_lib},
+        )
+
+    line, (th, tail) = timed(PATH_CHI, BATCH, 20)
+    line28, (th28, tail28) = timed(PATH28_CHI, PATH28_BATCH, 3)
+    print(f"[kernels] theta_build and rand_tail vs plain twins, B={BATCH} (rand_tail at chi=128: planes in "
+          f"device memory): {'; '.join(details)} | "
           f"keep-mask flips / values near the threshold / values: "
           f"{'; '.join(f'thr {t:g}: {flips[t]} / {allowed[t]} / {values[t]}' for t in TAIL_THRESHOLDS)} | "
-          f"rand_tail refuses chi=128 | range-finder on zero-padded pairs ({BATCH}x{n}x{n}, 8 nonzero "
-          f"rows): batched torch.linalg.qr NaN in {batched_nan}/{BATCH} matrices, rand_svd._orth finite, "
-          f"|ds|/s_max vs LAPACK {d_pad:.2e} | B={BATCH} chi={chi}: theta_build {th_ms:.4f} ms, plain {th_plain:.4f} ms, "
-          f"batched matmul of the four products {th_lib:.4f} ms, bound {th_bound:.5f} ms ({th_by}); "
-          f"rand_tail ({ell}x{n}, sweeps {sweeps.tolist()}) {tail_ms:.4f} ms, plain {tail_plain:.4f} ms, "
-          f"torch.linalg.svd {tail_lib:.4f} ms, bound {tail_bound:.5f} ms ({tail_by}) "
-          f"(CUDA events, median of 20)", flush=True)
+          f"range-finder on zero-padded pairs: {'; '.join(pads)} | {line} | {line28} "
+          f"(CUDA events, median of 20; rand_tail plain at chi=128: of 3)", flush=True)
     return (
-        {"max_abs_err": err_theta, "ms": th_ms, "plain_ms": th_plain, "bound_ms": th_bound,
-         "bound_by": th_by, "library_ms": th_lib},
-        {"max_abs_err": err_lam, "ms": tail_ms, "plain_ms": tail_plain, "bound_ms": tail_bound,
-         "bound_by": tail_by, "library_ms": tail_lib},
+        {"max_abs_err": err_theta, **th, "shapes": [{"max_abs_err": err_theta, **th28}]},
+        {"max_abs_err": err_lam, **tail, "shapes": [{"max_abs_err": err_lam, **tail28}]},
     )
 
 
-def f64_objective(circ, thetas, target, base_bits, trunc_thr) -> float:
-    """The objective at ``thetas`` in f64 with LAPACK on the host: the
-    reference the slice's result is held against."""
+def phase_fused(dev):
+    """K4 against its plain twin on the card, then timed at the 28q shape."""
+    from aqc_research_tpu_torch.kernel_checks import near_threshold, path_planes
+    from aqc_research_tpu_torch.ops.fused_pair import fused_pair, fused_pair_reference, theta_build_reference
+
+    rng = np.random.default_rng(2468)
+    err_lam, details = 0.0, []
+    flips = {thr: 0 for thr in TAIL_THRESHOLDS}
+    allowed = {thr: 0 for thr in TAIL_THRESHOLDS}
+    values = {thr: 0 for thr in TAIL_THRESHOLDS}
+
+    def proj(rows, w):
+        kept = rows * w[..., None]
+        return kept.conj().transpose(-1, -2) @ kept
+
+    cases = ([(chi, None, K4_DECADES) for chi in FUSED_CHIS] + [(PATH28_CHI, PAD_RANK, K4_DECADES)]
+             + [(PATH28_CHI, None, 6.0)])
+    for chi, rank, decades in cases:
+        planes = path_planes(rng, BATCH, chi, dev, rank=rank, decades=decades)
+        w0_re, w0_im = theta_build_reference(*planes)
+        theta = torch.complex(w0_re, w0_im)
+        s_theta = torch.linalg.svdvals(theta)
+        tot2 = (w0_re * w0_re + w0_im * w0_im).sum((-2, -1))
+        for trunc_thr in TAIL_THRESHOLDS:
+            thr2 = trunc_thr**2
+            k_ut_re, k_ut_im, k_vh_re, k_vh_im, k_lam, k_sw = fused_pair(*planes, thr2, MAX_SWEEPS)
+            p_ut_re, p_ut_im, p_vh_re, p_vh_im, p_lam, p_sw = fused_pair_reference(*planes, thr2, MAX_SWEEPS)
+            torch.cuda.synchronize()
+            smax = float(p_lam.max())
+            d_lam = float((k_lam - p_lam).abs().max())
+            err_lam = max(err_lam, d_lam)
+            k_keep, p_keep = k_lam > 0, p_lam > 0
+            near = near_threshold(s_theta, tot2, thr2, chi)
+            differ = k_keep != p_keep
+            both = (k_keep & p_keep).to(torch.complex64)
+            # Projectors weighted by s_k / s_max: the Jacobi's stopping rule
+            # fixes a kept direction only to ~1e-6 s_max / s_k, so one sweep
+            # more or less moves the small ones that far, and vh = diag(1/s)
+            # u^H m multiplies the product's rounding by s_max / s_k.
+            weight = both * (p_lam / smax)
+            k_ut, p_ut = torch.complex(k_ut_re, k_ut_im), torch.complex(p_ut_re, p_ut_im)
+            k_vh, p_vh = torch.complex(k_vh_re, k_vh_im), torch.complex(p_vh_re, p_vh_im)
+            d_ut = float((proj(k_ut, weight) - proj(p_ut, weight)).abs().max())
+            d_ut_flat = float((proj(k_ut, both) - proj(p_ut, both)).abs().max())
+            d_vh = float((proj(k_vh, weight) - proj(p_vh, weight)).abs().max())
+            rec = k_ut.transpose(-1, -2) @ (k_vh * (k_lam * both)[..., None])
+            p_rec = p_ut.transpose(-1, -2) @ (p_vh * (p_lam * both)[..., None])
+            d_rec = float((rec - p_rec).abs().max()) / smax
+            vh_norm = float(torch.linalg.vector_norm(k_vh, dim=-1).max())
+            d_sweeps = int((k_sw - p_sw).abs().max())
+            flips[trunc_thr] += int(differ.sum())
+            allowed[trunc_thr] += int(near.sum())
+            values[trunc_thr] += near.numel()
+            label = f"chi={chi}{'' if rank is None else f' rank {rank}'} {decades:g} decades thr={trunc_thr:g}"
+            details.append(f"{label}: dlam {d_lam / smax:.2e} u {d_ut:.2e} (unweighted {d_ut_flat:.2e}) vh "
+                           f"{d_vh:.2e} rec {d_rec:.2e} max |vh row| {vh_norm:.3g} kept "
+                           f"{int(k_keep.sum())}/{int(p_keep.sum())} dsweeps {d_sweeps}")
+            at = f"fused_pair {label}"
+            check(np.isfinite(d_lam) and d_lam <= TOL_S * smax, f"{at}: |dlam| {d_lam:.3g} > {TOL_S} s_max")
+            check(not bool((differ & ~near).any()), f"{at}: keep masks differ away from the threshold")
+            check(d_sweeps <= 1, f"{at}: sweep counts differ by {d_sweeps} "
+                                 f"(kernel {k_sw.tolist()}, plain {p_sw.tolist()})")
+            if decades == K4_DECADES:
+                check(d_ut <= TOL_PROJ, f"{at}: weighted kept u projector differs by {d_ut:.3g} ({details[-1]})")
+                check(d_vh <= TOL_PROJ, f"{at}: weighted kept vh projector differs by {d_vh:.3g} ({details[-1]})")
+                check(d_rec <= TOL_S, f"{at}: reconstruction differs by {d_rec:.3g} s_max ({details[-1]})")
+
+    chi, batch = PATH28_CHI, PATH28_BATCH
+    n = 2 * chi
+    planes = path_planes(rng, batch, chi, dev, decades=K4_DECADES)
+    thr2 = TAIL_THRESHOLDS[0] ** 2
+    sweeps = fused_pair(*planes, thr2, MAX_SWEEPS)[5].cpu().numpy()
+    ms = median_ms(lambda: fused_pair(*planes, thr2, MAX_SWEEPS))
+    # No sweep: the θ build, the copy, the epilogue and the uᵀ and vh rows.
+    rest_ms = median_ms(lambda: fused_pair(*planes, thr2, 0))
+    plain_ms = median_ms(lambda: fused_pair_reference(*planes, thr2, MAX_SWEEPS), runs=3, warmup=1)
+    w0_re, w0_im = theta_build_reference(*planes)
+    theta = torch.complex(w0_re, w0_im).transpose(-1, -2)
+    library_ms = median_ms(lambda: torch.linalg.svd(theta, full_matrices=False))
+    flops = (batch * (32.0 * chi**3 + 128.0 * chi**2) + jacobi_flops(n, n, sweeps)
+             + batch * (8.0 * chi * n * n + 4.0 * chi * n))
+    nbytes = 4 * batch * (4 * 2 * chi * chi + 32 + 4 * chi * n + chi + 1)
+    bound_ms, bound_by = bound(flops, nbytes)
+    print(f"[fused] fused_pair vs plain twin, B={BATCH} (planes in shared memory to chi=64, in device memory "
+          f"from chi=96): {'; '.join(details)} | keep-mask flips / values near the threshold / values: "
+          f"{'; '.join(f'thr {t:g}: {flips[t]} / {allowed[t]} / {values[t]}' for t in TAIL_THRESHOLDS)} | "
+          f"B={batch} chi={chi} (sweeps {sweeps.tolist()}): kernel {ms:.4f} ms (without the sweeps "
+          f"{rest_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+          f"torch.linalg.svd of theta {library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}) "
+          f"(CUDA events, median of 20; plain of 3)", flush=True)
+    return {"max_abs_err": err_lam, "shape": f"B={batch} chi={chi}", "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+
+
+def f64_objective(circ, thetas, target, base_bits, trunc_thr, dev) -> float:
+    """The objective at ``thetas`` in f64 (complex128) under "native" on
+    ``dev``: the reference the horizon's result is held against — LAPACK
+    on the host at 20 qubits, cuSOLVER on the card at 28 (the host's LAPACK
+    takes tens of seconds per sweep at 28q χ=128)."""
     from aqc_research_tpu_torch import config
     from aqc_research_tpu_torch.models.sp_lhs import jit_asp
     from aqc_research_tpu_torch.ops.mps import MPS
 
-    cpu = torch.device("cpu")
-    tgt = MPS(target.gammas.to(cpu, torch.complex128), target.lambdas.to(cpu, torch.float64))
+    tgt = MPS(target.gammas.to(dev, torch.complex128), target.lambdas.to(dev, torch.float64))
     value, _ = jit_asp._mps_value_fns(circ, base_bits, trunc_thr)
     with config.svd_impl_override("native"):
-        return float(value(thetas.to(cpu, torch.float64), tgt))
+        return float(value(thetas.to(dev, torch.float64), tgt))
 
 
-def run_horizon(case, route: str, f_native: float):
+def run_horizon(case, route: str):
     """One horizon of ``case`` under the route in effect, checked as the
-    slice's contract says; returns the line's numbers and the launches."""
+    slice's contract says; returns the line's numbers and the launches (in
+    total and by pair size n = 2χ)."""
     from aqc_research_tpu_torch.models.sp_lhs import jit_asp
 
-    circ, x0, target, base_bits, trunc_thr = (
-        case[k] for k in ("circ", "x0", "target", "base_bits", "trunc_thr"))
+    circ, x0, target, base_bits, trunc_thr, f_native, maxiter = (
+        case[k] for k in ("circ", "x0", "target", "base_bits", "trunc_thr", "f_native", "maxiter"))
     value, value_and_grad = jit_asp._mps_value_fns(circ, base_bits, trunc_thr)
     f_start = float(value(x0, target))
     check(abs(f_start - f_native) <= TOL_ROUTES,
@@ -389,29 +545,36 @@ def run_horizon(case, route: str, f_native: float):
     torch.cuda.synchronize()
     tic = time.perf_counter()
     res = jit_asp.optimize_horizon_mps_jit(
-        circ, x0, target, base_bits=base_bits, trunc_thr=trunc_thr, maxiter=10
+        circ, x0, target, base_bits=base_bits, trunc_thr=trunc_thr, maxiter=maxiter
     )
     fobj = float(res.fobj)
     torch.cuda.synchronize()
     horizon_s = time.perf_counter() - tic
-    launches = read_counts()
+    launches, launches_at = read_counts(), read_counts_at()
 
     check(np.isfinite(fobj) and fobj < f_start, f"{route} horizon did not lower fobj: {f_start} -> {fobj}")
     check(not jit_asp.watchdog_events, f"watchdog fired: {jit_asp.watchdog_events}")
     check(res.thetas.shape == x0.shape and bool(torch.isfinite(res.thetas).all()),
           "non-finite or misshapen thetas")
-    f_check = f64_objective(circ, res.thetas, target, base_bits, trunc_thr)
+    tic = time.perf_counter()
+    f_check = f64_objective(circ, res.thetas, target, base_bits, trunc_thr, case["f64_device"])
+    check_s = time.perf_counter() - tic
+    where = "LAPACK on the host" if case["f64_device"].type == "cpu" else "cuSOLVER on the card"
     check(abs(f_check - fobj) <= TOL_FINAL,
-          f"final objective: {route} {fobj} vs f64 LAPACK re-evaluation {f_check}")
+          f"final objective: {route} {fobj} vs f64 re-evaluation ({where}) {f_check}")
 
-    line = (f"start fobj {route} {f_start:.7g} native {f_native:.7g} | horizon maxiter=10: "
-            f"fobj {fobj:.7g} (f64 LAPACK re-eval {f_check:.7g}), {res.num_iters} iters, "
-            f"{horizon_s:.2f} s = {horizon_s / max(res.num_iters, 1):.3f} s/iter, launches {launches}, "
-            f"watchdog events {len(jit_asp.watchdog_events)}")
-    return line, launches
+    line = (f"start fobj {route} {f_start:.7g} native {f_native:.7g} | horizon maxiter={maxiter}: "
+            f"fobj {fobj:.7g} (f64 re-eval, {where}, {check_s:.1f} s: {f_check:.7g}), {res.num_iters} iters, "
+            f"{horizon_s:.2f} s = {horizon_s / max(res.num_iters, 1):.3f} s/iter, launches {launches} "
+            f"(by n: {launches_at}), watchdog events {len(jit_asp.watchdog_events)}")
+    return line, launches, launches_at
 
 
-def phase_slice(dev, num_qubits=20, chi=64, layers=4):
+def make_case(dev, num_qubits: int, chi: int, maxiter: int, f64_device, layers: int = 4):
+    """The slice's configuration (BASELINE.json configs 3 and 5, as
+    benchmarks/bench_mps.py builds them) under precision "fast" and the
+    jacobi route: ansatz, perturbed perfect init, the first horizon's
+    target (built on the jacobi route) and the native start objective."""
     from aqc_research_tpu_torch import config
     from aqc_research_tpu_torch.circuit.ansatz import TrotterAnsatz
     from aqc_research_tpu_torch.circuit.structures import make_trotter_like_circuit
@@ -440,41 +603,73 @@ def phase_slice(dev, num_qubits=20, chi=64, layers=4):
     target_s = time.perf_counter() - tic
     base_bits = tuple(1 if q % 2 == 0 else 0 for q in range(num_qubits))  # Neel prep
     case = {"circ": circ, "x0": x0, "target": targets.t1, "base_bits": base_bits,
-            "trunc_thr": trunc_thr}
+            "trunc_thr": trunc_thr, "maxiter": maxiter, "f64_device": torch.device(f64_device),
+            "layers": layers, "chi": chi}
     value, _ = jit_asp._mps_value_fns(circ, base_bits, trunc_thr)
     with config.svd_impl_override("native"):
         case["f_native"] = float(value(x0, targets.t1))
+    case["about"] = (f"{num_qubits}q chi={chi} {layers}-layer Trotter ansatz ({circ.num_thetas} thetas), "
+                     f"fast/jacobi/{config.jacobi_criterion()}: targets {target_s:.2f} s "
+                     f"(fid(t1, t1_gt) {trotop.fidelity(targets.t1_gt, targets.t1):.6f})")
+    return case
 
-    line, launches = run_horizon(case, "jacobi", case["f_native"])
+
+def phase_slice(case, tag: str):
+    """One horizon of ``case`` forced onto "jacobi": K1 on every pair update
+    below χ=96 and K4 at χ >= 96 (the auto rule), no rand-route kernel."""
+    line, launches, launches_at = run_horizon(case, "jacobi")
     check(launches["jacobi_rows"] > 0, "the jacobi horizon never launched the Jacobi kernel")
     check(launches["theta_build"] == 0 and launches["rand_tail"] == 0,
           f"the jacobi horizon launched rand-route kernels: {launches}")
-    print(f"[slice] {num_qubits}q chi={chi} {layers}-layer Trotter ansatz ({circ.num_thetas} thetas), "
-          f"fast/jacobi/{config.jacobi_criterion()}: targets {target_s:.2f} s "
-          f"(fid(t1, t1_gt) {trotop.fidelity(targets.t1_gt, targets.t1):.6f}) | {line}", flush=True)
-    return case, launches
+    if case["chi"] >= 96:
+        check(launches["fused_pair"] > 0, f"the jacobi horizon at chi={case['chi']} never launched K4: {launches}")
+    else:
+        check(launches["fused_pair"] == 0, f"the jacobi horizon at chi={case['chi']} launched K4: {launches}")
+    print(f"[{tag}] {case['about']} | {line}", flush=True)
+    return launches, launches_at
 
 
-def phase_rand(case):
-    """Phase 3's horizon again, under the default route, which must be rand."""
+def phase_rand(case, tag: str):
+    """The slice's horizon again, under the default route, which must be
+    rand; at χ=128 K3 must run at χ=128 and the watchdog's "jacobi"
+    re-check must run K4."""
     from aqc_research_tpu_torch import config
 
     config.set_svd_impl(None)
     route = config.svd_impl(case["target"].device)
     check(route == "rand", f"the default route on the card is {route!r}, not 'rand'")
-    line, launches = run_horizon(case, route, case["f_native"])
-    for name, count in launches.items():
-        check(count > 0, f"the rand horizon never launched {name}: {launches}")
-    print(f"[rand] same case, default route {route}/{config.jacobi_criterion()}: {line}", flush=True)
-    return launches
+    line, launches, launches_at = run_horizon(case, route)
+    for name in ("jacobi_rows", "theta_build", "rand_tail"):
+        check(launches[name] > 0, f"the rand horizon never launched {name}: {launches}")
+    n = 2 * case["chi"]
+    check(launches_at["rand_tail"].get(n, 0) > 0, f"the rand horizon never ran K3 at n={n}: {launches_at}")
+    if case["chi"] >= 96:
+        check(launches["fused_pair"] > 0, f"the watchdog's jacobi re-check never launched K4: {launches}")
+    print(f"[{tag}] same case, default route {route}/{config.jacobi_criterion()}: {line} | rand_tail launches at "
+          f"chi={case['chi']} (n={n}): {launches_at['rand_tail'].get(n, 0)}", flush=True)
+    return launches, launches_at
+
+
+@contextmanager
+def route_override(route: str):
+    """A route of the timing turns: "rand", "jacobi" (K4 by the auto rule
+    at χ >= 96) or "unfused" (the jacobi route with K4 off: K1 everywhere)."""
+    from aqc_research_tpu_torch import config
+
+    fused = config._FUSED_PAIR
+    if route == "unfused":
+        config.set_fused_pair(False)
+    try:
+        with config.svd_impl_override("jacobi" if route == "unfused" else route):
+            yield
+    finally:
+        config.set_fused_pair(fused)
 
 
 def sweep_ms(value_and_grad, case, route: str, calls: int) -> float:
     """Mean host wall of ``calls`` objective+gradient sweeps at the start
     point under ``route``, ending in ``synchronize()``."""
-    from aqc_research_tpu_torch.config import svd_impl_override
-
-    with svd_impl_override(route):
+    with route_override(route):
         torch.cuda.synchronize()
         tic = time.perf_counter()
         for _ in range(calls):
@@ -492,11 +687,9 @@ def profile_sweep(value_and_grad, case, route: str) -> dict:
     kernel's launches, the heaviest device kernels and the host's aten calls."""
     from torch.autograd import DeviceType
 
-    from aqc_research_tpu_torch.config import svd_impl_override
-
     before = read_counts()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with svd_impl_override(route), torch.profiler.profile(activities=acts) as prof:
+    with route_override(route), torch.profiler.profile(activities=acts) as prof:
         tic = time.perf_counter()
         value_and_grad(case["x0"], case["target"])
         torch.cuda.synchronize()
@@ -520,20 +713,20 @@ def profile_sweep(value_and_grad, case, route: str) -> dict:
             "top": [(k[:48], us / 1e3, n) for k, us, n in device[:6]]}
 
 
-def phase_routes(case):
-    """The rand and the jacobi sweep side by side in one process: warmed up,
-    then timed in turns (rand, jacobi, jacobi, rand, twice; mean of 5 sweeps
-    each), since host timings drift within a process; then one profiled
-    sweep each."""
+def phase_routes(case, tag: str, routes, repeats: int, calls: int):
+    """The routes' sweeps side by side in one process: warmed up, then timed
+    in turns (the routes, then the same in reverse, ``repeats`` times; mean
+    of ``calls`` sweeps each), since host timings drift within a process;
+    then one profiled sweep each."""
     from aqc_research_tpu_torch.models.sp_lhs import jit_asp
 
     _, value_and_grad = jit_asp._mps_value_fns(case["circ"], case["base_bits"], case["trunc_thr"])
-    routes = ("rand", "jacobi")
     for route in routes:
         sweep_ms(value_and_grad, case, route, 1)
     walls = {route: [] for route in routes}
-    for route in 2 * (routes + routes[::-1]):
-        walls[route].append(sweep_ms(value_and_grad, case, route, 5))
+    order = repeats * (tuple(routes) + tuple(routes[::-1]))
+    for route in order:
+        walls[route].append(sweep_ms(value_and_grad, case, route, calls))
     parts = []
     for route in routes:
         p = profile_sweep(value_and_grad, case, route)
@@ -543,17 +736,19 @@ def phase_routes(case):
             f"sweep {p['wall_ms']:.1f} ms wall, device busy {p['busy_ms']:.1f} ms (idle {p['idle']:.1%}), "
             f"launches {p['launches']}, {p['aten_calls']} aten calls ({p['qr_calls']} linalg_qr); "
             f"top device: {top}")
-    print("[routes] same case and start point, timed in turns (rand, jacobi, jacobi, rand) x 2: "
-          + " || ".join(parts), flush=True)
+    print(f"[{tag}] same case and start point, timed in turns ({', '.join(order[:2 * len(routes)])}) x {repeats}, "
+          f"{calls} sweeps each: " + " || ".join(parts), flush=True)
 
 
 KERNELS = (
     ("jacobi_rows", "aqc_research_tpu_torch/csrc/jacobi_rows.cu",
-     "aqc_research_tpu/ops/pallas_jacobi.py:244"),
+     "aqc_research_tpu/ops/pallas_jacobi.py:244", "jacobi20"),
     ("theta_build", "aqc_research_tpu_torch/csrc/theta_build.cu",
-     "aqc_research_tpu/ops/fused_pair.py:327"),
+     "aqc_research_tpu/ops/fused_pair.py:327", "rand20"),
     ("rand_tail", "aqc_research_tpu_torch/csrc/rand_tail.cu",
-     "aqc_research_tpu/ops/fused_rand.py:164"),
+     "aqc_research_tpu/ops/fused_rand.py:164", "rand20"),
+    ("fused_pair", "aqc_research_tpu_torch/csrc/fused_pair.cu",
+     "aqc_research_tpu/ops/fused_pair.py:238", "jacobi28"),
 )
 
 
@@ -564,26 +759,36 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    tic = time.perf_counter()
     try:
         card_line = phase_device()
         stats = {"jacobi_rows": phase_kernel(dev)}
         stats["theta_build"], stats["rand_tail"] = phase_rand_kernels(dev)
-        case, jacobi_launches = phase_slice(dev)
-        rand_launches = phase_rand(case)
-        phase_routes(case)
+        stats["fused_pair"] = phase_fused(dev)
+        paths = {}
+        case = make_case(dev, 20, PATH_CHI, maxiter=10, f64_device="cpu")
+        paths["jacobi20"] = phase_slice(case, "slice")
+        paths["rand20"] = phase_rand(case, "rand")
+        phase_routes(case, "routes", ("rand", "jacobi"), repeats=2, calls=5)
+        case = make_case(dev, 28, PATH28_CHI, maxiter=10, f64_device=dev)
+        paths["jacobi28"] = phase_slice(case, "slice28")
+        paths["rand28"] = phase_rand(case, "rand28")
+        phase_routes(case, "routes28", ("rand", "jacobi", "unfused"), repeats=2, calls=3)
     except (SmokeFailure, ImportError, RuntimeError, ValueError) as exc:
         print(f"chip_smoke: FAILED: {type(exc).__name__}: {exc}", file=sys.stderr)
         return 1
-    # Each kernel's launches come from the path it belongs to: K1 from the
-    # jacobi horizon, K2 and K3 from the rand horizon (both paths' counts
-    # are in launches_per_path).
-    own_path = {"jacobi_rows": jacobi_launches, "theta_build": rand_launches, "rand_tail": rand_launches}
+    print(f"[wall] {time.perf_counter() - tic:.1f} s from the device phase to the last check", flush=True)
+    # Each kernel's launches come from the path it belongs to (K1 the 20q
+    # jacobi horizon, K2 and K3 the 20q rand horizon, K4 the 28q jacobi
+    # horizon); every path's counts, in total and by pair size n = 2χ, are in
+    # launches_per_path.
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-         "launches": own_path[name][name],
-         "launches_per_path": {"jacobi": jacobi_launches[name], "rand": rand_launches[name]},
+         "launches": paths[own][0][name],
+         "launches_per_path": {path: {"total": counts[name], "by_n": counts_at[name]}
+                               for path, (counts, counts_at) in paths.items()},
          **stats[name]}
-        for name, source, replaces in KERNELS
+        for name, source, replaces, own in KERNELS
     ]}
     print(json.dumps(record))
     print(card_line)

@@ -163,23 +163,41 @@ def test_rows_reject_other_devices():
         ((8, 8), torch.float32, r"\(B, c, r\)"),
         ((2, 7, 8), torch.float32, "even c"),
         ((2, 8, 6), torch.float32, "r >= c"),
-        ((1, 256, 256), torch.float32, "shared memory"),
     ],
 )
 def test_kernel_argument_checks_raise(shape, dtype, why):
     t = torch.zeros(shape, dtype=dtype)
     with pytest.raises(ValueError, match=why):
-        jk.check_rows_args(t, t, 232448)
+        jk.check_rows_args(t, t)
 
 
 def test_kernel_argument_checks_accept_the_slice_shapes():
-    for n in (8, 16, 32, 64, 128):
+    for n in (8, 16, 32, 64, 128, 256):
         t = torch.zeros((10, n, n))
-        jk.check_rows_args(t, t, 232448)
+        jk.check_rows_args(t, t)
     assert jk.rows_smem_bytes(128, 128) == 4 * (2 * 128 * 128 + 3 * 128)
     t = torch.zeros((2, 16, 8)).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
-        jk.check_rows_args(t, t, 232448)
+        jk.check_rows_args(t, t)
+
+
+@pytest.mark.parametrize(
+    "c,r,max_smem,home,threads",
+    [
+        (128, 128, 232448, "shared", 256),
+        (256, 256, 232448, "global", 1024),  # 527,360 B: the 28q chi=128 pair matrices
+        (16, 16, 232448, "shared", 256),
+        (136, 256, 232448, "global", 1024),
+        (128, 128, 101376, "global", 1024),  # a card with less shared memory per block
+    ],
+)
+def test_plane_home_rule(c, r, max_smem, home, threads):
+    """Planes that fit one block's shared memory stay there (8 warps at
+    most, the 20q shapes unchanged); larger ones stay in device memory,
+    with a warp per row pair up to 32."""
+    assert jk.plane_home(c, r, max_smem) == home
+    assert jk.block_threads(c, home) == threads
+    assert jk.block_threads(c) == 32 * min(8, c // 2)
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

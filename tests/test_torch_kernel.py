@@ -1,5 +1,7 @@
 """The hand-written kernels (csrc/jacobi_rows.cu, csrc/theta_build.cu,
-csrc/rand_tail.cu) against their plain twins, on a CUDA card.  Marked
+csrc/rand_tail.cu, csrc/fused_pair.cu) against their plain twins, on a CUDA
+card, with planes in shared memory and, past one block's shared memory (K1
+at 256x256, K3 at chi = 128, K4 from 2chi = 176), in device memory.  Marked
 ``cuda``: skips without a card.  This file imports no JAX, so it also runs
 where JAX is not installed:
 
@@ -9,9 +11,14 @@ Tolerances: singular values within 1e-5 * s_max (the f32 convergence floor
 of the adaptive loop, tol 1e-6 per entry, plus two rounding orders); sweep
 counts within 1 (a sweep's residual can land on either side of the tolerance
 under different rounding); the θ build within 1e-5 relative Frobenius (f32
-products in two orders); kept vh projectors within 2e-5; keep masks equal
-except where a value's keep decision lies within the λ tolerance of the
-truncation threshold (aqc_research_tpu_torch.kernel_checks.near_threshold)."""
+products in two orders); kept vh projectors within 2e-5 (K4: uᵀ and vh
+projectors weighted by s_k / s_max — the stopping rule fixes a kept
+direction only to ~1e-6 s_max / s_k, so a sweep count one apart moves the
+small ones that far, and vh = diag(1/s) uᴴ m multiplies the product's
+rounding by s_max / s_k — and the reconstruction within 1e-5 * s_max);
+keep masks equal except where a value's keep decision lies within the λ
+tolerance of the truncation threshold
+(aqc_research_tpu_torch.kernel_checks.near_threshold)."""
 
 import numpy as np
 import pytest
@@ -76,10 +83,22 @@ def test_kernel_matches_twin_on_card(cuda_device, criterion):
 
 
 @pytest.mark.cuda
-def test_kernel_rejects_the_256_shape_on_card(cuda_device):
-    t = torch.zeros((1, 256, 256), device=cuda_device)
-    with pytest.raises(ValueError, match="shared memory"):
-        jk.jacobi_rows(t, t, 12)
+def test_kernel_takes_the_256_shape_on_card(cuda_device):
+    """K1 at 256x256 (the 28q chi=128 pair matrices), planes in device
+    memory: the same singular values and sweep counts as its twin."""
+    m = torch.tensor(graded(256, 2, 256), device=cuda_device)
+    mt = m.transpose(-1, -2)
+    re, im = mt.real.contiguous(), mt.imag.contiguous()
+    assert jk.plane_home(256, 256, jk.cuda_build.max_smem(0)) == "global"
+    before = jk.jacobi_rows.launches
+    k_re, k_im, k_sw = jk.jacobi_rows(re, im, 12)
+    assert jk.jacobi_rows.launches == before + 1
+    p_re, p_im, p_sw = jk.jacobi_rows_reference(re, im, 12)
+    torch.cuda.synchronize()
+    ks = torch.sqrt((k_re**2 + k_im**2).sum(-1)).sort(-1).values
+    ps = torch.sqrt((p_re**2 + p_im**2).sum(-1)).sort(-1).values
+    assert float((ks - ps).abs().max()) <= 1e-5 * float(ps.max())
+    assert int((k_sw - p_sw).abs().max()) <= 1
 
 
 @pytest.mark.cuda
@@ -129,9 +148,10 @@ def test_theta_build_matches_twin_on_card(cuda_device, chi):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("chi", [16, 64])
+@pytest.mark.parametrize("chi", [16, 64, 128])
 def test_rand_tail_matches_twin_on_card(cuda_device, chi):
-    m_re, m_im, tot2, s = tail_inputs(chi + 1, 10, chi, cuda_device)
+    batch = 10 if chi < 128 else 3  # chi = 128: planes in device memory
+    m_re, m_im, tot2, s = tail_inputs(chi + 1, batch, chi, cuda_device)
     thr2 = 1e-4  # trunc_thr 1e-2: the cut sits well above the f32 noise
     before = tfr.rand_tail.launches
     k_vh_re, k_vh_im, k_lam, k_inv, k_sw = tfr.rand_tail(m_re, m_im, tot2, thr2, chi, 12)
@@ -153,12 +173,50 @@ def test_rand_tail_matches_twin_on_card(cuda_device, chi):
 
 @pytest.mark.cuda
 def test_rand_tail_raises_on_card(cuda_device):
-    big = torch.zeros((1, 136, 256), device=cuda_device)
-    with pytest.raises(ValueError, match="shared memory"):
-        tfr.rand_tail(big, big, torch.ones(1, device=cuda_device), 1e-12, 128)
     f64 = torch.zeros((2, 24, 32), dtype=torch.float64, device=cuda_device)
     with pytest.raises(ValueError, match="float32"):
         tfr.rand_tail(f64, f64, torch.ones(2, dtype=torch.float64, device=cuda_device), 1e-12, 16)
+    z = torch.zeros((2, 2, 8, 8), device=cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        tfp.fused_pair(torch.zeros((2, 32), device=cuda_device), z.double(), z, z, z, 1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chi,rank", [(16, None), (64, None), (96, None), (128, None), (128, 20)])
+def test_fused_pair_matches_twin_on_card(cuda_device, chi, rank):
+    """K4 against its twin, working planes in shared memory (chi <= 80) and
+    in device memory (chi >= 96); rank 20: the zero-padded θ of bonds far
+    below chi, as on the 28q path."""
+    batch = 4 if chi < 128 else 2
+    planes = path_planes(np.random.default_rng(chi), batch, chi, cuda_device, rank=rank)
+    thr2 = 1e-4  # trunc_thr 1e-2
+    before = tfp.fused_pair.launches
+    k_ut_re, k_ut_im, k_vh_re, k_vh_im, k_lam, k_sw = tfp.fused_pair(*planes, thr2, 12)
+    assert tfp.fused_pair.launches == before + 1
+    p_ut_re, p_ut_im, p_vh_re, p_vh_im, p_lam, p_sw = tfp.fused_pair_reference(*planes, thr2, 12)
+    torch.cuda.synchronize()
+    smax = float(p_lam.max())
+    assert float((k_lam - p_lam).abs().max()) <= 1e-5 * smax
+    w0_re, w0_im = tfp.theta_build_reference(*planes)
+    theta = torch.complex(w0_re, w0_im)
+    k_keep, p_keep = k_lam > 0, p_lam > 0
+    near = near_threshold(torch.linalg.svdvals(theta), (theta.abs() ** 2).sum((-2, -1)), thr2, chi)
+    assert bool(((k_keep == p_keep) | near).all())
+    assert int((k_sw - p_sw).abs().max()) <= 1
+    both = (k_keep & p_keep).to(torch.complex64)
+    weight = both * (p_lam / smax)
+
+    def proj(rows, w):
+        kept = rows * w[..., None]
+        return kept.conj().transpose(-1, -2) @ kept
+
+    k_ut, p_ut = torch.complex(k_ut_re, k_ut_im), torch.complex(p_ut_re, p_ut_im)
+    k_vh, p_vh = torch.complex(k_vh_re, k_vh_im), torch.complex(p_vh_re, p_vh_im)
+    assert float((proj(k_ut, weight) - proj(p_ut, weight)).abs().max()) <= 2e-5
+    assert float((proj(k_vh, weight) - proj(p_vh, weight)).abs().max()) <= 2e-5
+    rec = k_ut.transpose(-1, -2) @ (k_vh * (k_lam * both)[..., None])
+    p_rec = p_ut.transpose(-1, -2) @ (p_vh * (p_lam * both)[..., None])
+    assert float((rec - p_rec).abs().max()) <= 1e-5 * smax
 
 
 @pytest.mark.cuda
@@ -186,6 +244,22 @@ def test_rand_route_pair_update_agrees_with_native_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+def test_range_finder_at_256_rows_on_card(cuda_device):
+    """The 28q chi=128 pair matrices: 256 rows, 14 matrices (one
+    half-layer), zero-padded as θ is.  ``qr_chunk(256)`` = 15, so the
+    half-layer stays on cuSOLVER's one-matrix path; B must be finite and
+    match LAPACK's on the host."""
+    a = padded_pair_batch(np.random.default_rng(4), 14, 256, 20)
+    ell = trs.rand_ell(256, 128)
+    assert trs.qr_chunk(256) == 15
+    got = trs._range_project(a.to(cuda_device), ell, trs._POWER_ITERS).cpu()
+    want = trs._range_project(a, ell, trs._POWER_ITERS)
+    assert bool(torch.isfinite(torch.view_as_real(got)).all())
+    s_got, s_want = torch.linalg.svdvals(got), torch.linalg.svdvals(want)
+    assert float((s_got - s_want).abs().max()) <= 1e-5 * float(s_want.max())
+
+
+@pytest.mark.cuda
 def test_range_finder_handles_rank_deficient_batches_on_card(cuda_device):
     """Pair matrices of rank-4 bonds held at χ=64, zero-padded as θ is
     (nonzero rows in two blocks at 0 and χ), in a batch of 10: torch's
@@ -205,3 +279,27 @@ def test_range_finder_handles_rank_deficient_batches_on_card(cuda_device):
     assert bool(torch.isfinite(torch.view_as_real(got)).all())
     s_got, s_want = torch.linalg.svdvals(got), torch.linalg.svdvals(want)
     assert float((s_got - s_want).abs().max()) <= 1e-5 * float(s_want.max())
+
+
+@pytest.mark.cuda
+def test_fused_route_pair_update_agrees_with_native_on_card(cuda_device):
+    """A Trotter half-layer at chi=128 (256x256 pair matrices) on the jacobi
+    route takes K4 by the auto rule (one launch) and gives the native
+    route's state to f32 accuracy."""
+    n = 8
+    trot = Trotter(num_qubits=n, evol_time=0.8, num_steps=2, delta=1.0, second_order=True)
+    with config.svd_impl_override("native"):
+        state = trot.as_mps(neel_init_state(n), trunc_thr=1e-6, chi_max=128,
+                            dtype=torch.complex64, device=cuda_device)
+    block = _block_4x4_lo_hi(trotter_alphas(0.3, 1.0), torch.complex64, cuda_device)
+    out = {}
+    for route in ("jacobi", "native"):
+        with config.svd_impl_override(route):
+            before = (tfp.fused_pair.launches, jk.jacobi_rows.launches)
+            out[route] = tm.mps_to_vector(
+                tm.apply_pairs_mps(state, block.expand(3, 4, 4), (1, 3, 5), trunc_thr=1e-6)
+            ).cpu().numpy()
+            assert (tfp.fused_pair.launches, jk.jacobi_rows.launches) == (
+                before[0] + (route == "jacobi"), before[1])
+    np.testing.assert_allclose(out["jacobi"], out["native"], atol=1e-4)
+    assert abs(np.vdot(out["jacobi"], out["native"])) >= 1 - 1e-5

@@ -341,7 +341,6 @@ def test_rand_tail_zero_weight_keeps_nothing():
     [
         ((10, 72, 128), (10,), 64, None),
         ((10, 104, 192), (10,), 96, None),
-        ((1, 136, 256), (1,), 128, "shared memory"),
         ((2, 24, 32), (3,), 16, r"\(B,\) weights"),
         ((2, 23, 32), (2,), 16, "even l"),
         ((2, 24, 20), (2,), 16, "n >= l"),
@@ -351,20 +350,35 @@ def test_rand_tail_zero_weight_keeps_nothing():
 def test_rand_tail_argument_checks(plane, tot2, chi, why):
     p, t = torch.zeros(plane), torch.zeros(tot2)
     if why is None:
-        tfr.check_tail_args(p, p, t, chi, SMEM_H100)
+        tfr.check_tail_args(p, p, t, chi)
         return
     with pytest.raises(ValueError, match=why):
-        tfr.check_tail_args(p, p, t, chi, SMEM_H100)
+        tfr.check_tail_args(p, p, t, chi)
+
+
+@pytest.mark.parametrize(
+    "ell,n,chi,home",
+    [(72, 128, 64, "shared"), (104, 192, 96, "shared"), (120, 224, 112, "shared"), (136, 256, 128, "global")],
+)
+def test_rand_tail_plane_home(ell, n, chi, home):
+    """The rand tail's planes stay in one block's shared memory up to
+    chi = 112; at chi = 128 (278,528 B of planes) they stay in device
+    memory, and the kernel takes the shape."""
+    assert tfr.tail_plane_home(ell, n, chi, SMEM_H100) == home
+    p = torch.zeros((1, ell, n))
+    tfr.check_tail_args(p, p, torch.zeros(1), chi)
 
 
 def test_rand_tail_checks_dtype_and_device():
     p, t = torch.zeros((2, 24, 32)), torch.zeros(2)
     with pytest.raises(ValueError, match="float32"):
-        tfr.check_tail_args(p.double(), p, t, CHI, SMEM_H100)
+        tfr.check_tail_args(p.double(), p, t, CHI)
     meta = torch.empty((2, 24, 32), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         tfr.rand_tail(meta, meta, t.to("meta"), 1e-12, CHI)
-    assert tfr.tail_smem_bytes(72, 128, 64) == 4 * (2 * 72 * 128 + 3 * 72 + 72 + 3 * 64)
+    # The planes, the loop's statistics and the epilogue's arrays: 75,136 B at chi = 64.
+    assert tfr.tail_plane_home(72, 128, 64, 4 * (2 * 72 * 128 + 3 * 72 + 72 + 3 * 64)) == "shared"
+    assert tfr.tail_plane_home(72, 128, 64, 4 * (2 * 72 * 128 + 3 * 72 + 72 + 3 * 64) - 1) == "global"
 
 
 # -----------------------------------------------------------------------------
