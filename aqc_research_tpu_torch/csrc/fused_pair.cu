@@ -7,10 +7,10 @@
 // per matrix:
 //
 //   1. W0 = θᵀ (2chi, 2chi) from the λ-scaled Γ planes and the gate
-//      (theta_tiles.cuh, K2's tile loop), kept for step 5;
-//   2. the adaptive Jacobi (seat_sweeps.cuh) on a working copy of W0, with
-//      L = rows 0..chi-1 and R = rows chi..2chi-1 (the JAX seating):
-//      row j of the rotated planes is (s_j u_j)^T;
+//      (theta_tiles.cuh, K2's tile loop), kept in device memory for step 5;
+//   2. the adaptive Jacobi on a working copy of W0, with L = rows 0..chi-1
+//      and R = rows chi..2chi-1 (the JAX seating): row j of the rotated
+//      planes is (s_j u_j)^T;
 //   3. the epilogue shared with K3 (rank_truncate.cuh): row norms, the
 //      stable top-chi selection, the 32 eps guard and the discarded-weight
 //      rule against the rows' own total weight, lambda and 1/s;
@@ -19,96 +19,194 @@
 //      so the recovery uses the NORMALIZED rows and then inv once more: the
 //      standard vh = diag(1/s) u^H m (the comment at fused_pair.py:219-222).
 //
-// Stopping is per matrix (one block per matrix), the semantics of the
-// Pallas kernel's chunk = 1; its chunk padding has no counterpart.  The
-// product of step 5 is a tiled SIMT product in true f32 (plain FMA, no
-// tensor cores, so no TF32), as the reference forces precision=HIGHEST.
+// Stopping is per matrix, the semantics of the Pallas kernel's chunk = 1;
+// its chunk padding has no counterpart.  Every product is true f32 (plain
+// FMA, no tensor cores, so no TF32), as the reference forces
+// precision=HIGHEST.
 //
-// Design.  One thread block per matrix.  W0 lives in a scratch pair in
-// device memory (the kernel writes it in step 1 and reads it in step 5, so
-// never through __ldg).  The working planes follow the plane home rule of
-// seat_sweeps.cuh: in shared memory up to 2chi = 160 (256 threads, one
-// tile group), else in a second scratch pair in device memory, L2-resident
-// (1024 threads, four tile groups that build and multiply four 16x16
-// tiles at a time).
+// Design: where the working planes live decides the kernel (the "home",
+// chosen in Python by ops/fused_pair.fused_plane_home, never by trying a
+// launch).
+//   * shared (2chi <= 160 on an H100): one block of 256 threads per matrix
+//     holds the planes in its shared memory and runs seat_sweeps.cuh;
+//   * cluster (176 <= 2chi <= 256, every 28-qubit pair update at chi = 128):
+//     a thread-block cluster of ``cluster`` CTAs per matrix (8,
+//     ops/fused_pair.FUSED_CLUSTER: 14 clusters fill 112 SMs) holds the
+//     planes in its shared memory, seats by home CTA (16 seats of each side,
+//     double-buffered, 128 KB per CTA at 2chi = 256), and runs
+//     cluster_sweeps.cuh: a warp per pair reads both rows locally and writes
+//     them into their next seats, which lie in another CTA only at the CTA's
+//     edges; one cluster barrier per phase.  The θ tiles and the vh tiles
+//     go to the CTAs' tile groups in turn; each CTA computes its rows'
+//     norms, gathers the others' and runs the same selection and rule; the
+//     kept uᵀ rows are written by the CTAs that hold them.  W0 and uᵀ pass
+//     between CTAs through device memory, behind __threadfence() and a
+//     cluster barrier;
+//   * global (2chi > 256): one block of 1024 threads per matrix rotates the
+//     planes in a scratch pair in device memory (seat_sweeps.cuh).
+// Tile groups are 256 threads; their buffers share the dynamic shared
+// memory with the planes, which are not live during steps 1 and 5.
 //
-// Bounds.  The sweeps dominate, as in K1: bound by the traffic of the
-// per-phase rotations and the per-phase barrier, with B ~ 14 blocks on 132
-// SMs at 28 qubits.  Steps 1 and 5 are 32chi^3 + 8chi(2chi)^2 flops per
-// matrix (~134 MFLOP at chi = 128), a fraction of a millisecond per block.
+// Bounds.  The sweeps dominate: 18 n (n-1) n flop per sweep (n = 2chi,
+// 0.3 GFLOP per sweep at chi = 128) on the CUDA cores, against each phase's
+// latency: a block barrier (one block per matrix) or a cluster barrier,
+// local seat traffic and two remote rows per CTA (cluster).  Steps 1 and 5
+// are 32chi^3 + 8chi(2chi)^2 flop per matrix (~134 MFLOP at chi = 128).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "cluster_sweeps.cuh"
 #include "rank_truncate.cuh"
 #include "seat_sweeps.cuh"
 #include "theta_tiles.cuh"
 
 namespace {
 
-constexpr int kT = aqc::kThetaTile;
+namespace cg = cooperative_groups;
+
+constexpr int kT = 16;                                // vh tile edge and contraction step
+constexpr int kClusterQ = aqc::kClusterMaxRows / 32;  // row entries per lane on the cluster path
+constexpr int kHomeShared = 0, kHomeCluster = 1, kHomeGlobal = 2;
 
 struct VhTileBuf {
   float ut[2][kT][kT + 1];  // [re, im][i][e], padded against bank conflicts
   float w0[2][kT][kT + 1];  // [re, im][j][e]
 };
 
-union TileBuf {
+union alignas(16) TileBuf {
   aqc::ThetaTileBuf theta;
   VhTileBuf vh;
 };
 
-// kSmemPlanes: the working planes live in dynamic shared memory (one tile
-// group of 256 threads); otherwise in wk_re/wk_im in device memory (four
-// groups, 1024 threads).
+constexpr int kTileBufFloats = static_cast<int>(sizeof(TileBuf) / sizeof(float));
+
+// Shared floats ahead of the planes / tile buffers: the sweeps' statistics
+// and the epilogue's arrays, rounded up to 16 bytes.
+__host__ __device__ constexpr int head_floats(int stats, int n, int chi) {
+  return (stats + aqc::rank_truncate_floats(n, chi) + 3) / 4 * 4;
+}
+
+__host__ __device__ constexpr int max_int(int a, int b) { return a > b ? a : b; }
+
+// Dynamic shared floats of one block per matrix (shared or global home).
+__host__ __device__ constexpr int block_smem_floats(int chi, bool smem_planes, int threads) {
+  return head_floats(aqc::seat_stats_floats(2 * chi), 2 * chi, chi) +
+         max_int(smem_planes ? 2 * (2 * chi) * (2 * chi) : 0,
+                 threads / aqc::kTileThreads * kTileBufFloats);
+}
+
+// Dynamic shared floats of one CTA of the cluster path.
+__host__ __device__ constexpr int cluster_smem_floats(int chi, int cluster) {
+  return head_floats(aqc::cluster_stats_floats(2 * chi, cluster), 2 * chi, chi) +
+         max_int(aqc::cluster_seat_floats(2 * chi, 2 * chi, cluster),
+                 aqc::cluster_threads(2 * chi, cluster) / aqc::kTileThreads * kTileBufFloats);
+}
+
+// Step 1 for one matrix: its θ tiles, taken in turn by the ``groups`` tile
+// groups that work on the matrix; this thread is thread t of group
+// ``group``, which owns ``buf`` when ``full`` (a partial group of a block
+// whose size is no multiple of 256 only joins the barriers).
+__device__ inline void theta_step(const float* gate, const float* a_re, const float* a_im,
+                                  const float* b_re, const float* b_im, float* w0r, float* w0i,
+                                  int chi, int group, int groups, bool full, int t,
+                                  TileBuf* buf) {
+  constexpr int kE = aqc::kThetaEdge;
+  const int tiles = (chi + kE - 1) / kE;
+  for (int first = 0; first < tiles * tiles; first += groups) {
+    const int tile = first + group;
+    const bool active = full && tile < tiles * tiles;
+    const int c0 = active ? (tile / tiles) * kE : 0;
+    const int a0 = active ? (tile % tiles) * kE : 0;
+    aqc::theta_tile<kE, 2>(gate, a_re, a_im, b_re, b_im, w0r, w0i, chi, c0, a0, active, t,
+                           buf->theta);
+  }
+}
+
+// Step 5 for one matrix: vh = inv * conj(uᵀ) @ W0ᵀ in 16x16 output tiles
+// (one position per thread), taken in turn by the tile groups as in
+// theta_step.  uᵀ and W0 are read from device memory.
+__device__ inline void vh_step(const float* utr, const float* uti, const float* w0r,
+                               const float* w0i, const float* inv, float* vhr, float* vhi,
+                               int chi, int group, int groups, bool full, int t, TileBuf* buf) {
+  const int n = 2 * chi;
+  const int tx = t % kT, ty = t / kT;
+  const int ti = (chi + kT - 1) / kT, tj = (n + kT - 1) / kT;
+  VhTileBuf& vb = buf->vh;
+  for (int first = 0; first < ti * tj; first += groups) {
+    const int tile = first + group;
+    const bool active = full && tile < ti * tj;
+    const int i0 = active ? (tile / tj) * kT : 0;
+    const int j0 = active ? (tile % tj) * kT : 0;
+    float acc_re = 0.f, acc_im = 0.f;
+    for (int e0 = 0; e0 < n; e0 += kT) {
+      if (full) {
+        const int e = e0 + tx;
+        const bool u_ok = active && i0 + ty < chi && e < n;
+        const bool w_ok = active && j0 + ty < n && e < n;
+        const size_t u_at = static_cast<size_t>(i0 + ty) * n + e;
+        const size_t w_at = static_cast<size_t>(j0 + ty) * n + e;
+        vb.ut[0][ty][tx] = u_ok ? utr[u_at] : 0.f;
+        vb.ut[1][ty][tx] = u_ok ? uti[u_at] : 0.f;
+        vb.w0[0][ty][tx] = w_ok ? w0r[w_at] : 0.f;
+        vb.w0[1][ty][tx] = w_ok ? w0i[w_at] : 0.f;
+      }
+      __syncthreads();
+      if (full) {
+#pragma unroll
+        for (int q = 0; q < kT; ++q) {
+          const float ur = vb.ut[0][ty][q], ui = vb.ut[1][ty][q];
+          const float wr = vb.w0[0][tx][q], wi = vb.w0[1][tx][q];
+          acc_re += ur * wr + ui * wi;  // conj(u) w
+          acc_im += ur * wi - ui * wr;
+        }
+      }
+      __syncthreads();
+    }
+    const int i = i0 + ty, j = j0 + tx;
+    if (active && i < chi && j < n) {
+      vhr[static_cast<size_t>(i) * n + j] = acc_re * inv[i];
+      vhi[static_cast<size_t>(i) * n + j] = acc_im * inv[i];
+    }
+  }
+}
+
+// One block per matrix.  kSmemPlanes: the working planes live in dynamic
+// shared memory (one tile group of 256 threads); otherwise in wk_re/wk_im
+// in device memory (four groups, 1024 threads).
 template <bool kSmemPlanes>
 __global__ void __launch_bounds__(kSmemPlanes ? aqc::kSmemThreads : aqc::kMaxThreads)
 fused_pair_kernel(const float* __restrict__ gate, const float* __restrict__ a_re,
                   const float* __restrict__ a_im, const float* __restrict__ b_re,
                   const float* __restrict__ b_im, float* w0_re, float* w0_im, float* wk_re,
-                  float* wk_im, float* __restrict__ ut_re, float* __restrict__ ut_im,
-                  float* __restrict__ vh_re, float* __restrict__ vh_im,
-                  float* __restrict__ lam_out, int* __restrict__ sweeps_out, int chi,
-                  int max_sweeps, int hybrid, float thr2) {
-  constexpr int kGroups = kSmemPlanes ? aqc::kSmemThreads / aqc::kTileThreads
-                                      : aqc::kMaxThreads / aqc::kTileThreads;
-  extern __shared__ float smem[];
+                  float* wk_im, float* ut_re, float* ut_im, float* __restrict__ vh_re,
+                  float* __restrict__ vh_im, float* __restrict__ lam_out,
+                  int* __restrict__ sweeps_out, int chi, int max_sweeps, int hybrid, float thr2) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
   __shared__ int s_go;
   __shared__ float s_gate[32];
-  __shared__ TileBuf tbuf[kGroups];
 
   const int n = 2 * chi;
   const size_t nn = static_cast<size_t>(n) * n;
   const int mat = blockIdx.x;
+  const int groups = blockDim.x / aqc::kTileThreads;
   const int group = threadIdx.x / aqc::kTileThreads;
   const int t = threadIdx.x % aqc::kTileThreads;
   float* w0r = w0_re + mat * nn;
   float* w0i = w0_im + mat * nn;
-  float* w_re;
-  float* w_im;
-  float* stats;
-  if constexpr (kSmemPlanes) {
-    w_re = smem;
-    w_im = w_re + nn;
-    stats = w_im + nn;
-  } else {
-    w_re = wk_re + mat * nn;
-    w_im = wk_im + mat * nn;
-    stats = smem;
-  }
+  float* stats = smem;
   const aqc::RankScratch rs(stats + aqc::seat_stats_floats(n), n, chi);
+  float* region = smem + head_floats(aqc::seat_stats_floats(n), n, chi);
+  TileBuf* buf = reinterpret_cast<TileBuf*>(region) + group;
+  float* w_re = kSmemPlanes ? region : wk_re + mat * nn;
+  float* w_im = kSmemPlanes ? region + nn : wk_im + mat * nn;
 
-  // ---- 1. θ build into the retained W0 (the groups take tiles in turn) ----
+  // ---- 1. θ build into the retained W0 ----
   if (threadIdx.x < 32) s_gate[threadIdx.x] = gate[static_cast<size_t>(mat) * 32 + threadIdx.x];
   const size_t in_base = static_cast<size_t>(mat) * 2 * chi * chi;
-  const int tiles = (chi + kT - 1) / kT;
-  for (int first = 0; first < tiles * tiles; first += kGroups) {
-    const int tile = first + group;
-    const bool active = tile < tiles * tiles;
-    const int c0 = active ? (tile / tiles) * kT : 0;
-    const int a0 = active ? (tile % tiles) * kT : 0;
-    aqc::theta_tile(s_gate, a_re + in_base, a_im + in_base, b_re + in_base, b_im + in_base, w0r,
-                    w0i, chi, c0, a0, active, t, tbuf[group].theta);
-  }
+  theta_step(s_gate, a_re + in_base, a_im + in_base, b_re + in_base, b_im + in_base, w0r, w0i,
+             chi, group, groups, true, t, buf);
   __syncthreads();
 
   // ---- 2. adaptive Jacobi on a working copy ----
@@ -135,76 +233,196 @@ fused_pair_kernel(const float* __restrict__ gate, const float* __restrict__ a_re
     utr[i] = w_re[src] * inv;
     uti[i] = w_im[src] * inv;
   }
-  __syncthreads();
+  __syncthreads();  // the tile buffers of step 5 overwrite shared planes
 
-  // ---- 5. vh = inv * conj(uᵀ) @ W0ᵀ, 16x16 output tiles per group ----
-  const int tx = t % kT, ty = t / kT;
-  const int ti = (chi + kT - 1) / kT, tj = (n + kT - 1) / kT;
-  VhTileBuf& vb = tbuf[group].vh;
-  for (int first = 0; first < ti * tj; first += kGroups) {
-    const int tile = first + group;
-    const bool active = tile < ti * tj;
-    const int i0 = active ? (tile / tj) * kT : 0;
-    const int j0 = active ? (tile % tj) * kT : 0;
-    float acc_re = 0.f, acc_im = 0.f;
-    for (int e0 = 0; e0 < n; e0 += kT) {
-      const int e = e0 + tx;
-      const bool u_ok = active && i0 + ty < chi && e < n;
-      const bool w_ok = active && j0 + ty < n && e < n;
-      const size_t u_at = static_cast<size_t>(i0 + ty) * n + e;
-      const size_t w_at = static_cast<size_t>(j0 + ty) * n + e;
-      vb.ut[0][ty][tx] = u_ok ? utr[u_at] : 0.f;
-      vb.ut[1][ty][tx] = u_ok ? uti[u_at] : 0.f;
-      vb.w0[0][ty][tx] = w_ok ? w0r[w_at] : 0.f;
-      vb.w0[1][ty][tx] = w_ok ? w0i[w_at] : 0.f;
-      __syncthreads();
-#pragma unroll
-      for (int q = 0; q < kT; ++q) {
-        const float ur = vb.ut[0][ty][q], ui = vb.ut[1][ty][q];
-        const float wr = vb.w0[0][tx][q], wi = vb.w0[1][tx][q];
-        acc_re += ur * wr + ui * wi;  // conj(u) w
-        acc_im += ur * wi - ui * wr;
-      }
-      __syncthreads();
-    }
-    const int i = i0 + ty, j = j0 + tx;
-    if (active && i < chi && j < n) {
-      const float inv = rs.inv[i];
-      vh_re[out_base + static_cast<size_t>(i) * n + j] = acc_re * inv;
-      vh_im[out_base + static_cast<size_t>(i) * n + j] = acc_im * inv;
+  // ---- 5. vh = inv * conj(uᵀ) @ W0ᵀ ----
+  vh_step(utr, uti, w0r, w0i, rs.inv, vh_re + out_base, vh_im + out_base, chi, group, groups,
+          true, t, buf);
+}
+
+// A cluster of ``cluster`` CTAs per matrix (blocks mat * cluster ..), the
+// planes in their distributed shared memory (the file comment).
+__global__ void __launch_bounds__(aqc::kClusterMaxThreads)
+fused_pair_cluster_kernel(const float* __restrict__ gate, const float* __restrict__ a_re,
+                          const float* __restrict__ a_im, const float* __restrict__ b_re,
+                          const float* __restrict__ b_im, float* w0_re, float* w0_im,
+                          float* ut_re, float* ut_im, float* __restrict__ vh_re,
+                          float* __restrict__ vh_im, float* __restrict__ lam_out,
+                          int* __restrict__ sweeps_out, int chi, int cluster, int max_sweeps,
+                          int hybrid, float thr2) {
+  cg::cluster_group grp = cg::this_cluster();
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  __shared__ int s_go;
+  __shared__ float s_gate[32];
+
+  const int n = 2 * chi;
+  const size_t nn = static_cast<size_t>(n) * n;
+  const int me = static_cast<int>(grp.block_rank());
+  const int mat = blockIdx.x / cluster;
+  const int pairs_per = aqc::cluster_pairs_per_cta(n, cluster);  // seats of each side held here
+  const int seat0 = me * pairs_per;
+  const int groups = blockDim.x / aqc::kTileThreads;  // full tile groups per CTA
+  const int group = threadIdx.x / aqc::kTileThreads;
+  const bool full = group < groups;
+  const int t = threadIdx.x % aqc::kTileThreads;
+  float* w0r = w0_re + mat * nn;
+  float* w0i = w0_im + mat * nn;
+  float* stats = smem;
+  const int stats_floats = aqc::cluster_stats_floats(n, cluster);
+  const aqc::RankScratch rs(stats + stats_floats, n, chi);
+  float* region = smem + head_floats(stats_floats, n, chi);
+  TileBuf* buf = reinterpret_cast<TileBuf*>(region) + (full ? group : 0);
+  float* w_re = region;  // seat buffers [2][side][pairs_per][n], re then im
+  float* w_im = region + aqc::cluster_seat_floats(n, n, cluster) / 2;
+  // At every sweep boundary the seats of one side hold contiguous rows:
+  // side * chi + seat0 .. + held.
+  const int held = max(0, min(pairs_per, chi - seat0));
+
+  // ---- 1. θ tiles over the cluster's tile groups, into W0 ----
+  if (threadIdx.x < 32) s_gate[threadIdx.x] = gate[static_cast<size_t>(mat) * 32 + threadIdx.x];
+  const size_t in_base = static_cast<size_t>(mat) * 2 * chi * chi;
+  theta_step(s_gate, a_re + in_base, a_im + in_base, b_re + in_base, b_im + in_base, w0r, w0i,
+             chi, me * groups + group, cluster * groups, full, t, buf);
+  __threadfence();
+  grp.sync();  // W0 complete and visible to the cluster
+
+  // ---- 2. the rows of this CTA's seats from W0; the sweeps ----
+  for (int side = 0; side < 2; ++side) {
+    const size_t src = static_cast<size_t>(side * chi + seat0) * n;
+    float* dre = aqc::seat_slot(w_re, 0, side, 0, pairs_per, n);
+    float* dim = aqc::seat_slot(w_im, 0, side, 0, pairs_per, n);
+    for (int i = threadIdx.x; i < held * n; i += blockDim.x) {
+      dre[i] = w0r[src + i];
+      dim[i] = w0i[src + i];
     }
   }
+  grp.sync();
+  int cur = 0;
+  const int k = aqc::cluster_seat_sweeps<kClusterQ>(w_re, w_im, stats, &s_go, n, n, cluster,
+                                                    max_sweeps, hybrid, cur);
+
+  // ---- 3. the norms of the rows held here, then of all rows: every CTA
+  //         ranks the same numbers and applies the same rule ----
+  for (int side = 0; side < 2; ++side) {
+    aqc::row_norms(aqc::seat_slot(w_re, cur, side, 0, pairs_per, n),
+                   aqc::seat_slot(w_im, cur, side, 0, pairs_per, n), held, n,
+                   rs.s2 + side * chi + seat0);
+  }
+  grp.sync();  // also ends the stats warps' last reads of the statistics
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int owner = (i % chi) / pairs_per;
+    if (owner != me) rs.s2[i] = *grp.map_shared_rank(rs.s2 + i, owner);
+  }
+  __syncthreads();
+  aqc::select_truncate(rs, n, chi, true, 0.f, thr2,
+                       me == 0 ? lam_out + static_cast<size_t>(mat) * chi : nullptr, nullptr);
+  if (me == 0 && threadIdx.x == 0) sweeps_out[mat] = k;
+
+  // ---- 4. the kept uᵀ rows, each from the CTA that holds it ----
+  const size_t out_base = static_cast<size_t>(mat) * chi * n;
+  float* utr = ut_re + out_base;
+  float* uti = ut_im + out_base;
+  for (int i = threadIdx.x; i < chi * n; i += blockDim.x) {
+    const int row = i / n, e = i - row * n;
+    const int src = rs.sel[row];
+    const int seat = src % chi;
+    if (seat / pairs_per == me) {
+      const float inv = rs.inv[row];
+      const int side = src / chi, slot = seat % pairs_per;
+      utr[i] = aqc::seat_slot(w_re, cur, side, slot, pairs_per, n)[e] * inv;
+      uti[i] = aqc::seat_slot(w_im, cur, side, slot, pairs_per, n)[e] * inv;
+    }
+  }
+  __threadfence();
+  grp.sync();  // uᵀ visible to the cluster; no CTA reads another's shared memory after this
+
+  // ---- 5. vh tiles over the cluster's tile groups ----
+  vh_step(utr, uti, w0r, w0i, rs.inv, vh_re + out_base, vh_im + out_base, chi,
+          me * groups + group, cluster * groups, full, t, buf);
+}
+
+cudaLaunchConfig_t cluster_config(int batch, int chi, int cluster, cudaStream_t stream,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(batch * cluster);
+  cfg.blockDim = dim3(aqc::cluster_threads(2 * chi, cluster));
+  cfg.dynamicSmemBytes = sizeof(float) * cluster_smem_floats(chi, cluster);
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Validates a cluster-path shape and opts the kernel into its shared memory.
+cudaError_t prepare_cluster(int chi, int cluster) {
+  const int n = 2 * chi;
+  if (chi < 1 || cluster < 1 || cluster > 8 || n > aqc::kClusterMaxRows ||
+      aqc::cluster_threads(n, cluster) > aqc::kClusterMaxThreads)
+    return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(fused_pair_cluster_kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(sizeof(float) * cluster_smem_floats(chi, cluster)));
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches one block per matrix on ``stream``; returns the CUDA error code
+// Launches the fused pair update on ``stream``; returns the CUDA error code
 // of the launch (0 on success).  Inputs are contiguous f32: gate (batch,
 // 32), a/b planes (batch, 2, chi, chi); scratch w0 (batch, 2chi, 2chi) and,
-// without ``smem_planes``, wk (batch, 2chi, 2chi); outputs uᵀ and vh planes
-// (batch, chi, 2chi), lam (batch, chi), sweeps (batch,) int32.
+// for the global home, wk (batch, 2chi, 2chi); outputs uᵀ and vh planes
+// (batch, chi, 2chi), lam (batch, chi), sweeps (batch,) int32.  ``home``:
+// 0 shared (a block per matrix), 1 cluster (``cluster`` CTAs per matrix),
+// 2 global.
 int fused_pair_launch(const float* gate, const float* a_re, const float* a_im,
                       const float* b_re, const float* b_im, float* w0_re, float* w0_im,
                       float* wk_re, float* wk_im, float* ut_re, float* ut_im, float* vh_re,
                       float* vh_im, float* lam, int* sweeps, int batch, int chi, int max_sweeps,
-                      int hybrid, float thr2, int smem_planes, void* stream) {
+                      int hybrid, float thr2, int home, int cluster, void* stream) {
   if (chi < 1 || batch < 1) return cudaErrorInvalidValue;
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (home == kHomeCluster) {
+    cudaError_t err = prepare_cluster(chi, cluster);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg = cluster_config(batch, chi, cluster, s, attr);
+    err = cudaLaunchKernelEx(&cfg, fused_pair_cluster_kernel, gate, a_re, a_im, b_re, b_im,
+                             w0_re, w0_im, ut_re, ut_im, vh_re, vh_im, lam, sweeps, chi, cluster,
+                             max_sweeps, hybrid, thr2);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (home != kHomeShared && home != kHomeGlobal) return cudaErrorInvalidValue;
+  const bool smem_planes = home == kHomeShared;
   if (!smem_planes && (wk_re == nullptr || wk_im == nullptr)) return cudaErrorInvalidValue;
-  const int n = 2 * chi;
-  const size_t planes = smem_planes ? 2 * static_cast<size_t>(n) * n : 0;
-  const size_t smem = sizeof(float) * (planes + aqc::seat_stats_floats(n) +
-                                       aqc::rank_truncate_floats(n, chi));
   const int threads = smem_planes ? aqc::kSmemThreads : aqc::kMaxThreads;
+  const size_t smem = sizeof(float) * block_smem_floats(chi, smem_planes, threads);
   auto kernel = smem_planes ? fused_pair_kernel<true> : fused_pair_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<batch, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      gate, a_re, a_im, b_re, b_im, w0_re, w0_im, wk_re, wk_im, ut_re, ut_im, vh_re, vh_im, lam,
-      sweeps, chi, max_sweeps, hybrid, thr2);
+  kernel<<<batch, threads, smem, s>>>(gate, a_re, a_im, b_re, b_im, w0_re, w0_im, wk_re, wk_im,
+                                      ut_re, ut_im, vh_re, vh_im, lam, sweeps, chi, max_sweeps,
+                                      hybrid, thr2);
   return static_cast<int>(cudaGetLastError());
+}
+
+// How many clusters of the cluster path at ``chi`` the card keeps resident
+// at once (cudaOccupancyMaxActiveClusters), or minus the CUDA error code.
+int fused_pair_cluster_occupancy(int chi, int cluster) {
+  cudaError_t err = prepare_cluster(chi, cluster);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(1, chi, cluster, nullptr, attr);
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, fused_pair_cluster_kernel, &cfg);
+  return err != cudaSuccess ? -static_cast<int>(err) : clusters;
 }
 
 }  // extern "C"

@@ -18,11 +18,12 @@
 //
 // The Pallas kernels rank by a comparison matrix and select by a 0/1
 // permutation matmul because Mosaic has no sort.  Here one block holds all
-// rows, so the rank is one comparison loop per row (rows^2 comparisons over
-// the block) and the selected rows are read in place by the caller through
-// ``sel``.  The rule's suffix sums run in one thread (chi <= 128 values, a
-// few microseconds): tiny beside the sweeps.  Rows may lie in shared or
-// device memory.
+// row norms (K4's cluster path gathers them into every CTA and each runs
+// the same select_truncate), so the rank is one comparison loop per row
+// (rows^2 comparisons over the block) and the selected rows are read in
+// place by the caller through ``sel``.  The rule's suffix sums run in one
+// thread (chi <= 128 values, a few microseconds): tiny beside the sweeps.
+// Rows may lie in shared or device memory.
 
 #pragma once
 
@@ -47,24 +48,12 @@ struct RankScratch {
         sel(reinterpret_cast<int*>(base + rows + 2 * chi)) {}
 };
 
-// Every thread of the block calls it after the sweeps, on the (rows, n)
-// rotated planes.  With ``weight_from_rows`` the full weight is the sum of
-// the rows' s^2 (the rows are the whole matrix: K4), else ``tot2``.  Writes
-// lam_out[0..chi) and, when not null, inv_out[0..chi); returns with the
-// block synchronised and ``rs.sel`` / ``rs.inv`` holding the selected rows
-// in rank order and their 1/s (0 where dropped).
-__device__ inline void rank_truncate(const float* w_re, const float* w_im, int rows, int n,
-                                     int chi, bool weight_from_rows, float tot2, float thr2,
-                                     const RankScratch& rs, float* lam_out, float* inv_out) {
-  float* s2 = rs.s2;
-  float* s2s = rs.s2s;
-  float* inv_s = rs.inv;
-  int* sel = rs.sel;
+// Row norms s^2 of the (rows, n) planes into s2[0..rows), a warp per row
+// (rows may lie in shared or device memory); no barrier.
+__device__ inline void row_norms(const float* w_re, const float* w_im, int rows, int n, float* s2) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int nwarps = blockDim.x >> 5;
-
-  // ---- row norms ----
   for (int j = warp; j < rows; j += nwarps) {
     const float* re = w_re + static_cast<size_t>(j) * n;
     const float* im = w_im + static_cast<size_t>(j) * n;
@@ -73,6 +62,21 @@ __device__ inline void rank_truncate(const float* w_re, const float* w_im, int r
     acc = warp_sum(acc);
     if (lane == 0) s2[j] = acc;
   }
+}
+
+// Steps 1-4 on the row norms ``rs.s2[0..rows)``, which every thread of the
+// block must see (written before a barrier).  With ``weight_from_rows`` the
+// full weight is the sum of the rows' s^2 (the rows are the whole matrix:
+// K4), else ``tot2``.  Writes lam_out[0..chi) and inv_out[0..chi) where not
+// null; returns with the block synchronised and ``rs.sel`` / ``rs.inv``
+// holding the selected rows in rank order and their 1/s (0 where dropped).
+__device__ inline void select_truncate(const RankScratch& rs, int rows, int chi,
+                                       bool weight_from_rows, float tot2, float thr2,
+                                       float* lam_out, float* inv_out) {
+  const float* s2 = rs.s2;
+  float* s2s = rs.s2s;
+  float* inv_s = rs.inv;
+  int* sel = rs.sel;
   for (int i = threadIdx.x; i < chi; i += blockDim.x) {
     sel[i] = 0;  // only a non-finite row norm leaves a rank unfilled
     s2s[i] = 0.f;
@@ -117,12 +121,22 @@ __device__ inline void rank_truncate(const float* w_re, const float* w_im, int r
       const bool keep = inv_s[i] != 0.f;
       const float s = sqrtf(s2s[i]);
       const float inv = keep ? 1.f / fmaxf(s, 1e-38f) : 0.f;
-      lam_out[i] = keep ? s * rescale : 0.f;
+      if (lam_out != nullptr) lam_out[i] = keep ? s * rescale : 0.f;
       if (inv_out != nullptr) inv_out[i] = inv;
       inv_s[i] = inv;
     }
   }
   __syncthreads();
+}
+
+// The whole epilogue on the (rows, n) rotated planes of one block: every
+// thread of the block calls it after the sweeps (see select_truncate).
+__device__ inline void rank_truncate(const float* w_re, const float* w_im, int rows, int n,
+                                     int chi, bool weight_from_rows, float tot2, float thr2,
+                                     const RankScratch& rs, float* lam_out, float* inv_out) {
+  row_norms(w_re, w_im, rows, n, rs.s2);
+  __syncthreads();
+  select_truncate(rs, rows, chi, weight_from_rows, tot2, thr2, lam_out, inv_out);
 }
 
 }  // namespace aqc

@@ -32,7 +32,7 @@
 // A plane pair that fits one block's shared memory (with the caller's own
 // shared arrays) is loaded there, by a block of at most kSmemThreads
 // threads.  A larger one (256 x 256 for K1 at 28 qubits chi = 128, 136 x 256
-// for K3, every 2chi >= 176 for K4) stays in device memory, in a buffer the
+// for K3, K4 from 2chi = 272) stays in device memory, in a buffer the
 // wrapper allocates with torch.empty (the kernel's output or scratch), and
 // the block works on it in place with up to kMaxThreads threads (32 warps
 // for the 128 pairs of a 256-row matrix).  At most 1 MB per matrix and B <= 14
@@ -43,10 +43,10 @@
 // the home with one Python function of (c, r, max_smem)
 // (ops/jacobi_kernel.plane_home), so the CPU tests see the rule.
 //
-// A thread-block cluster holding the planes in distributed shared memory is
-// the faster design: but the seat map pairs rows held by different blocks in
-// every phase, so every phase would end in a cluster barrier.  It belongs
-// to the later work that redesigns these kernels for speed.
+// cluster_sweeps.cuh runs this loop on a thread-block cluster with the
+// planes in distributed shared memory (a cluster barrier per phase); K4
+// takes it at 176 <= 2chi <= 256, K1 at 256 and K3 at chi = 128 still use
+// the device-memory home above.
 //
 // Bounds.  At the shared-memory shapes (c <= 128 rows of r <= 128 lanes)
 // the loop is bound by shared-memory traffic (every phase reads both planes

@@ -37,15 +37,17 @@ _SIGNATURES = {
     # in_re, in_im, out_re, out_im, sweeps, batch, c, r, max_sweeps,
     # hybrid, threads, smem_planes, stream
     "jacobi_rows_launch": ([_VP] * 5 + [_CI] * 7 + [_VP], _CI),
-    # gate, a_re, a_im, b_re, b_im, w0_re, w0_im, batch, chi, stream
-    "theta_build_launch": ([_VP] * 7 + [_CI] * 2 + [_VP], _CI),
+    # gate, a_re, a_im, b_re, b_im, w0_re, w0_im, batch, chi, edge, stream
+    "theta_build_launch": ([_VP] * 7 + [_CI] * 3 + [_VP], _CI),
     # m_re, m_im, tot2, wk_re, wk_im, vh_re, vh_im, lam, inv, sweeps, batch,
     # ell, n, chi, max_sweeps, hybrid, thr2, threads, smem_planes, stream
     "rand_tail_launch": ([_VP] * 10 + [_CI] * 6 + [_CF, _CI, _CI, _VP], _CI),
     # gate, a_re, a_im, b_re, b_im, w0_re, w0_im, wk_re, wk_im, ut_re, ut_im,
     # vh_re, vh_im, lam, sweeps, batch, chi, max_sweeps, hybrid, thr2,
-    # smem_planes, stream
-    "fused_pair_launch": ([_VP] * 15 + [_CI] * 4 + [_CF, _CI, _VP], _CI),
+    # home, cluster, stream
+    "fused_pair_launch": ([_VP] * 15 + [_CI] * 4 + [_CF, _CI, _CI, _VP], _CI),
+    # chi, cluster
+    "fused_pair_cluster_occupancy": ([_CI, _CI], _CI),
     "aqc_max_smem_optin": ([_CI], _CI),
     "aqc_error_string": ([_CI], ctypes.c_char_p),
 }
@@ -130,6 +132,11 @@ def max_smem(dev: int) -> int:
     if dev not in _MAX_SMEM:
         _MAX_SMEM[dev] = int(load().aqc_max_smem_optin(dev))
     return _MAX_SMEM[dev]
+
+
+def sm_count(dev: int) -> int:
+    """Streaming multiprocessors of card ``dev``."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def launch(name: str, dev: int, *args) -> None:

@@ -24,7 +24,7 @@ import torch
 
 from ..config import jacobi_criterion
 from . import cuda_build
-from .jacobi_kernel import jacobi_rows_reference, plane_home, rank_truncate_reference
+from .jacobi_kernel import jacobi_rows_reference, rank_truncate_reference
 from .jacobi_svd import DEFAULT_SWEEPS
 
 
@@ -99,6 +99,15 @@ def check_theta_args(gate_planes, a_re, a_im, b_re, b_im, name: str = "theta_bui
         raise ValueError(f"{name} takes 1 to 65535 matrices, got {shape[0]}")
 
 
+def theta_tile_edge(batch: int, chi: int, sms: int) -> int:
+    """K2's output tile edge (csrc/theta_build.cu; 256 threads a block
+    either way): 32, with a 2x2 micro-tile a thread, where the batch's 32x32
+    tiles outnumber the card's ``sms`` SMs, else 16, one position a thread,
+    so that a half-layer batch fills the card: B=14 chi=128 takes 224
+    blocks of 32, B=10 chi=64 160 blocks of 16."""
+    return 32 if batch * math.ceil(chi / 32) ** 2 > sms else 16
+
+
 def theta_build(
     gate_planes: torch.Tensor,
     a_re: torch.Tensor,
@@ -116,13 +125,15 @@ def theta_build(
     if a_re.device.type != "cuda":
         raise ValueError(f"theta_build: unsupported device {a_re.device}")
     check_theta_args(gate_planes, a_re, a_im, b_re, b_im)
+    dev = cuda_build.device_index(a_re)
     b, _, chi, _ = a_re.shape
     w0_re = torch.empty((b, 2 * chi, 2 * chi), dtype=torch.float32, device=a_re.device)
     w0_im = torch.empty_like(w0_re)
     cuda_build.launch(
-        "theta_build_launch", cuda_build.device_index(a_re),
+        "theta_build_launch", dev,
         gate_planes.data_ptr(), a_re.data_ptr(), a_im.data_ptr(), b_re.data_ptr(),
         b_im.data_ptr(), w0_re.data_ptr(), w0_im.data_ptr(), b, chi,
+        theta_tile_edge(b, chi, cuda_build.sm_count(dev)),
     )
     theta_build.launches += 1
     theta_build.launches_at[2 * chi] = theta_build.launches_at.get(2 * chi, 0) + 1
@@ -137,18 +148,77 @@ theta_build.launches_at = {}
 # K4: the fused pair update of the jacobi route.
 # -----------------------------------------------------------------------------
 
-# Static shared memory of a block whose planes live in shared memory: one
-# 16x16 tile group's buffers (8 KB, csrc/theta_tiles.cuh), the gate table
-# and the go flag.
-_FUSED_STATIC_SMEM = 8 * 1024 + 256
+# Static shared memory of every K4 block: the gate table and the go flag
+# (the tile groups' buffers share the dynamic shared memory with the planes).
+_FUSED_STATIC_SMEM = 256
+# One tile group's buffers (csrc/fused_pair.cu TileBuf: two cp.async stages
+# of a 32-wide θ k-tile, csrc/theta_tiles.cuh), in floats.
+_TILE_BUF_FLOATS = 2 * 4 * 16 * (32 + 2) + 2 * 4 * 16 * 32
+_TILE_THREADS = 256
+# K4's cluster path (csrc/cluster_sweeps.cuh): CTAs per matrix, and the
+# largest matrix it takes (2chi rows of 2chi lanes, 8 entries per lane).
+FUSED_CLUSTER = 8
+FUSED_CLUSTER_MAX_ROWS = 256
+_HOME_CODES = {"shared": 0, "cluster": 1, "global": 2}
+
+
+def _head_floats(stats: int, chi: int) -> int:
+    """Shared floats ahead of the planes: the sweeps' statistics and the
+    epilogue's arrays (2chi + 3chi), rounded up to 16 bytes."""
+    return -(-(stats + 2 * chi + 3 * chi) // 4) * 4
+
+
+def fused_smem_bytes(chi: int, home: str) -> int:
+    """Dynamic shared memory of one K4 block per matrix (the "shared" and
+    "global" homes of csrc/fused_pair.cu): statistics and epilogue arrays,
+    then the larger of the planes (shared home) and the tile groups'
+    buffers (1 group of 256 threads in shared, 4 in global)."""
+    n = 2 * chi
+    groups = 1 if home == "shared" else 4
+    planes = 2 * n * n if home == "shared" else 0
+    return 4 * (_head_floats(3 * n, chi) + max(planes, groups * _TILE_BUF_FLOATS))
+
+
+def fused_cluster_threads(chi: int, cluster: int = FUSED_CLUSTER) -> int:
+    """Threads of one CTA on the cluster path: a warp per pair of the CTA's
+    share of a phase (ceil(chi / cluster) of chi) and the stats warp, at
+    least one 256-thread tile group."""
+    return max(32 * (-(-chi // cluster) + 1), _TILE_THREADS)
+
+
+def fused_cluster_smem_bytes(chi: int, cluster: int = FUSED_CLUSTER) -> int:
+    """Dynamic shared memory of one CTA on the cluster path: its pairs'
+    statistics of four phases, all 2chi row norms and the epilogue's
+    arrays, then the larger of its seat buffers (two buffers of its
+    ceil(chi / cluster) seats of each side, re and im, rows of 2chi lanes)
+    and its full tile groups' buffers."""
+    n = 2 * chi
+    pairs = -(-chi // cluster)
+    groups = fused_cluster_threads(chi, cluster) // _TILE_THREADS
+    return 4 * (_head_floats(4 * 3 * pairs, chi) + max(8 * pairs * n, groups * _TILE_BUF_FLOATS))
 
 
 def fused_plane_home(chi: int, max_smem: int) -> str:
-    """Where one K4 block keeps its (2chi, 2chi) working planes
-    (ops/jacobi_kernel.plane_home, beside the epilogue's arrays and the
-    kernel's static tile buffers); θᵀ itself always stays in device memory."""
-    n = 2 * chi
-    return plane_home(n, n, max_smem, 4 * (n + 3 * chi) + _FUSED_STATIC_SMEM)
+    """Where K4 keeps a matrix's (2chi, 2chi) working planes, given the
+    ``max_smem`` bytes one block may use: ``"shared"`` when one block holds
+    them (2chi <= 160 on an H100), else ``"cluster"`` (the shared memory
+    of a cluster of FUSED_CLUSTER CTAs, up to 2chi = 256), else
+    ``"global"`` (device memory).  θᵀ itself always stays in device memory."""
+    if fused_smem_bytes(chi, "shared") + _FUSED_STATIC_SMEM <= max_smem:
+        return "shared"
+    if 2 * chi <= FUSED_CLUSTER_MAX_ROWS and fused_cluster_smem_bytes(chi) + _FUSED_STATIC_SMEM <= max_smem:
+        return "cluster"
+    return "global"
+
+
+def fused_cluster_occupancy(chi: int, dev: int = 0) -> int:
+    """Clusters of K4's cluster path at ``chi`` that card ``dev`` keeps
+    resident at once (cudaOccupancyMaxActiveClusters); raises on an error."""
+    with torch.cuda.device(dev):
+        got = int(cuda_build.load().fused_pair_cluster_occupancy(chi, FUSED_CLUSTER))
+    if got < 0:
+        raise RuntimeError(f"fused_pair_cluster_occupancy failed: CUDA error {-got}")
+    return got
 
 
 def fused_pair_reference(
@@ -194,8 +264,9 @@ def fused_pair(
     outputs — see :func:`fused_pair_reference` for the contract.
 
     CPU tensors run the plain twin; CUDA tensors launch the kernel (one
-    thread block per matrix, the working planes where
-    :func:`fused_plane_home` puts them) and every launch adds one to
+    thread block, or on the cluster path a cluster of FUSED_CLUSTER CTAs,
+    per matrix; the working planes where :func:`fused_plane_home` puts
+    them) and every launch adds one to
     ``fused_pair.launches`` and to ``fused_pair.launches_at[2 chi]``; any
     other device raises."""
     criterion = criterion or jacobi_criterion()
@@ -225,7 +296,7 @@ def fused_pair(
         None if wk_re is None else wk_re.data_ptr(), None if wk_im is None else wk_im.data_ptr(),
         ut_re.data_ptr(), ut_im.data_ptr(), vh_re.data_ptr(), vh_im.data_ptr(), lam.data_ptr(),
         sweeps.data_ptr(), b, chi, int(max_sweeps), int(criterion == "hybrid"), float(thr2),
-        int(home == "shared"),
+        _HOME_CODES[home], FUSED_CLUSTER,
     )
     fused_pair.launches += 1
     fused_pair.launches_at[n] = fused_pair.launches_at.get(n, 0) + 1

@@ -8,27 +8,35 @@ Usage:  python3 chip_smoke.py        (from the root of a checkout; one card)
 
 Phases, one line each:
   1. device   — the card's name and power limit; build and load the kernels
-                (one nvcc per source, all started together).
+                (one nvcc per source, all started together); ptxas's
+                registers and spill bytes per kernel.
   2. kernel   — K1 jacobi_rows vs plain twin at B=10, c=r in {8..128} (planes
                 in shared memory) and at B=4, c=r=256 (planes in device
                 memory): singular values, reconstruction, orthogonality,
                 sweep counts; then timed at B=10 128x128 and B=14 256x256
-                with CUDA events beside its twin and torch.linalg.svd.
+                beside its twin and torch.linalg.svd.
   2b. kernels — K2 theta_build and K3 rand_tail vs their plain twins at
                 B=10, χ in {8, 16, 32, 64, 96, 128} on rand-route inputs
                 (graded bond values; K3 at χ=128 with its planes in device
                 memory); timed at B=10 χ=64 and B=14 χ=128 beside their
-                twins and a library call.  Also the range-finder on
-                zero-padded pair matrices of 128 and 256 rows, where torch's
-                batched CUDA QR returns NaN.
+                twins and a library call (K2: one einsum of the gated θ,
+                and the four products' batched matmul); K2 at both tile
+                edges (the A/B behind ops/fused_pair.theta_tile_edge).
+                Also the range-finder on zero-padded pair matrices of 128
+                and 256 rows, where torch's batched CUDA QR returns NaN.
   2c. fused   — K4 fused_pair vs its plain twin at B=10, χ in {8, 16, 32,
-                64, 96, 128} and on zero-padded θ (bonds of rank 20 at
+                64} (planes in one block's shared memory), {96, 100, 128}
+                (the cluster path: planes in the distributed shared memory
+                of 8 CTAs) and on zero-padded θ (bonds of rank 20 at
                 χ=128), bonds graded over 2 decades, trunc 1e-6 and 1e-2:
                 λ, keep masks, kept uᵀ and vh projectors (weighted by
                 s_k / s_max), reconstruction, sweep counts; at χ=128 with
                 bonds graded over 6 decades λ, keep masks and sweep counts
-                only (see K4_DECADES); timed at B=14 χ=128 beside its twin
-                and torch.linalg.svd.
+                only (see K4_DECADES); the cluster size, the clusters the
+                card keeps resident, ptxas's numbers for K2 and K4; timed at
+                B=14 χ=128 beside its twin, torch.linalg.svd and its own
+                device-memory home (the one-block design that preceded the
+                cluster path) on the same inputs.
   3. slice    — 20 qubits, χ=64, 4-layer Trotter ansatz, trunc 1e-6, Neel
                 prep, target Trotter(1.2, 3 steps, delta 1, 2nd order);
                 perfect init + 0.05 rad perturbation (seed 5); one L-BFGS
@@ -52,6 +60,10 @@ Phases, one line each:
                 off (K1 at 256x256) in turns (rand, jacobi, unfused,
                 unfused, jacobi, rand, twice; 3 sweeps each), then one
                 profiled sweep each.
+Every kernel and library time is read twice with CUDA events: device-only
+(back-to-back calls queued behind a sleep kernel, so the wrappers' host time
+stays out; the record's ``ms`` and ``library_ms``) and per call on an idle
+device (``call_ms``, ``library_call_ms``: the method of the earlier records).
 The last three lines are the kernel record, the card's name and power limit,
 and ``{"ok": true, "device": ...}``.  Exits non-zero, printing no result,
 when CUDA is missing or any check fails.
@@ -59,8 +71,10 @@ when CUDA is missing or any check fails.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -73,7 +87,7 @@ CARD_QUERY = ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,nohead
 SHAPES = (8, 16, 32, 64, 128)
 BIG_SHAPE, BIG_BATCH = 256, 4  # K1 with its planes in device memory
 RAND_CHIS = (8, 16, 32, 64, 96, 128)
-FUSED_CHIS = (8, 16, 32, 64, 96, 128)
+FUSED_CHIS = (8, 16, 32, 64, 96, 100, 128)  # 96, 100 (ragged), 128: K4's cluster path
 PATH_CHI = 64
 BATCH = 10
 PATH28_CHI, PATH28_BATCH = 128, 14  # the 28q half-layer: 14 disjoint pairs
@@ -146,7 +160,9 @@ def graded_matrices(rng, batch: int, n: int) -> np.ndarray:
 
 
 def median_ms(fn, runs: int = 20, warmup: int = 3) -> float:
-    """Median device time of ``fn`` over ``runs`` calls, by CUDA events."""
+    """Median time per call of ``fn`` over ``runs`` calls, each between its
+    own pair of CUDA events on an idle device: the wrapper's host time (checks,
+    allocations, the launch itself) counts in it."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -160,6 +176,71 @@ def median_ms(fn, runs: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+@functools.lru_cache(maxsize=None)
+def sleep_cycles_per_ms() -> float:
+    """Cycles of ``torch.cuda._sleep`` per device millisecond, timed once."""
+    cycles = 20_000_000
+    torch.cuda._sleep(cycles)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    end.synchronize()
+    return cycles / start.elapsed_time(end)
+
+
+def device_ms(fn, calls: int = 10, repeats: int = 5):
+    """Device time per call of ``fn`` with the host's time kept out: ``calls``
+    back-to-back calls between one pair of CUDA events, queued behind a sleep
+    kernel that outlasts twice their enqueue, so the device runs them without
+    waiting for the host; median over ``repeats``.  Returns (ms, queued):
+    ``queued`` is False when the device reached the start event before the
+    host had enqueued every call (``fn`` synchronises, as a cuSOLVER call
+    that checks its info does), and the time then includes host time."""
+    fn()
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host_ms = 1e3 * (time.perf_counter() - tic)
+    torch.cuda.synchronize()
+    cycles = int(sleep_cycles_per_ms() * (2.0 * host_ms + 1.0))
+    times, queued = [], True
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        queued = queued and not start.query()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return float(np.median(times)), queued
+
+
+def timings(fn, calls: int = 10, repeats: int = 5, runs: int = 20) -> dict:
+    """Both times of ``fn``: device-only (:func:`device_ms`) and per call
+    (:func:`median_ms`, the method of the earlier records)."""
+    ms, queued = device_ms(fn, calls, repeats)
+    return {"ms": ms, "queued": queued, "call_ms": median_ms(fn, runs=runs)}
+
+
+def fmt(t: dict) -> str:
+    return (f"{t['ms']:.4f} ms device-only{'' if t['queued'] else ' (host-bound: not queued)'}, "
+            f"{t['call_ms']:.4f} ms per call")
+
+
+def record_times(kernel: dict, library: dict) -> dict:
+    """The kernel record's time keys: ``ms`` and ``library_ms`` device-only,
+    the per-call times beside them."""
+    return {"ms": kernel["ms"], "call_ms": kernel["call_ms"], "queued": kernel["queued"],
+            "library_ms": library["ms"], "library_call_ms": library["call_ms"],
+            "library_queued": library["queued"]}
 
 
 def kernel_counters():
@@ -186,6 +267,30 @@ def read_counts_at() -> dict:
     return {name: dict(sorted(fn.launches_at.items())) for name, fn in kernel_counters().items()}
 
 
+def ptxas_usage(report: str) -> dict:
+    """Registers and spill bytes per kernel from the build's ``-Xptxas -v``
+    report: {"theta_build_kernel<32>": "40 regs, spill 0/0 B", ...}."""
+    usage, current = {}, None
+    for ln in report.splitlines():
+        named = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", ln)
+        if named:
+            m = re.search(r"([a-z_]+_kernel)(?:IL[a-z](\d+)E)?", named.group(1))
+            current = None if m is None else m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+            continue
+        if current is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if spill:
+            usage.setdefault(current, {})["spill"] = f"{spill.group(1)}/{spill.group(2)} B"
+        regs = re.search(r"Used (\d+) registers", ln)
+        if regs:
+            usage.setdefault(current, {})["regs"] = int(regs.group(1))
+    return {k: f"{v.get('regs', '?')} regs, spill {v.get('spill', '?')}" for k, v in usage.items()}
+
+
+PTXAS: dict = {}
+
+
 def phase_device():
     from aqc_research_tpu_torch.ops import cuda_build
 
@@ -195,11 +300,10 @@ def phase_device():
     lib = cuda_build.build_kernel_library()
     cuda_build.load()
     build_s = time.perf_counter() - tic
-    ptxas = [ln.strip() for ln in lib.with_suffix(".ptxas.txt").read_text().splitlines()
-             if "registers" in ln or "spill" in ln]
+    PTXAS.update(ptxas_usage(lib.with_suffix(".ptxas.txt").read_text()))
     print(f"[device] {torch.cuda.get_device_name(0)} | {card_line} | torch {torch.__version__} "
           f"cuda {torch.version.cuda} | kernels built+loaded in {build_s:.2f} s | "
-          f"ptxas: {' ; '.join(ptxas)}", flush=True)
+          f"ptxas: {'; '.join(f'{k} {v}' for k, v in sorted(PTXAS.items()))}", flush=True)
     return card_line
 
 
@@ -256,15 +360,14 @@ def phase_kernel(dev):
         mt = m.transpose(-1, -2)
         re, im = mt.real.contiguous(), mt.imag.contiguous()
         sweeps = jacobi_rows(re, im, MAX_SWEEPS)[2].cpu().numpy()
-        ms = median_ms(lambda: jacobi_rows(re, im, MAX_SWEEPS))
+        kern = timings(lambda: jacobi_rows(re, im, MAX_SWEEPS), calls=5, repeats=3)
         plain_ms = median_ms(lambda: jacobi_rows_reference(re, im, MAX_SWEEPS), runs=plain_runs, warmup=1)
-        library_ms = median_ms(lambda: torch.linalg.svd(m, full_matrices=False))
+        lib = timings(lambda: torch.linalg.svd(m, full_matrices=False), calls=3, repeats=3, runs=5)
         bound_ms, bound_by = bound(jacobi_flops(n, n, sweeps), 4 * 4 * batch * n * n + 4 * batch)
-        line = (f"B={batch} {n}x{n} ({CRITERIA[0]}, sweeps {sweeps.tolist()}): kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms, torch.linalg.svd {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                f"({bound_by})")
-        return line, {"shape": f"B={batch} {n}x{n}", "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                      "bound_by": bound_by, "library_ms": library_ms}
+        line = (f"B={batch} {n}x{n} ({CRITERIA[0]}, sweeps {sweeps.tolist()}): kernel {fmt(kern)}, "
+                f"plain {plain_ms:.4f} ms, torch.linalg.svd {fmt(lib)}, bound {bound_ms:.4f} ms ({bound_by})")
+        return line, {"shape": f"B={batch} {n}x{n}", **record_times(kern, lib), "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by}
 
     line, stats = timed(SHAPES[-1], BATCH, 20)
     line28, stats28 = timed(BIG_SHAPE, PATH28_BATCH, 3)
@@ -274,7 +377,8 @@ def phase_kernel(dev):
         for (n, crit), e in worst.items()
     )
     print(f"[kernel] jacobi_rows vs plain twin, B={BATCH} (c=r={BIG_SHAPE}: B={BIG_BATCH}, planes in device "
-          f"memory): {detail} | {line} | {line28} (CUDA events, median of 20; plain at 256: of 3)", flush=True)
+          f"memory): {detail} | {line} | {line28} (CUDA events; device-only: 5 queued calls, median of 3 "
+          f"repeats; per call: median of 20; plain at 256: of 3)", flush=True)
     max_err = max(e[0] for (n, _), e in worst.items() if n != BIG_SHAPE)
     err256 = max(e[0] for (n, _), e in worst.items() if n == BIG_SHAPE)
     return {"max_abs_err": max_err, **stats, "shapes": [{"max_abs_err": err256, **stats28}]}
@@ -283,8 +387,8 @@ def phase_kernel(dev):
 def phase_rand_kernels(dev):
     """K2 and K3 against their plain twins on the card, then timed."""
     from aqc_research_tpu_torch.kernel_checks import near_threshold, padded_pair_batch, path_planes
-    from aqc_research_tpu_torch.ops import rand_svd
-    from aqc_research_tpu_torch.ops.fused_pair import theta_build, theta_build_reference
+    from aqc_research_tpu_torch.ops import cuda_build, rand_svd
+    from aqc_research_tpu_torch.ops.fused_pair import theta_build, theta_build_reference, theta_tile_edge
     from aqc_research_tpu_torch.ops.fused_rand import rand_tail, rand_tail_reference
 
     rng = np.random.default_rng(4321)
@@ -366,12 +470,16 @@ def phase_rand_kernels(dev):
         """K2 and K3 at one path shape, inputs as above."""
         n, ell = 2 * chi, rand_svd.rand_ell(2 * chi, chi)
         planes = path_planes(rng, batch, chi, dev)
-        th_ms = median_ms(lambda: theta_build(*planes))
+        th = timings(lambda: theta_build(*planes))
         th_plain = median_ms(lambda: theta_build_reference(*planes))
         gate, a_re, a_im, b_re, b_im = planes
-        a_c = torch.complex(a_re, a_im)[:, :, None]  # [b, u, 1, x, a']
-        b_c = torch.complex(b_re, b_im)[:, None]  # [b, 1, v, c, x]
-        th_lib = median_ms(lambda: torch.matmul(b_c, a_c))  # the four products only
+        a_c = torch.complex(a_re, a_im)  # [b, u, x, a']
+        b_c = torch.complex(b_re, b_im)  # [b, v, c, x]
+        g_c = torch.complex(gate[:, :16], gate[:, 16:]).reshape(batch, 2, 2, 2, 2)  # [b, s, t, u, v]
+        # The yardstick: one call for the whole gated θ; beside it the four
+        # products alone (one batched matmul, the earlier records' yardstick).
+        th_lib = timings(lambda: torch.einsum("bstuv,bvcx,buxa->btcsa", g_c, b_c, a_c))
+        th_mm = timings(lambda: torch.matmul(b_c[:, None], a_c[:, :, None]))
         th_flops = batch * (32.0 * chi**3 + 128.0 * chi**2)
         th_bytes = 4 * batch * (4 * 2 * chi * chi + 32 + 2 * n * n)
         th_bound, th_by = bound(th_flops, th_bytes)
@@ -383,35 +491,54 @@ def phase_rand_kernels(dev):
         tot2 = (w_re * w_re + w_im * w_im).sum((-2, -1))
         thr2 = TAIL_THRESHOLDS[0] ** 2
         sweeps = rand_tail(m_re, m_im, tot2, thr2, chi, MAX_SWEEPS)[4].cpu().numpy()
-        tail_ms = median_ms(lambda: rand_tail(m_re, m_im, tot2, thr2, chi, MAX_SWEEPS))
+        tail = timings(lambda: rand_tail(m_re, m_im, tot2, thr2, chi, MAX_SWEEPS))
         # No sweep: the load, the epilogue (rank, one-thread rule) and the vh rows.
-        tail_rest = median_ms(lambda: rand_tail(m_re, m_im, tot2, thr2, chi, 0))
+        tail_rest, _ = device_ms(lambda: rand_tail(m_re, m_im, tot2, thr2, chi, 0))
         tail_plain = median_ms(lambda: rand_tail_reference(m_re, m_im, tot2, thr2, chi, MAX_SWEEPS),
                                runs=plain_runs, warmup=1)
-        tail_lib = median_ms(lambda: torch.linalg.svd(bm, full_matrices=False))
+        tail_lib = timings(lambda: torch.linalg.svd(bm, full_matrices=False), calls=5, repeats=3)
         tail_flops = jacobi_flops(ell, n, sweeps) + batch * 2.0 * chi * n
         tail_bytes = 4 * batch * (2 * ell * n + 1 + 2 * chi * n + 2 * chi + 1)
         tail_bound, tail_by = bound(tail_flops, tail_bytes)
-        line = (f"B={batch} chi={chi}: theta_build {th_ms:.4f} ms, plain {th_plain:.4f} ms, batched matmul of "
-                f"the four products {th_lib:.4f} ms, bound {th_bound:.5f} ms ({th_by}); rand_tail ({ell}x{n}, "
-                f"sweeps {sweeps.tolist()}) {tail_ms:.4f} ms (without the sweeps {tail_rest:.4f} ms), "
-                f"plain {tail_plain:.4f} ms, torch.linalg.svd "
-                f"{tail_lib:.4f} ms, bound {tail_bound:.5f} ms ({tail_by})")
+        edge = theta_tile_edge(batch, chi, cuda_build.sm_count(0))
+        line = (f"B={batch} chi={chi}: theta_build (tiles {edge}x{edge}) {fmt(th)}, "
+                f"plain {th_plain:.4f} ms, one einsum of the gated theta {fmt(th_lib)}, batched matmul of the "
+                f"four products {fmt(th_mm)}, bound {th_bound:.5f} ms ({th_by}); rand_tail ({ell}x{n}, "
+                f"sweeps {sweeps.tolist()}) {fmt(tail)} (without the sweeps {tail_rest:.4f} ms device-only), "
+                f"plain {tail_plain:.4f} ms, torch.linalg.svd {fmt(tail_lib)}, bound {tail_bound:.5f} ms "
+                f"({tail_by})")
         return line, (
-            {"shape": f"B={batch} chi={chi}", "ms": th_ms, "plain_ms": th_plain, "bound_ms": th_bound,
-             "bound_by": th_by, "library_ms": th_lib},
-            {"shape": f"B={batch} chi={chi} ({ell}x{n})", "ms": tail_ms, "plain_ms": tail_plain,
-             "bound_ms": tail_bound, "bound_by": tail_by, "library_ms": tail_lib},
+            {"shape": f"B={batch} chi={chi}", **record_times(th, th_lib), "plain_ms": th_plain,
+             "bound_ms": th_bound, "bound_by": th_by, "matmul4_ms": th_mm["ms"],
+             "matmul4_call_ms": th_mm["call_ms"]},
+            {"shape": f"B={batch} chi={chi} ({ell}x{n})", **record_times(tail, tail_lib),
+             "plain_ms": tail_plain, "bound_ms": tail_bound, "bound_by": tail_by},
         )
 
     line, (th, tail) = timed(PATH_CHI, BATCH, 20)
     line28, (th28, tail28) = timed(PATH28_CHI, PATH28_BATCH, 3)
+
+    def edge_ms(batch, chi, edge):
+        """K2 at a tile edge of the caller's choosing (the rule's A/B; a
+        direct launch, not counted)."""
+        planes = path_planes(rng, batch, chi, dev)
+        w_re = torch.empty((batch, 2 * chi, 2 * chi), device=dev)
+        w_im = torch.empty_like(w_re)
+        ptrs = [t.data_ptr() for t in (*planes, w_re, w_im)]
+        return device_ms(lambda: cuda_build.launch("theta_build_launch", 0, *ptrs, batch, chi, edge))[0]
+
+    edges = {f"B={b} chi={c}": {e: edge_ms(b, c, e) for e in (16, 32)}
+             for b, c in ((BATCH, PATH_CHI), (PATH28_BATCH, PATH28_CHI), (1, PATH28_CHI))}
+    th["tile_edges_ms"] = edges
     print(f"[kernels] theta_build and rand_tail vs plain twins, B={BATCH} (rand_tail at chi=128: planes in "
           f"device memory): {'; '.join(details)} | "
           f"keep-mask flips / values near the threshold / values: "
           f"{'; '.join(f'thr {t:g}: {flips[t]} / {allowed[t]} / {values[t]}' for t in TAIL_THRESHOLDS)} | "
-          f"range-finder on zero-padded pairs: {'; '.join(pads)} | {line} | {line28} "
-          f"(CUDA events, median of 20; rand_tail plain at chi=128: of 3)", flush=True)
+          f"range-finder on zero-padded pairs: {'; '.join(pads)} | {line} | {line28} | theta_build by tile "
+          f"edge (device-only ms; theta_tile_edge picks one): "
+          f"{'; '.join(f'{k}: ' + ', '.join(f'{e}: {t:.4f}' for e, t in v.items()) for k, v in edges.items())} "
+          f"(CUDA events; device-only: 10 queued calls, median of 5 repeats; per call: median of 20; "
+          f"rand_tail plain at chi=128: of 3)", flush=True)
     return (
         {"max_abs_err": err_theta, **th, "shapes": [{"max_abs_err": err_theta, **th28}]},
         {"max_abs_err": err_lam, **tail, "shapes": [{"max_abs_err": err_lam, **tail28}]},
@@ -421,8 +548,22 @@ def phase_rand_kernels(dev):
 def phase_fused(dev):
     """K4 against its plain twin on the card, then timed at the 28q shape."""
     from aqc_research_tpu_torch.kernel_checks import near_threshold, path_planes
+    from aqc_research_tpu_torch.ops import cuda_build
+    from aqc_research_tpu_torch.ops import fused_pair as fp
     from aqc_research_tpu_torch.ops.fused_pair import fused_pair, fused_pair_reference, theta_build_reference
 
+    max_smem = cuda_build.max_smem(0)
+    homes = {chi: fp.fused_plane_home(chi, max_smem) for chi in FUSED_CHIS}
+    for chi in FUSED_CHIS:
+        check(homes[chi] == ("cluster" if chi >= 96 else "shared"), f"K4's home at chi={chi} is {homes[chi]}")
+    resident = fp.fused_cluster_occupancy(PATH28_CHI)
+    check(resident > 0, "the card keeps no cluster of K4's cluster path resident")
+    cluster_line = (f"cluster path at chi={PATH28_CHI}: {fp.FUSED_CLUSTER} CTAs per matrix x "
+                    f"{fp.fused_cluster_threads(PATH28_CHI)} threads, {fp.fused_cluster_smem_bytes(PATH28_CHI)} B "
+                    f"dynamic shared memory per CTA, {resident} clusters resident at once "
+                    f"(cudaOccupancyMaxActiveClusters; a B={PATH28_BATCH} half-layer has {PATH28_BATCH}); ptxas: "
+                    + "; ".join(f"{k} {v}" for k, v in sorted(PTXAS.items())
+                                if k.startswith(("theta_build", "fused_pair"))))
     rng = np.random.default_rng(2468)
     err_lam, details = 0.0, []
     flips = {thr: 0 for thr in TAIL_THRESHOLDS}
@@ -490,26 +631,38 @@ def phase_fused(dev):
     planes = path_planes(rng, batch, chi, dev, decades=K4_DECADES)
     thr2 = TAIL_THRESHOLDS[0] ** 2
     sweeps = fused_pair(*planes, thr2, MAX_SWEEPS)[5].cpu().numpy()
-    ms = median_ms(lambda: fused_pair(*planes, thr2, MAX_SWEEPS))
+    kern = timings(lambda: fused_pair(*planes, thr2, MAX_SWEEPS), calls=5, repeats=3)
     # No sweep: the θ build, the copy, the epilogue and the uᵀ and vh rows.
-    rest_ms = median_ms(lambda: fused_pair(*planes, thr2, 0))
+    rest_ms, _ = device_ms(lambda: fused_pair(*planes, thr2, 0))
     plain_ms = median_ms(lambda: fused_pair_reference(*planes, thr2, MAX_SWEEPS), runs=3, warmup=1)
+    # The one-block design that preceded the cluster path, on the same
+    # inputs: the planes in device memory (a direct launch at the "global"
+    # home; not counted).
+    scratch = [torch.empty((batch, rows, n), device=dev) for rows in (n, n, n, n, chi, chi, chi, chi)]
+    lam, sw = torch.empty((batch, chi), device=dev), torch.empty(batch, dtype=torch.int32, device=dev)
+    ptrs = [t.data_ptr() for t in (*planes, *scratch, lam, sw)]
+    global_ms, _ = device_ms(lambda: cuda_build.launch(
+        "fused_pair_launch", 0, *ptrs, batch, chi, MAX_SWEEPS, 1, thr2, fp._HOME_CODES["global"],
+        fp.FUSED_CLUSTER), calls=3, repeats=3)
     w0_re, w0_im = theta_build_reference(*planes)
     theta = torch.complex(w0_re, w0_im).transpose(-1, -2)
-    library_ms = median_ms(lambda: torch.linalg.svd(theta, full_matrices=False))
+    lib = timings(lambda: torch.linalg.svd(theta, full_matrices=False), calls=3, repeats=3, runs=5)
     flops = (batch * (32.0 * chi**3 + 128.0 * chi**2) + jacobi_flops(n, n, sweeps)
              + batch * (8.0 * chi * n * n + 4.0 * chi * n))
     nbytes = 4 * batch * (4 * 2 * chi * chi + 32 + 4 * chi * n + chi + 1)
     bound_ms, bound_by = bound(flops, nbytes)
-    print(f"[fused] fused_pair vs plain twin, B={BATCH} (planes in shared memory to chi=64, in device memory "
-          f"from chi=96): {'; '.join(details)} | keep-mask flips / values near the threshold / values: "
+    print(f"[fused] fused_pair vs plain twin, B={BATCH} (homes {homes}): {'; '.join(details)} | {cluster_line} | "
+          f"keep-mask flips / values near the threshold / values: "
           f"{'; '.join(f'thr {t:g}: {flips[t]} / {allowed[t]} / {values[t]}' for t in TAIL_THRESHOLDS)} | "
-          f"B={batch} chi={chi} (sweeps {sweeps.tolist()}): kernel {ms:.4f} ms (without the sweeps "
-          f"{rest_ms:.4f} ms), plain {plain_ms:.4f} ms, "
-          f"torch.linalg.svd of theta {library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}) "
-          f"(CUDA events, median of 20; plain of 3)", flush=True)
-    return {"max_abs_err": err_lam, "shape": f"B={batch} chi={chi}", "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+          f"B={batch} chi={chi} (sweeps {sweeps.tolist()}): kernel {fmt(kern)} (without the sweeps "
+          f"{rest_ms:.4f} ms device-only; the device-memory home on the same inputs {global_ms:.4f} ms "
+          f"device-only), plain {plain_ms:.4f} ms, "
+          f"torch.linalg.svd of theta {fmt(lib)}, bound {bound_ms:.5f} ms ({bound_by}) "
+          f"(CUDA events; device-only: 5 queued calls, median of 3 repeats; per call: median of 20; plain of 3)",
+          flush=True)
+    return {"max_abs_err": err_lam, "shape": f"B={batch} chi={chi}", **record_times(kern, lib),
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "home": homes[chi],
+            "cluster": fp.FUSED_CLUSTER, "clusters_resident": resident, "global_home_ms": global_ms}
 
 
 def f64_objective(circ, thetas, target, base_bits, trunc_thr, dev) -> float:

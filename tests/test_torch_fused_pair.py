@@ -259,14 +259,53 @@ def test_fused_checks_dtype_and_device():
 
 @pytest.mark.parametrize(
     "chi,max_smem,home",
-    [(8, 232448, "shared"), (64, 232448, "shared"), (80, 232448, "shared"), (96, 232448, "global"),
-     (128, 232448, "global"), (64, 101376, "global")],
+    [(8, 232448, "shared"), (64, 232448, "shared"), (80, 232448, "shared"), (96, 232448, "cluster"),
+     (100, 232448, "cluster"), (112, 232448, "cluster"), (128, 232448, "cluster"), (136, 232448, "global"),
+     (64, 101376, "cluster"), (128, 60000, "global")],
 )
 def test_fused_plane_home(chi, max_smem, home):
-    """K4's working planes stay in shared memory up to 2chi = 160 on an
-    H100 (232,448 B per block), in device memory beyond (and on a card with
-    less shared memory)."""
+    """K4's working planes stay in one block's shared memory up to 2chi =
+    160 on an H100 (232,448 B per block), in the distributed shared memory
+    of a cluster up to 2chi = 256 (and below it on a card with less shared
+    memory per block), in device memory beyond (and where a cluster's CTA
+    does not fit either)."""
     assert tfp.fused_plane_home(chi, max_smem) == home
+
+
+@pytest.mark.parametrize("chi", [96, 100, 112, 128])
+def test_fused_cluster_shape(chi):
+    """The cluster path at every chi it takes on the 28q path and a ragged
+    one: 8 CTAs hold all chi seats of each side, a warp per pair of a phase
+    and the stats warp fit the kernel's 544 threads, and a CTA's shared
+    memory, with both seat buffers, fits an H100 block's 232,448 B (128 KB
+    of seats at chi = 128)."""
+    n, cluster = 2 * chi, tfp.FUSED_CLUSTER
+    assert cluster == 8 and n <= tfp.FUSED_CLUSTER_MAX_ROWS
+    pairs = -(-chi // cluster)
+    assert pairs * cluster >= chi and pairs * (cluster - 1) < chi  # every CTA holds seats
+    threads = tfp.fused_cluster_threads(chi)
+    assert threads % 32 == 0 and 32 * (pairs + 1) <= threads <= 544
+    smem = tfp.fused_cluster_smem_bytes(chi)
+    assert smem + tfp._FUSED_STATIC_SMEM <= 232448
+    assert smem >= 4 * 8 * pairs * n  # two buffers of both sides' seats, re and im
+    if chi == 128:
+        assert pairs == 16 and threads == 544 and 4 * 8 * pairs * n == 128 * 1024
+
+
+@pytest.mark.parametrize(
+    "batch,chi,edge",
+    [(14, 128, 32), (10, 64, 16), (1, 128, 16), (14, 100, 32), (10, 100, 32), (3, 8, 16), (10, 20, 16),
+     (64, 64, 32)],
+)
+def test_theta_tile_edge(batch, chi, edge):
+    """K2's tile edge: 32 where the batch's 32x32 tiles outnumber the H100's
+    132 SMs, else 16; both path shapes put more than 132 blocks on the card,
+    and small or ragged chi (ceil division) takes one zero-filled tile."""
+    got = tfp.theta_tile_edge(batch, chi, 132)
+    assert got == edge
+    blocks = batch * (-(-chi // got)) ** 2
+    if (batch, chi) in ((14, 128), (10, 64)):
+        assert blocks > 132
 
 
 @pytest.mark.parametrize(

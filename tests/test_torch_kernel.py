@@ -1,7 +1,8 @@
 """The hand-written kernels (csrc/jacobi_rows.cu, csrc/theta_build.cu,
 csrc/rand_tail.cu, csrc/fused_pair.cu) against their plain twins, on a CUDA
-card, with planes in shared memory and, past one block's shared memory (K1
-at 256x256, K3 at chi = 128, K4 from 2chi = 176), in device memory.  Marked
+card, with planes in shared memory and, past one block's shared memory, in
+device memory (K1 at 256x256, K3 at chi = 128, K4 from 2chi = 272) or in a
+cluster's distributed shared memory (K4 at 176 <= 2chi <= 256).  Marked
 ``cuda``: skips without a card.  This file imports no JAX, so it also runs
 where JAX is not installed:
 
@@ -181,15 +182,10 @@ def test_rand_tail_raises_on_card(cuda_device):
         tfp.fused_pair(torch.zeros((2, 32), device=cuda_device), z.double(), z, z, z, 1e-12)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("chi,rank", [(16, None), (64, None), (96, None), (128, None), (128, 20)])
-def test_fused_pair_matches_twin_on_card(cuda_device, chi, rank):
-    """K4 against its twin, working planes in shared memory (chi <= 80) and
-    in device memory (chi >= 96); rank 20: the zero-padded θ of bonds far
-    below chi, as on the 28q path."""
-    batch = 4 if chi < 128 else 2
-    planes = path_planes(np.random.default_rng(chi), batch, chi, cuda_device, rank=rank)
-    thr2 = 1e-4  # trunc_thr 1e-2
+def fused_matches_twin(planes, thr2: float = 1e-4) -> None:
+    """K4 against its twin on ``planes`` (trunc_thr 1e-2 by default): one
+    launch, λ, keep masks, sweep counts, weighted uᵀ and vh projectors and
+    the reconstruction within the module's tolerances."""
     before = tfp.fused_pair.launches
     k_ut_re, k_ut_im, k_vh_re, k_vh_im, k_lam, k_sw = tfp.fused_pair(*planes, thr2, 12)
     assert tfp.fused_pair.launches == before + 1
@@ -199,6 +195,7 @@ def test_fused_pair_matches_twin_on_card(cuda_device, chi, rank):
     assert float((k_lam - p_lam).abs().max()) <= 1e-5 * smax
     w0_re, w0_im = tfp.theta_build_reference(*planes)
     theta = torch.complex(w0_re, w0_im)
+    chi = planes[1].shape[-1]
     k_keep, p_keep = k_lam > 0, p_lam > 0
     near = near_threshold(torch.linalg.svdvals(theta), (theta.abs() ** 2).sum((-2, -1)), thr2, chi)
     assert bool(((k_keep == p_keep) | near).all())
@@ -217,6 +214,45 @@ def test_fused_pair_matches_twin_on_card(cuda_device, chi, rank):
     rec = k_ut.transpose(-1, -2) @ (k_vh * (k_lam * both)[..., None])
     p_rec = p_ut.transpose(-1, -2) @ (p_vh * (p_lam * both)[..., None])
     assert float((rec - p_rec).abs().max()) <= 1e-5 * smax
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chi,rank", [(16, None), (64, None), (96, None), (128, None), (128, 20), (136, None)])
+def test_fused_pair_matches_twin_on_card(cuda_device, chi, rank):
+    """K4 against its twin, working planes in one block's shared memory
+    (chi <= 80), in a cluster's distributed shared memory (96 <= chi <=
+    128) and in device memory (chi = 136); rank 20: the zero-padded θ of
+    bonds far below chi, as on the 28q path."""
+    batch = 4 if chi < 128 else 2
+    fused_matches_twin(path_planes(np.random.default_rng(chi), batch, chi, cuda_device, rank=rank))
+
+
+PATH_CASES = [(96, 1, None), (96, 14, None), (100, 1, None), (100, 14, None), (128, 1, None), (128, 14, None),
+              (128, 14, 20)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chi,batch,rank", PATH_CASES)
+def test_fused_pair_cluster_matches_twin_on_card(cuda_device, chi, batch, rank):
+    """K4's cluster path (8 CTAs per matrix) at the chi it takes, a ragged
+    chi among them, on a single matrix and on a 28q half-layer batch."""
+    assert tfp.fused_plane_home(chi, jk.cuda_build.max_smem(0)) == "cluster"
+    fused_matches_twin(path_planes(np.random.default_rng(chi + batch), batch, chi, cuda_device, rank=rank))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chi,batch,rank", PATH_CASES)
+def test_theta_build_path_shapes_on_card(cuda_device, chi, batch, rank):
+    """K2's register-blocked tiles (edge 16 or 32 by theta_tile_edge) at
+    the cluster path's chi, a ragged chi among them, B=1 and B=14."""
+    planes = path_planes(np.random.default_rng(chi * batch), batch, chi, cuda_device, rank=rank)
+    before = tfp.theta_build.launches
+    k_re, k_im = tfp.theta_build(*planes)
+    assert tfp.theta_build.launches == before + 1
+    p_re, p_im = tfp.theta_build_reference(*planes)
+    torch.cuda.synchronize()
+    err = torch.linalg.matrix_norm(torch.complex(k_re - p_re, k_im - p_im))
+    assert float((err / torch.linalg.matrix_norm(torch.complex(p_re, p_im))).max()) <= 1e-5
 
 
 @pytest.mark.cuda
