@@ -2,9 +2,9 @@
 // seat_sweeps.cuh on a thread-block cluster: the (c, r) plane pair of one
 // matrix is spread over the shared memory of the cluster's CTAs, seat by
 // seat, and rows cross between CTAs through distributed shared memory.
-// Used by fused_pair.cu (K4) at 176 <= 2chi <= 256; written for any (c <=
-// 256, r <= 32 kQ) plane pair, so that K1 at 256x256 and K3 at chi = 128
-// can take it too.
+// Written for any (4 <= c <= 256, r <= 256) plane pair; used by
+// jacobi_rows.cu (K1), rand_tail.cu (K3) and fused_pair.cu (K4), each at the
+// shapes where its Python home rule says "cluster".
 //
 // Replaces the same Pallas loop as seat_sweeps.cuh
 // (aqc_research_tpu/ops/pallas_jacobi.py:_adaptive_seat_sweeps) and keeps
@@ -29,23 +29,23 @@
 // on an H100.  A full sweep (2p - 1 phases, odd) brings every row back to
 // its first seat, in the other buffer.  A warp holds its two rows in
 // registers between the Gram entries and the rotation (lane l: entries
-// l + 32 q, q < kQ): one read and one write per phase.  One cluster barrier
-// (cluster.sync: arrive.release / wait.acquire) ends each phase.  The
-// stopping rule needs each phase's s_max^2 over all c/2 pairs, so every
-// pair warp publishes (aa, bb, |c|) in its CTA's shared memory (a ring of
-// four phases, indexed by a phase count that runs across sweeps) and one
-// more warp per CTA, the stats warp, reduces all of them across the cluster
-// one phase late, as the single-block loop's warp 0 does.  It arrives at a
-// phase's barrier (barrier.cluster.arrive) before it reduces and waits after,
-// so its remote reads stay off the phases' critical path; the ring keeps a
-// phase's statistics until three phases later.  Every CTA's stats warp
-// reduces the same numbers in the same order, so every CTA takes the same
-// stop decision without a broadcast.
+// l + 32 q, q < kQ, kQ = cluster_q(r)): one read and one write per phase.
+// One cluster barrier (cluster.sync: arrive.release / wait.acquire) ends
+// each phase.  The stopping rule needs each phase's s_max^2 over all c/2
+// pairs, so every pair warp publishes (aa, bb, |c|) in its CTA's shared
+// memory (a ring of four phases, indexed by a phase count that runs across
+// sweeps) and one more warp per CTA, the stats warp, reduces all of them
+// across the cluster one phase late, as the single-block loop's warp 0
+// does.  It arrives at a phase's barrier (barrier.cluster.arrive) before it
+// reduces and waits after, so its remote reads stay off the phases'
+// critical path; the ring keeps a phase's statistics until three phases
+// later.  Every CTA's stats warp reduces the same numbers in the same
+// order, so every CTA takes the same stop decision without a broadcast.
 //
-// Bounds.  A phase is local shared-memory traffic (~64 KB read and written
-// per CTA at 2chi = 256), two remote rows, the stats warp's remote reads and
-// a cluster barrier; the rotations' f32 work is ~36 r flop per pair.  The
-// planes never touch device memory during the sweeps.
+// Bounds.  A phase is local shared-memory traffic (4 r floats read and
+// written per pair), two remote rows per CTA, the stats warp's remote reads
+// and a cluster barrier; the rotations' f32 work is ~36 r flop per pair.
+// The planes never touch device memory during the sweeps.
 
 #pragma once
 
@@ -57,7 +57,9 @@
 namespace aqc {
 
 constexpr int kClusterMaxRows = 256;     // c <= 256: at most 4 pairs per lane of the stats warp
+constexpr int kClusterMaxLanes = 256;    // r <= 256: at most 8 entries per lane (cluster_q)
 constexpr int kClusterMaxThreads = 544;  // 16 pair warps and the stats warp
+constexpr int kClusterMaxCtas = 8;       // the portable cluster size
 constexpr int kStatsRing = 4;            // phases of statistics kept (see the stats warp)
 
 __device__ __forceinline__ void cluster_arrive() {
@@ -67,23 +69,65 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
-// Seats of each side per CTA, threads of a CTA (a warp per pair, the stats
-// warp, at least one 256-thread tile group), the statistics' shared floats
-// and the seat buffers' shared floats (two buffers of both sides, re and
-// im) for a cluster of ``cluster`` CTAs on c rows of r lanes.
+// Seats of each side per CTA, threads of a CTA (a warp per pair and the
+// stats warp: a caller that needs more threads, as K4's tile groups do,
+// launches more, and the extra warps only join the barriers), the
+// statistics' shared floats and the seat buffers' shared floats (two
+// buffers of both sides, re and im) for a cluster of ``cluster`` CTAs on c
+// rows of r lanes.
 __host__ __device__ constexpr int cluster_pairs_per_cta(int c, int cluster) {
   return (c / 2 + cluster - 1) / cluster;
 }
 __host__ __device__ constexpr int cluster_threads(int c, int cluster) {
-  return 32 * (cluster_pairs_per_cta(c, cluster) + 1) > 256
-             ? 32 * (cluster_pairs_per_cta(c, cluster) + 1)
-             : 256;
+  return 32 * (cluster_pairs_per_cta(c, cluster) + 1);
 }
 __host__ __device__ constexpr int cluster_stats_floats(int c, int cluster) {
   return kStatsRing * 3 * cluster_pairs_per_cta(c, cluster);
 }
 __host__ __device__ constexpr int cluster_seat_floats(int c, int r, int cluster) {
   return 2 * 2 * 2 * cluster_pairs_per_cta(c, cluster) * r;
+}
+// Shared floats of one CTA of a kernel that holds only the statistics,
+// ``extra`` floats of its own and the seat buffers, in that order (the
+// head rounded up to 16 bytes): K1 and K3.
+__host__ __device__ constexpr int cluster_head_floats(int c, int cluster, int extra) {
+  return (cluster_stats_floats(c, cluster) + extra + 3) / 4 * 4;
+}
+__host__ __device__ constexpr int cluster_cta_floats(int c, int r, int cluster, int extra) {
+  return cluster_head_floats(c, cluster, extra) + cluster_seat_floats(c, r, cluster);
+}
+// Row entries per lane of the loop's template (kQ): the smallest of 1, 2,
+// 4, 8 with 32 kQ >= r, or 0 past kClusterMaxLanes.
+__host__ __device__ constexpr int cluster_q(int r) {
+  return r <= 32 ? 1 : r <= 64 ? 2 : r <= 128 ? 4 : r <= kClusterMaxLanes ? 8 : 0;
+}
+// Whether the loop takes a (c, r) plane pair on ``cluster`` CTAs: even
+// 4 <= c <= kClusterMaxRows, a known kQ, 1 to kClusterMaxCtas CTAs of at
+// most kClusterMaxThreads threads.
+__host__ __device__ constexpr bool cluster_shape_ok(int c, int r, int cluster) {
+  return c >= 4 && c % 2 == 0 && c <= kClusterMaxRows && r >= 1 && cluster_q(r) > 0 &&
+         cluster >= 1 && cluster <= kClusterMaxCtas &&
+         cluster_threads(c, cluster) <= kClusterMaxThreads;
+}
+
+// The launch configuration of ``batch`` matrices on clusters of ``cluster``
+// CTAs of ``threads`` threads and ``smem`` bytes of dynamic shared memory
+// each, for cudaLaunchKernelEx; ``attr`` receives the cluster-dimension
+// attribute and must outlive the launch.
+inline cudaLaunchConfig_t cluster_launch_config(int batch, int cluster, int threads, size_t smem,
+                                                cudaStream_t stream, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(batch * cluster);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
 // The seat slot of one CTA's buffers: plane ``w`` (re or im, each
@@ -99,11 +143,12 @@ __device__ __forceinline__ float* seat_slot(float* w, int b, int side, int slot,
 // buffer ``cur`` on entry; ``stats`` holds cluster_stats_floats(c, cluster)
 // shared floats and ``go_flag`` one shared int.  Every thread of every CTA
 // of the cluster calls it after the seats are loaded and a cluster barrier,
-// with blockDim.x >= 32 (P + 1).  It returns (in every thread) the number of
-// sweeps run, with every row back in its first seat, in buffer ``cur`` (which
-// it updates), after the last phase's cluster barrier.  The stats warps may
-// still read other CTAs' ``stats`` then: the caller's next cluster barrier
-// must come before any CTA overwrites its ``stats`` or exits.
+// with blockDim.x >= cluster_threads(c, cluster) and 32 kQ >= r.  It
+// returns (in every thread) the number of sweeps run, with every row back
+// in its first seat, in buffer ``cur`` (which it updates), after the last
+// phase's cluster barrier.  The stats warps may still read other CTAs'
+// ``stats`` then: the caller's next cluster barrier must come before any
+// CTA overwrites its ``stats`` or exits.
 template <int kQ>
 __device__ inline int cluster_seat_sweeps(float* w_re, float* w_im, float* stats, int* go_flag,
                                           int c, int r, int cluster, int max_sweeps, int hybrid,

@@ -89,6 +89,12 @@ __host__ __device__ constexpr int head_floats(int stats, int n, int chi) {
 
 __host__ __device__ constexpr int max_int(int a, int b) { return a > b ? a : b; }
 
+// Threads of one CTA of the cluster path: the loop's (a warp per pair and
+// the stats warp), at least one 256-thread tile group.
+__host__ __device__ constexpr int fused_cluster_threads(int chi, int cluster) {
+  return max_int(aqc::cluster_threads(2 * chi, cluster), aqc::kTileThreads);
+}
+
 // Dynamic shared floats of one block per matrix (shared or global home).
 __host__ __device__ constexpr int block_smem_floats(int chi, bool smem_planes, int threads) {
   return head_floats(aqc::seat_stats_floats(2 * chi), 2 * chi, chi) +
@@ -100,7 +106,7 @@ __host__ __device__ constexpr int block_smem_floats(int chi, bool smem_planes, i
 __host__ __device__ constexpr int cluster_smem_floats(int chi, int cluster) {
   return head_floats(aqc::cluster_stats_floats(2 * chi, cluster), 2 * chi, chi) +
          max_int(aqc::cluster_seat_floats(2 * chi, 2 * chi, cluster),
-                 aqc::cluster_threads(2 * chi, cluster) / aqc::kTileThreads * kTileBufFloats);
+                 fused_cluster_threads(chi, cluster) / aqc::kTileThreads * kTileBufFloats);
 }
 
 // Step 1 for one matrix: its θ tiles, taken in turn by the ``groups`` tile
@@ -346,7 +352,7 @@ cudaLaunchConfig_t cluster_config(int batch, int chi, int cluster, cudaStream_t 
                                   cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(batch * cluster);
-  cfg.blockDim = dim3(aqc::cluster_threads(2 * chi, cluster));
+  cfg.blockDim = dim3(fused_cluster_threads(chi, cluster));
   cfg.dynamicSmemBytes = sizeof(float) * cluster_smem_floats(chi, cluster);
   cfg.stream = stream;
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -361,9 +367,7 @@ cudaLaunchConfig_t cluster_config(int batch, int chi, int cluster, cudaStream_t 
 // Validates a cluster-path shape and opts the kernel into its shared memory.
 cudaError_t prepare_cluster(int chi, int cluster) {
   const int n = 2 * chi;
-  if (chi < 1 || cluster < 1 || cluster > 8 || n > aqc::kClusterMaxRows ||
-      aqc::cluster_threads(n, cluster) > aqc::kClusterMaxThreads)
-    return cudaErrorInvalidValue;
+  if (!aqc::cluster_shape_ok(n, n, cluster)) return cudaErrorInvalidValue;
   return cudaFuncSetAttribute(fused_pair_cluster_kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(sizeof(float) * cluster_smem_floats(chi, cluster)));

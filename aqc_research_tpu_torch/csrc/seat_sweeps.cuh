@@ -31,22 +31,22 @@
 // planes; only the statistics and the go flag must be in shared memory.
 // A plane pair that fits one block's shared memory (with the caller's own
 // shared arrays) is loaded there, by a block of at most kSmemThreads
-// threads.  A larger one (256 x 256 for K1 at 28 qubits chi = 128, 136 x 256
-// for K3, K4 from 2chi = 272) stays in device memory, in a buffer the
-// wrapper allocates with torch.empty (the kernel's output or scratch), and
-// the block works on it in place with up to kMaxThreads threads (32 warps
-// for the 128 pairs of a 256-row matrix).  At most 1 MB per matrix and B <= 14
-// matrices per launch at 28 qubits, so the planes stay resident in the
-// 50 MB L2.  __syncthreads() makes a block's global writes visible to the
-// whole block; the planes are never read through __ldg or a const
-// __restrict__ pointer, since the block writes them.  The wrappers decide
-// the home with one Python function of (c, r, max_smem)
-// (ops/jacobi_kernel.plane_home), so the CPU tests see the rule.
+// threads.  A larger one stays in device memory, in a buffer the wrapper
+// allocates with torch.empty (the kernel's output or scratch), and the
+// block works on it in place with up to kMaxThreads threads (a warp per
+// row pair, 32 at most).  At 28 qubits that is at most 1 MB per matrix and
+// B <= 14 matrices per launch, so the planes stay resident in the 50 MB L2.
+// __syncthreads() makes a block's global writes visible to the whole
+// block; the planes are never read through __ldg or a const __restrict__
+// pointer, since the block writes them.  The wrappers decide the home with
+// one Python function of (c, r, max_smem) (ops/jacobi_kernel.plane_home),
+// so the CPU tests see the rule.
 //
 // cluster_sweeps.cuh runs this loop on a thread-block cluster with the
 // planes in distributed shared memory (a cluster barrier per phase); K4
-// takes it at 176 <= 2chi <= 256, K1 at 256 and K3 at chi = 128 still use
-// the device-memory home above.
+// takes it at 176 <= 2chi <= 256, K1 and K3 wherever their home rules say
+// "cluster" (the path shapes among them), so this loop keeps the heads the
+// rules leave on one block and the shapes past the cluster's.
 //
 // Bounds.  At the shared-memory shapes (c <= 128 rows of r <= 128 lanes)
 // the loop is bound by shared-memory traffic (every phase reads both planes

@@ -1,9 +1,11 @@
-"""Inputs and tolerance masks shared by the kernel-vs-twin checks of the
-θ-build, rand-tail and fused-pair kernels: ``chip_smoke.py`` and
-``tests/test_torch_kernel.py``.  Nothing on the engine's path imports this
-module."""
+"""Inputs, tolerance masks and the λ check shared by the kernel-vs-twin
+checks of the θ-build, rand-tail and fused-pair kernels: ``chip_smoke.py``
+and ``tests/test_torch_kernel.py``.  Nothing on the engine's path imports
+this module."""
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -76,9 +78,9 @@ def near_threshold(s: torch.Tensor, tot2: torch.Tensor, thr2: float, chi: int, r
     the threshold is near.  On the graded inputs of :func:`path_planes` r
     is rounding noise of a few eps tot2, so at trunc 1e-6 (thr^2 = 1e-12,
     five orders below f32's eps) about half the values are near and the
-    mask check bites only at coarse thresholds such as 1e-2.  The λ check
-    still bounds every flip: a flipped value's λ moves by its whole size, so
-    a flip of any value above rel * s_max fails it."""
+    mask check bites only at coarse thresholds such as 1e-2.  A flip inside
+    this set also moves the kept values' λ through the rescale
+    sqrt(tot2 / kept^2): :func:`lambda_check` allows for that."""
     s = s[:, :chi].double()
     t2 = tot2.double()[:, None]
     delta = rel * s[:, :1]
@@ -93,3 +95,53 @@ def near_threshold(s: torch.Tensor, tot2: torch.Tensor, thr2: float, chi: int, r
     at_cut = (tail2 - thr2 * t2).abs() <= slack
     at_guard = ((s - 32.0 * _EPS32 * s[:, :1]).abs() <= delta) & (tail2 + slack > thr2 * t2)
     return at_cut | at_guard
+
+
+class LambdaCheck(NamedTuple):
+    """What :func:`lambda_check` found: the largest |Δλ| over the values
+    both sides keep, the largest relative rescale change the flips imply,
+    the number of keep flips, and whether λ and the masks pass."""
+
+    d_lam: float
+    rescale: float
+    flips: int
+    lam_ok: bool
+    mask_ok: bool
+
+
+def lambda_check(k_lam: torch.Tensor, p_lam: torch.Tensor, near: torch.Tensor, tol: float) -> LambdaCheck:
+    """Holds a kernel's truncated, rescaled singular values ``k_lam`` (B,
+    chi; 0 where dropped) against its twin's ``p_lam``, given the
+    :func:`near_threshold` mask ``near``.
+
+    * masks: a keep decision may differ only inside ``near``;
+    * λ, on the values both sides keep: |Δλ| <= tol * s_max + λ_twin * ρ.
+      s_max is the twin's largest λ over the batch.  ρ is the relative
+      change of the rescale sqrt(tot2 / kept^2) that the flipped values
+      imply: a value of weight s_f^2 kept by one side only changes kept^2
+      by the fraction w = s_f^2 / kept^2 = λ_f^2 / Σλ^2 (λ of the side that
+      keeps it: the twin's where it keeps the value), so the rescales of
+      the two sides differ by at most 1 / sqrt(1 - Σ_f w_f) - 1.  Without
+      a flip ρ = 0 and the check is |Δλ| <= tol * s_max over every value,
+      as before; a dropped value's λ is 0 on both sides."""
+    k, p = k_lam.double(), p_lam.double()
+    k_keep, p_keep = k > 0, p > 0
+    differ = k_keep != p_keep
+    both = k_keep & p_keep
+    smax = float(p.max())
+
+    def weights(lam):
+        return lam * lam / torch.clamp((lam * lam).sum(-1, keepdim=True), min=1e-300)
+
+    flipped = torch.where(differ, torch.where(p_keep, weights(p), weights(k)), torch.zeros_like(p))
+    frac = torch.clamp(flipped.sum(-1, keepdim=True), max=1.0 - 1e-12)
+    rho = 1.0 / torch.sqrt(1.0 - frac) - 1.0
+    d = torch.where(both, (k - p).abs(), torch.zeros_like(p))
+    lam_ok = bool(torch.isfinite(k).all()) and not bool((d > tol * smax + p * rho).any())
+    return LambdaCheck(
+        d_lam=float(d.max()) if d.numel() else 0.0,
+        rescale=float(rho.max()) if rho.numel() else 0.0,
+        flips=int(differ.sum()),
+        lam_ok=lam_ok,
+        mask_ok=not bool((differ & ~near.to(differ.device)).any()),
+    )

@@ -35,13 +35,17 @@ _VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # void* (ctypes would cut a Python int to 32 bits otherwise).
 _SIGNATURES = {
     # in_re, in_im, out_re, out_im, sweeps, batch, c, r, max_sweeps,
-    # hybrid, threads, smem_planes, stream
-    "jacobi_rows_launch": ([_VP] * 5 + [_CI] * 7 + [_VP], _CI),
+    # hybrid, threads, home, cluster, stream
+    "jacobi_rows_launch": ([_VP] * 5 + [_CI] * 8 + [_VP], _CI),
+    # c, r, cluster
+    "jacobi_rows_cluster_occupancy": ([_CI] * 3, _CI),
     # gate, a_re, a_im, b_re, b_im, w0_re, w0_im, batch, chi, edge, stream
     "theta_build_launch": ([_VP] * 7 + [_CI] * 3 + [_VP], _CI),
     # m_re, m_im, tot2, wk_re, wk_im, vh_re, vh_im, lam, inv, sweeps, batch,
-    # ell, n, chi, max_sweeps, hybrid, thr2, threads, smem_planes, stream
-    "rand_tail_launch": ([_VP] * 10 + [_CI] * 6 + [_CF, _CI, _CI, _VP], _CI),
+    # ell, n, chi, max_sweeps, hybrid, thr2, threads, home, cluster, stream
+    "rand_tail_launch": ([_VP] * 10 + [_CI] * 6 + [_CF, _CI, _CI, _CI, _VP], _CI),
+    # ell, n, chi, cluster
+    "rand_tail_cluster_occupancy": ([_CI] * 4, _CI),
     # gate, a_re, a_im, b_re, b_im, w0_re, w0_im, wk_re, wk_im, ut_re, ut_im,
     # vh_re, vh_im, lam, sweeps, batch, chi, max_sweeps, hybrid, thr2,
     # home, cluster, stream

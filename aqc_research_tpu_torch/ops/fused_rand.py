@@ -17,9 +17,10 @@ and the norm rescale are defined against the full θ Frobenius weight
 
 Dispatch rule of :func:`rand_tail`: CPU tensors go to the plain twin
 :func:`rand_tail_reference`, CUDA tensors to the kernel — no fallback in
-between; the kernel route raises on anything it does not take.  Planes
-that do not fit one block's shared memory (chi = 128) stay in device memory
-(ops/jacobi_kernel.plane_home).
+between; the kernel route raises on anything it does not take.  The planes
+live where :func:`tail_plane_home` puts them: on the path shapes (chi = 64
+and 128) in the shared memory of a thread-block cluster per matrix, with
+the epilogue spread over its CTAs.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ import torch
 from ..config import jacobi_criterion
 from . import cuda_build, rand_svd
 from .fused_pair import _prep_planes, theta_build
-from .jacobi_kernel import block_threads, jacobi_rows_reference, plane_home, rank_truncate_reference
+from .jacobi_kernel import jacobi_rows_reference, launch_shape, plane_home, rank_truncate_reference
 from .jacobi_svd import DEFAULT_SWEEPS
 
 
@@ -55,10 +56,29 @@ def rand_tail_reference(
     return ws_re * inv[..., None], -(ws_im * inv[..., None]), lam, inv, sweeps
 
 
+def tail_extra_bytes(ell: int, chi: int) -> int:
+    """Shared memory of the epilogue's arrays beside the planes: the row
+    norms, the selected values, 1/s and the selected rows (ell + 3 chi
+    floats, csrc/rank_truncate.cuh)."""
+    return 4 * (ell + 3 * chi)
+
+
 def tail_plane_home(ell: int, n: int, chi: int, max_smem: int) -> str:
-    """Where one block keeps the (l, n) planes (ops/jacobi_kernel.plane_home,
-    beside the epilogue's row norms, selected values, 1/s and rows)."""
-    return plane_home(ell, n, max_smem, 4 * (ell + 3 * chi))
+    """Where the (l, n) planes live: ops/jacobi_kernel.plane_home on l rows
+    of n lanes, beside the epilogue's arrays (every CTA of a cluster holds
+    all of them)."""
+    return plane_home(ell, n, max_smem, tail_extra_bytes(ell, chi))
+
+
+def tail_cluster_occupancy(ell: int, n: int, chi: int, cluster: int, dev: int = 0) -> int:
+    """Clusters of K3's cluster home at (l, n, chi, cluster) that card
+    ``dev`` keeps resident at once (cudaOccupancyMaxActiveClusters); raises
+    on an error."""
+    with torch.cuda.device(dev):
+        got = int(cuda_build.load().rand_tail_cluster_occupancy(ell, n, chi, cluster))
+    if got < 0:
+        raise RuntimeError(f"rand_tail_cluster_occupancy failed: CUDA error {-got}")
+    return got
 
 
 def check_tail_args(m_re, m_im, tot2, chi: int) -> None:
@@ -88,14 +108,20 @@ def rand_tail(
     chi: int,
     max_sweeps: int = DEFAULT_SWEEPS,
     criterion: str | None = None,
+    *,
+    home: str | None = None,
+    cluster: int | None = None,
 ):
     """Reduced Jacobi + selection + truncation + vh rows of the rand route
     (see :func:`rand_tail_reference` for the contract).
 
-    CPU tensors run the plain twin; CUDA tensors launch the kernel (one
-    thread block per matrix, the planes where :func:`tail_plane_home` puts
-    them) and every launch adds one to ``rand_tail.launches`` and to
-    ``rand_tail.launches_at[n]``; any other device raises."""
+    CPU tensors run the plain twin; CUDA tensors launch the kernel, the
+    planes where :func:`tail_plane_home` puts them (``home``/``cluster``
+    choose another home or cluster size, for A/B timings and the card
+    tests; the engine never passes them), and every launch adds one to
+    ``rand_tail.launches``, ``rand_tail.launches_at[n]`` and
+    ``rand_tail.launches_home[home]``; any other device raises, and so does
+    a launch the card refuses."""
     criterion = criterion or jacobi_criterion()
     if m_re.device.type == "cpu":
         return rand_tail_reference(m_re, m_im, tot2, thr2, chi, max_sweeps, criterion)
@@ -104,7 +130,8 @@ def rand_tail(
     check_tail_args(m_re, m_im, tot2, chi)
     dev = cuda_build.device_index(m_re)
     b, ell, n = m_re.shape
-    home = tail_plane_home(ell, n, chi, cuda_build.max_smem(dev))
+    home = home or tail_plane_home(ell, n, chi, cuda_build.max_smem(dev))
+    code, threads, ctas = launch_shape(ell, home, cluster)
     # Planes in device memory are rotated in place in a scratch pair.
     wk_re, wk_im = (torch.empty_like(m_re), torch.empty_like(m_im)) if home == "global" else (None, None)
     vh_re = torch.empty((b, chi, n), dtype=torch.float32, device=m_re.device)
@@ -119,16 +146,17 @@ def rand_tail(
         m_re.data_ptr(), m_im.data_ptr(), tot2.data_ptr(),
         None if wk_re is None else wk_re.data_ptr(), None if wk_im is None else wk_im.data_ptr(),
         vh_re.data_ptr(), vh_im.data_ptr(), lam.data_ptr(), inv.data_ptr(), sweeps.data_ptr(),
-        b, ell, n, chi, int(max_sweeps), int(criterion == "hybrid"), float(thr2),
-        block_threads(ell, home), int(home == "shared"),
+        b, ell, n, chi, int(max_sweeps), int(criterion == "hybrid"), float(thr2), threads, code, ctas,
     )
     rand_tail.launches += 1
     rand_tail.launches_at[n] = rand_tail.launches_at.get(n, 0) + 1
+    rand_tail.launches_home[home] = rand_tail.launches_home.get(home, 0) + 1
     return vh_re, vh_im, lam, inv, sweeps
 
 
 rand_tail.launches = 0
 rand_tail.launches_at = {}
+rand_tail.launches_home = {}
 
 
 def fused_rand_pair_update(

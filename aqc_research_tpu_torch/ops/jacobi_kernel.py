@@ -13,11 +13,13 @@ m`` (one batched product).
 
 Dispatch rule of :func:`jacobi_rows`: CPU tensors go to the plain twin
 :func:`jacobi_rows_reference`, CUDA tensors to the kernel — no fallback in
-between; the kernel route raises on anything it does not take.  Planes that
-fit one block's shared memory are held there, larger ones stay in device
-memory (:func:`plane_home`).  The kernel
-library is built with ``nvcc`` from ``csrc/`` at first use, into
-``aqc_research_tpu_torch/_build/`` (ops/cuda_build.py).
+between; the kernel route raises on anything it does not take.  Where the
+planes live is the "home" (:func:`plane_home`): the shared memory of a
+thread-block cluster of :func:`cluster_size` CTAs per matrix, a warp per row
+pair (the path shapes), one block's shared memory (the heads the rule keeps
+there), or device memory.  The kernel library is built with ``nvcc`` from
+``csrc/`` at first use, into ``aqc_research_tpu_torch/_build/``
+(ops/cuda_build.py).
 """
 
 from __future__ import annotations
@@ -146,6 +148,22 @@ def jacobi_rows_reference(
 
 SMEM_THREADS = 256  # block size cap with the planes in shared memory (seat_sweeps.cuh)
 MAX_THREADS = 1024  # block size cap with the planes in device memory
+HOME_CODES = {"shared": 0, "cluster": 1, "global": 2}  # the C entry points' ``home``
+
+# The cluster home (csrc/cluster_sweeps.cuh): at most 8 CTAs per matrix (the
+# portable cluster size), 16 pairs per CTA (16 pair warps and the stats warp:
+# 544 threads), 256 rows of 256 lanes; 16 bytes of static shared memory per
+# CTA (the go flag).
+CLUSTER_MAX = 8
+CLUSTER_MAX_PAIRS = 16
+CLUSTER_MAX_ROWS = 256
+CLUSTER_MAX_LANES = 256
+_CLUSTER_STATIC_SMEM = 16
+# The fewest rows the rule moves onto a cluster, from the card's times of
+# every home and cluster size (chip_smoke.py; PERF.md §6, H100): one block
+# per matrix wins at 8 rows (a warp for each of its 4 pairs already), the
+# cluster from 16.
+CLUSTER_MIN_ROWS = 16
 
 
 def rows_smem_bytes(c: int, r: int) -> int:
@@ -154,19 +172,89 @@ def rows_smem_bytes(c: int, r: int) -> int:
     return 4 * (2 * c * r + 3 * c)
 
 
+def cluster_size(c: int) -> int:
+    """CTAs per matrix of c rows on the cluster home: the fewest pairs per
+    CTA that CLUSTER_MAX CTAs allow, on as few CTAs as hold them (none
+    idle).  On the H100 this spread was the fastest size, or within 1% of
+    it, at every shape timed (K1 at 16 to 256 rows, K3 at chi = 64 and
+    128; PERF.md §6)."""
+    p = max(1, c // 2)
+    pairs = -(-p // CLUSTER_MAX)
+    return -(-p // pairs)
+
+
+def cluster_pairs(c: int, cluster: int) -> int:
+    """Row pairs (seats of each side) one CTA of the cluster holds."""
+    return -(-(c // 2) // cluster)
+
+
+def cluster_threads(c: int, cluster: int) -> int:
+    """Threads of one CTA on the cluster home: a warp per pair it holds and
+    the stats warp."""
+    return 32 * (cluster_pairs(c, cluster) + 1)
+
+
+def cluster_smem_bytes(c: int, r: int, cluster: int, extra_bytes: int = 0) -> int:
+    """Dynamic shared memory of one CTA on the cluster home: its pairs'
+    statistics of four phases and ``extra_bytes`` of the caller's own
+    arrays (rounded up to 16 bytes), then two seat buffers of both sides, re
+    and im, rows of r lanes (csrc/cluster_sweeps.cuh cluster_cta_floats)."""
+    pairs = cluster_pairs(c, cluster)
+    head = -(-(4 * 3 * pairs + extra_bytes // 4) // 4) * 4
+    return 4 * (head + 8 * pairs * r)
+
+
+def cluster_fits(c: int, r: int, cluster: int, max_smem: int, extra_bytes: int = 0) -> bool:
+    """Whether the cluster loop takes a (c, r) plane pair on ``cluster``
+    CTAs within the ``max_smem`` bytes one block may use."""
+    return (
+        4 <= c <= CLUSTER_MAX_ROWS and c % 2 == 0 and r <= CLUSTER_MAX_LANES
+        and 1 <= cluster <= CLUSTER_MAX and cluster_pairs(c, cluster) <= CLUSTER_MAX_PAIRS
+        and cluster_smem_bytes(c, r, cluster, extra_bytes) + _CLUSTER_STATIC_SMEM <= max_smem
+    )
+
+
 def plane_home(c: int, r: int, max_smem: int, extra_bytes: int = 0) -> str:
-    """Where one block keeps a (c, r) plane pair: ``"shared"`` when both
-    planes, the loop's statistics and ``extra_bytes`` of the caller's own
-    shared arrays fit the ``max_smem`` bytes one block may use, else
+    """Where a (c, r) plane pair lives, given the ``max_smem`` bytes one
+    block may use and ``extra_bytes`` of the caller's own shared arrays:
+    ``"cluster"`` (the shared memory of :func:`cluster_size` CTAs, from
+    CLUSTER_MIN_ROWS rows up to 256 rows of 256 lanes), else ``"shared"``
+    when one block holds both planes and the loop's statistics, else
     ``"global"`` (device memory, L2-resident; csrc/seat_sweeps.cuh)."""
+    if c >= CLUSTER_MIN_ROWS and cluster_fits(c, r, cluster_size(c), max_smem, extra_bytes):
+        return "cluster"
     return "shared" if rows_smem_bytes(c, r) + extra_bytes <= max_smem else "global"
 
 
 def block_threads(c: int, home: str = "shared") -> int:
-    """Threads of one block working on c rows: a warp per row pair, up to 8
-    with the planes in shared memory, up to 32 in device memory."""
+    """Threads of one block working on c rows (the one-block homes): a warp
+    per row pair, up to 8 with the planes in shared memory, up to 32 in
+    device memory."""
     cap = (SMEM_THREADS if home == "shared" else MAX_THREADS) // 32
     return 32 * min(cap, c // 2)
+
+
+def launch_shape(c: int, home: str, cluster: int | None) -> tuple:
+    """(home code, threads per block, CTAs per matrix) of a launch on c rows
+    at ``home`` (a cluster of ``cluster`` CTAs, :func:`cluster_size` when
+    None); raises on an unknown home."""
+    if home not in HOME_CODES:
+        raise ValueError(f"unknown plane home {home!r}: expected one of {sorted(HOME_CODES)}")
+    if home != "cluster":
+        return HOME_CODES[home], block_threads(c, home), 1
+    cluster = cluster or cluster_size(c)
+    return HOME_CODES[home], cluster_threads(c, cluster), cluster
+
+
+def cluster_occupancy(c: int, r: int, cluster: int, dev: int = 0) -> int:
+    """Clusters of K1's cluster home at (c, r, cluster) that card ``dev``
+    keeps resident at once (cudaOccupancyMaxActiveClusters); raises on an
+    error."""
+    with torch.cuda.device(dev):
+        got = int(cuda_build.load().jacobi_rows_cluster_occupancy(c, r, cluster))
+    if got < 0:
+        raise RuntimeError(f"jacobi_rows_cluster_occupancy failed: CUDA error {-got}")
+    return got
 
 
 def check_rows_args(w_re: torch.Tensor, w_im: torch.Tensor) -> None:
@@ -190,14 +278,20 @@ def jacobi_rows(
     w_im: torch.Tensor,
     max_sweeps: int = DEFAULT_SWEEPS,
     criterion: str | None = None,
+    *,
+    home: str | None = None,
+    cluster: int | None = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Adaptive one-sided Jacobi on (B, c, r) f32 planes: returns (w_re,
     w_im, sweeps) — see :func:`jacobi_rows_reference` for the contract.
 
-    CPU tensors run the plain twin; CUDA tensors launch the kernel (one
-    thread block per matrix, the planes where :func:`plane_home` puts them)
-    and every launch adds one to ``jacobi_rows.launches`` and to
-    ``jacobi_rows.launches_at[c]``; any other device raises."""
+    CPU tensors run the plain twin; CUDA tensors launch the kernel, the
+    planes where :func:`plane_home` puts them (``home``/``cluster`` choose
+    another home or cluster size, for A/B timings and the card tests; the
+    engine never passes them), and every launch adds one to
+    ``jacobi_rows.launches``, ``jacobi_rows.launches_at[c]`` and
+    ``jacobi_rows.launches_home[home]``; any other device raises, and so
+    does a launch the card refuses."""
     criterion = criterion or jacobi_criterion()
     if w_re.device.type == "cpu":
         return jacobi_rows_reference(w_re, w_im, max_sweeps, criterion)
@@ -206,7 +300,8 @@ def jacobi_rows(
     check_rows_args(w_re, w_im)
     dev = cuda_build.device_index(w_re)
     b, c, r = w_re.shape
-    home = plane_home(c, r, cuda_build.max_smem(dev))
+    home = home or plane_home(c, r, cuda_build.max_smem(dev))
+    code, threads, ctas = launch_shape(c, home, cluster)
     out_re = torch.empty_like(w_re)
     out_im = torch.empty_like(w_im)
     sweeps = torch.empty(b, dtype=torch.int32, device=w_re.device)
@@ -215,16 +310,17 @@ def jacobi_rows(
     cuda_build.launch(
         "jacobi_rows_launch", dev,
         w_re.data_ptr(), w_im.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
-        sweeps.data_ptr(), b, c, r, int(max_sweeps), int(criterion == "hybrid"),
-        block_threads(c, home), int(home == "shared"),
+        sweeps.data_ptr(), b, c, r, int(max_sweeps), int(criterion == "hybrid"), threads, code, ctas,
     )
     jacobi_rows.launches += 1
     jacobi_rows.launches_at[c] = jacobi_rows.launches_at.get(c, 0) + 1
+    jacobi_rows.launches_home[home] = jacobi_rows.launches_home.get(home, 0) + 1
     return out_re, out_im, sweeps
 
 
 jacobi_rows.launches = 0
 jacobi_rows.launches_at = {}
+jacobi_rows.launches_home = {}
 
 
 def rank_truncate_reference(w_re, w_im, tot2, thr2: float, chi: int):

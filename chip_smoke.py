@@ -10,20 +10,32 @@ Phases, one line each:
   1. device   — the card's name and power limit; build and load the kernels
                 (one nvcc per source, all started together); ptxas's
                 registers and spill bytes per kernel.
-  2. kernel   — K1 jacobi_rows vs plain twin at B=10, c=r in {8..128} (planes
-                in shared memory) and at B=4, c=r=256 (planes in device
-                memory): singular values, reconstruction, orthogonality,
-                sweep counts; then timed at B=10 128x128 and B=14 256x256
-                beside its twin and torch.linalg.svd.
+  2. kernel   — K1 jacobi_rows vs plain twin at B=10, c=r in {8..128} and
+                at B=4, c=r=256, on the home its rule picks
+                (ops/jacobi_kernel.plane_home) and on the cluster home
+                wherever the rule keeps another: singular values,
+                reconstruction, orthogonality, sweep counts; then timed at
+                B=10 128x128 and B=14 256x256 beside its twin,
+                torch.linalg.svd, its old home (one block with the planes
+                in shared memory at 128, in device memory at 256) and every
+                cluster size on the same inputs; the heads c=r in {8..64}
+                at the one-block home and every cluster size.  µs per phase
+                (device-only ms over the slowest matrix's sweeps x (c - 1)
+                phases), the home, cluster size, threads, shared bytes per
+                CTA and the clusters the card keeps resident.
   2b. kernels — K2 theta_build and K3 rand_tail vs their plain twins at
                 B=10, χ in {8, 16, 32, 64, 96, 128} on rand-route inputs
-                (graded bond values; K3 at χ=128 with its planes in device
-                memory); timed at B=10 χ=64 and B=14 χ=128 beside their
-                twins and a library call (K2: one einsum of the gated θ,
-                and the four products' batched matmul); K2 at both tile
-                edges (the A/B behind ops/fused_pair.theta_tile_edge).
-                Also the range-finder on zero-padded pair matrices of 128
-                and 256 rows, where torch's batched CUDA QR returns NaN.
+                (graded bond values; K3 at trunc 1e-6 and 1e-2 on its
+                rule's home, ops/fused_rand.tail_plane_home, and on the
+                cluster home); timed at B=10 χ=64 and B=14 χ=128 beside
+                their twins and a library call (K2: one einsum of the gated
+                θ, and the four products' batched matmul; K3 also at its
+                old home, one block with the planes in shared memory at
+                χ=64 and in device memory at χ=128, and every cluster size,
+                with µs per phase as for K1); K2 at both tile edges (the
+                A/B behind ops/fused_pair.theta_tile_edge).  Also the
+                range-finder on zero-padded pair matrices of 128 and 256
+                rows, where torch's batched CUDA QR returns NaN.
   2c. fused   — K4 fused_pair vs its plain twin at B=10, χ in {8, 16, 32,
                 64} (planes in one block's shared memory), {96, 100, 128}
                 (the cluster path: planes in the distributed shared memory
@@ -60,6 +72,9 @@ Phases, one line each:
                 off (K1 at 256x256) in turns (rand, jacobi, unfused,
                 unfused, jacobi, rand, twice; 3 sweeps each), then one
                 profiled sweep each.
+The λ checks of K3 and K4 (kernel_checks.lambda_check) hold λ on the values
+both sides keep, allowing for the rescale change of the keep flips that
+kernel_checks.near_threshold allows, and fail on any flip outside that set.
 Every kernel and library time is read twice with CUDA events: device-only
 (back-to-back calls queued behind a sleep kernel, so the wrappers' host time
 stays out; the record's ``ms`` and ``library_ms``) and per call on an idle
@@ -256,6 +271,8 @@ def reset_counts() -> None:
     for fn in kernel_counters().values():
         fn.launches = 0
         fn.launches_at = {}
+        if hasattr(fn, "launches_home"):
+            fn.launches_home = {}
 
 
 def read_counts() -> dict:
@@ -265,6 +282,12 @@ def read_counts() -> dict:
 def read_counts_at() -> dict:
     """Launches by pair-matrix size n = 2χ (K1: its row count)."""
     return {name: dict(sorted(fn.launches_at.items())) for name, fn in kernel_counters().items()}
+
+
+def read_counts_home() -> dict:
+    """K1's and K3's launches by plane home."""
+    return {name: dict(sorted(fn.launches_home.items())) for name, fn in kernel_counters().items()
+            if hasattr(fn, "launches_home")}
 
 
 def ptxas_usage(report: str) -> dict:
@@ -318,10 +341,56 @@ def _factor(w_re, w_im, m):
     return s, u, vh
 
 
+def cluster_candidates(c: int):
+    """Every cluster size the loop takes on c rows with no idle CTA (the
+    A/B behind jacobi_kernel.cluster_size and CLUSTER_MIN_ROWS)."""
+    from aqc_research_tpu_torch.ops import jacobi_kernel as jk
+
+    return [k for k in range(1, jk.CLUSTER_MAX + 1)
+            if jk.cluster_pairs(c, k) <= jk.CLUSTER_MAX_PAIRS and (k - 1) * jk.cluster_pairs(c, k) < c // 2]
+
+
+def home_ab(fn, c: int, old_home: str, sweeps_at: int, calls: int = 5, repeats: int = 3) -> dict:
+    """Device-only ms, the slowest matrix's sweeps and µs per phase (ms over
+    sweeps x (c - 1) phases) of ``fn(home, cluster)`` at ``old_home`` and at
+    every candidate cluster size, on the caller's inputs; ``sweeps_at``
+    indexes the sweep counts in ``fn``'s result.  Keys: the home, or
+    "cluster kxP" (k CTAs of P pairs)."""
+    from aqc_research_tpu_torch.ops import jacobi_kernel as jk
+
+    out = {}
+    variants = [(old_home, None)] + [("cluster", k) for k in cluster_candidates(c)]
+    for home, k in variants:
+        sweeps = int(fn(home, k)[sweeps_at].max())
+        ms, _ = device_ms(lambda: fn(home, k), calls, repeats)
+        label = home if k is None else f"cluster {k}x{jk.cluster_pairs(c, k)}"
+        out[label] = {"ms": ms, "max_sweeps": sweeps, "us_per_phase": 1e3 * ms / max(sweeps * (c - 1), 1)}
+    return out
+
+
+def fmt_ab(ab: dict) -> str:
+    return ", ".join(f"{k} {v['ms']:.4f} ms ({v['us_per_phase']:.2f} us/phase)" for k, v in ab.items())
+
+
+def cluster_info(home: str, c: int, r: int, extra_bytes: int, resident) -> dict:
+    """The record's description of a kernel's home at one shape."""
+    from aqc_research_tpu_torch.ops import jacobi_kernel as jk
+
+    if home != "cluster":
+        return {"home": home}
+    k = jk.cluster_size(c)
+    return {"home": home, "cluster": k, "pairs_per_cta": jk.cluster_pairs(c, k),
+            "threads": jk.cluster_threads(c, k), "smem_bytes_per_cta": jk.cluster_smem_bytes(c, r, k, extra_bytes),
+            "clusters_resident": resident(k)}
+
+
 def phase_kernel(dev):
+    from aqc_research_tpu_torch.ops import cuda_build
+    from aqc_research_tpu_torch.ops import jacobi_kernel as jk
     from aqc_research_tpu_torch.ops.jacobi_kernel import jacobi_rows, jacobi_rows_reference
 
     rng = np.random.default_rng(1234)
+    max_smem = cuda_build.max_smem(0)
     worst = {}
     cases = [(n, BATCH) for n in SHAPES] + [(BIG_SHAPE, BIG_BATCH)]
     for (n, batch), criterion in ((nb, c) for nb in cases for c in CRITERIA):
@@ -329,70 +398,105 @@ def phase_kernel(dev):
             m = torch.tensor(graded_matrices(rng, batch, n), device=dev)
             mt = m.transpose(-1, -2)
             re, im = mt.real.contiguous(), mt.imag.contiguous()
-        k_re, k_im, k_sw = jacobi_rows(re, im, MAX_SWEEPS, criterion)
         p_re, p_im, p_sw = jacobi_rows_reference(re, im, MAX_SWEEPS, criterion)
-        torch.cuda.synchronize()
-        ks, ku, kvh = _factor(k_re, k_im, m)
         ps, pu, _ = _factor(p_re, p_im, m)
-        smax = ps[:, :1]
-        err_s = float(((ks - ps).abs() / smax).max())
-        rec = torch.matmul(ku * ks[:, None, :].to(ku.dtype), kvh)
-        err_rec = float((torch.linalg.matrix_norm(rec - m) / torch.linalg.matrix_norm(m)).max())
-        kept = ks > (32.0 * EPS32) * ks[:, :1]
-        both = kept[:, :, None] & kept[:, None, :]
-        eye = torch.eye(n, dtype=ku.dtype, device=dev)
+        rule = jk.plane_home(n, n, max_smem)
+        # The rule's home, and the cluster home wherever the rule keeps another.
+        for home in dict.fromkeys((rule, "cluster")):
+            k_re, k_im, k_sw = jacobi_rows(re, im, MAX_SWEEPS, criterion, home=home)
+            torch.cuda.synchronize()
+            ks, ku, kvh = _factor(k_re, k_im, m)
+            smax = ps[:, :1]
+            err_s = float(((ks - ps).abs() / smax).max())
+            rec = torch.matmul(ku * ks[:, None, :].to(ku.dtype), kvh)
+            err_rec = float((torch.linalg.matrix_norm(rec - m) / torch.linalg.matrix_norm(m)).max())
+            kept = ks > (32.0 * EPS32) * ks[:, :1]
+            both = kept[:, :, None] & kept[:, None, :]
+            eye = torch.eye(n, dtype=ku.dtype, device=dev)
 
-        def orth(u):
-            return float(((torch.matmul(u.conj().transpose(-1, -2), u) - eye).abs() * both).max())
+            def orth(u):
+                return float(((torch.matmul(u.conj().transpose(-1, -2), u) - eye).abs() * both).max())
 
-        err_orth = orth(ku)
-        d_sweeps = int((k_sw - p_sw).abs().max())
-        worst[(n, criterion)] = (err_s, err_rec, err_orth, orth(pu), d_sweeps, k_sw.tolist())
-        at = f"n={n} {criterion}"
-        check(np.isfinite(err_s) and err_s <= TOL_S, f"{at}: |ds|/s_max {err_s:.3g} > {TOL_S}")
-        check(err_rec <= TOL_RECON, f"{at}: reconstruction {err_rec:.3g} > {TOL_RECON}")
-        check(err_orth <= TOL_ORTH, f"{at}: orthogonality {err_orth:.3g} > {TOL_ORTH}")
-        check(d_sweeps <= 1, f"{at}: sweep counts differ by {d_sweeps} "
-                             f"(kernel {k_sw.tolist()}, plain {p_sw.tolist()})")
+            err_orth = orth(ku)
+            d_sweeps = int((k_sw - p_sw).abs().max())
+            worst[(n, criterion, home)] = (err_s, err_rec, err_orth, orth(pu), d_sweeps, k_sw.tolist())
+            at = f"n={n} {criterion} {home}"
+            check(np.isfinite(err_s) and err_s <= TOL_S, f"{at}: |ds|/s_max {err_s:.3g} > {TOL_S}")
+            check(err_rec <= TOL_RECON, f"{at}: reconstruction {err_rec:.3g} > {TOL_RECON}")
+            check(err_orth <= TOL_ORTH, f"{at}: orthogonality {err_orth:.3g} > {TOL_ORTH}")
+            check(d_sweeps <= 1, f"{at}: sweep counts differ by {d_sweeps} "
+                                 f"(kernel {k_sw.tolist()}, plain {p_sw.tolist()})")
 
-    def timed(n, batch, plain_runs):
+    def resident(n):
+        return lambda k: jk.cluster_occupancy(n, n, k)
+
+    def timed(n, batch, plain_runs, old_home):
         m = torch.tensor(graded_matrices(rng, batch, n), device=dev)
         mt = m.transpose(-1, -2)
         re, im = mt.real.contiguous(), mt.imag.contiguous()
+        home = jk.plane_home(n, n, max_smem)
         sweeps = jacobi_rows(re, im, MAX_SWEEPS)[2].cpu().numpy()
         kern = timings(lambda: jacobi_rows(re, im, MAX_SWEEPS), calls=5, repeats=3)
+        ab = home_ab(lambda h, k: jacobi_rows(re, im, MAX_SWEEPS, home=h, cluster=k), n, old_home, 2)
         plain_ms = median_ms(lambda: jacobi_rows_reference(re, im, MAX_SWEEPS), runs=plain_runs, warmup=1)
         lib = timings(lambda: torch.linalg.svd(m, full_matrices=False), calls=3, repeats=3, runs=5)
         bound_ms, bound_by = bound(jacobi_flops(n, n, sweeps), 4 * 4 * batch * n * n + 4 * batch)
+        info = cluster_info(home, n, n, 0, resident(n))
+        us_phase = 1e3 * kern["ms"] / (int(sweeps.max()) * (n - 1))
+        if home == "cluster":
+            check(info["clusters_resident"] >= batch,
+                  f"K1 at {n}x{n}: {info['clusters_resident']} clusters resident < B={batch} (not one wave)")
         line = (f"B={batch} {n}x{n} ({CRITERIA[0]}, sweeps {sweeps.tolist()}): kernel {fmt(kern)}, "
-                f"plain {plain_ms:.4f} ms, torch.linalg.svd {fmt(lib)}, bound {bound_ms:.4f} ms ({bound_by})")
+                f"{us_phase:.2f} us/phase, {info}; plain {plain_ms:.4f} ms, torch.linalg.svd {fmt(lib)}, bound "
+                f"{bound_ms:.4f} ms ({bound_by}); by home on the same inputs (device-only): {fmt_ab(ab)}")
         return line, {"shape": f"B={batch} {n}x{n}", **record_times(kern, lib), "plain_ms": plain_ms,
-                      "bound_ms": bound_ms, "bound_by": bound_by}
+                      "bound_ms": bound_ms, "bound_by": bound_by, **info, "us_per_phase": us_phase,
+                      "old_home": old_home, "old_home_ms": ab[old_home]["ms"],
+                      "old_home_us_per_phase": ab[old_home]["us_per_phase"],
+                      "by_home_ms": {k: v["ms"] for k, v in ab.items()}}
 
-    line, stats = timed(SHAPES[-1], BATCH, 20)
-    line28, stats28 = timed(BIG_SHAPE, PATH28_BATCH, 3)
+    line, stats = timed(SHAPES[-1], BATCH, 3, "shared")
+    line28, stats28 = timed(BIG_SHAPE, PATH28_BATCH, 2, "global")
+    # The χ-growth heads: the one-block home against every cluster size
+    # (the A/B behind CLUSTER_MIN_ROWS), B=10 graded matrices.
+    heads = {}
+    for n in SHAPES[:-1]:
+        m = torch.tensor(graded_matrices(rng, BATCH, n), device=dev).transpose(-1, -2)
+        re, im = m.real.contiguous(), m.imag.contiguous()
+        heads[n] = home_ab(lambda h, k: jacobi_rows(re, im, MAX_SWEEPS, home=h, cluster=k), n, "shared", 2,
+                           calls=10, repeats=3)
     detail = "; ".join(
-        f"c=r={n} {crit}: ds {e[0]:.2e} rec {e[1]:.2e} orth {e[2]:.2e} (plain {e[3]:.2e}) "
+        f"c=r={n} {crit} {home}: ds {e[0]:.2e} rec {e[1]:.2e} orth {e[2]:.2e} (plain {e[3]:.2e}) "
         f"dsweeps {e[4]} sweeps {e[5]}"
-        for (n, crit), e in worst.items()
+        for (n, crit, home), e in worst.items()
     )
-    print(f"[kernel] jacobi_rows vs plain twin, B={BATCH} (c=r={BIG_SHAPE}: B={BIG_BATCH}, planes in device "
-          f"memory): {detail} | {line} | {line28} (CUDA events; device-only: 5 queued calls, median of 3 "
-          f"repeats; per call: median of 20; plain at 256: of 3)", flush=True)
-    max_err = max(e[0] for (n, _), e in worst.items() if n != BIG_SHAPE)
-    err256 = max(e[0] for (n, _), e in worst.items() if n == BIG_SHAPE)
-    return {"max_abs_err": max_err, **stats, "shapes": [{"max_abs_err": err256, **stats28}]}
+    rule = {n: jk.plane_home(n, n, max_smem) for n in (*SHAPES, BIG_SHAPE)}
+    print(f"[kernel] jacobi_rows vs plain twin, B={BATCH} (c=r={BIG_SHAPE}: B={BIG_BATCH}); homes by the rule "
+          f"{rule} (cluster sizes {({n: jk.cluster_size(n) for n, h in rule.items() if h == 'cluster'})}): "
+          f"{detail} | {line} | {line28} | heads at B={BATCH}, device-only by home: "
+          f"{'; '.join(f'{n}x{n}: {fmt_ab(ab)}' for n, ab in heads.items())} | ptxas: "
+          f"{'; '.join(f'{k} {v}' for k, v in sorted(PTXAS.items()) if k.startswith('jacobi_rows'))} "
+          f"(CUDA events; device-only: 5 queued calls (heads: 10), median of 3 repeats; per call: median of 20; "
+          f"plain: of 3, at 256: of 2)", flush=True)
+    max_err = max(e[0] for (n, _, _), e in worst.items() if n != BIG_SHAPE)
+    err256 = max(e[0] for (n, _, _), e in worst.items() if n == BIG_SHAPE)
+    heads_ms = {f"B={BATCH} {n}x{n}": {k: v["ms"] for k, v in ab.items()} for n, ab in heads.items()}
+    return {"max_abs_err": max_err, **stats, "heads_by_home_ms": heads_ms,
+            "shapes": [{"max_abs_err": err256, **stats28}]}
 
 
 def phase_rand_kernels(dev):
     """K2 and K3 against their plain twins on the card, then timed."""
-    from aqc_research_tpu_torch.kernel_checks import near_threshold, padded_pair_batch, path_planes
+    from aqc_research_tpu_torch.kernel_checks import lambda_check, near_threshold, padded_pair_batch, path_planes
     from aqc_research_tpu_torch.ops import cuda_build, rand_svd
+    from aqc_research_tpu_torch.ops import fused_rand as fr
+    from aqc_research_tpu_torch.ops import jacobi_kernel as jk
     from aqc_research_tpu_torch.ops.fused_pair import theta_build, theta_build_reference, theta_tile_edge
     from aqc_research_tpu_torch.ops.fused_rand import rand_tail, rand_tail_reference
 
     rng = np.random.default_rng(4321)
-    err_theta, err_lam, details = 0.0, 0.0, []
+    max_smem = cuda_build.max_smem(0)
+    err_theta, err_lam, details, homes = 0.0, 0.0, [], {}
     flips = {thr: 0 for thr in TAIL_THRESHOLDS}
     allowed = {thr: 0 for thr in TAIL_THRESHOLDS}
     values = {thr: 0 for thr in TAIL_THRESHOLDS}
@@ -414,33 +518,39 @@ def phase_rand_kernels(dev):
         m_re, m_im = bm.real.contiguous(), (-bm.imag).contiguous()
         tot2 = (p_re * p_re + p_im * p_im).sum((-2, -1))
         s_b = torch.linalg.svdvals(bm)
+        rule = fr.tail_plane_home(ell, 2 * chi, chi, max_smem)
+        homes[chi] = rule
         for trunc_thr in TAIL_THRESHOLDS:
             thr2 = trunc_thr**2
-            kv_re, kv_im, k_lam, _, k_sw = rand_tail(m_re, m_im, tot2, thr2, chi, MAX_SWEEPS)
             pv_re, pv_im, p_lam, _, p_sw = rand_tail_reference(m_re, m_im, tot2, thr2, chi, MAX_SWEEPS)
-            torch.cuda.synchronize()
-            smax = float(p_lam.max())
-            d_lam = float((k_lam - p_lam).abs().max())
-            err_lam = max(err_lam, d_lam)
-            k_keep, p_keep = k_lam > 0, p_lam > 0
             near = near_threshold(s_b, tot2, thr2, chi)
-            differ = k_keep != p_keep
-            both = (k_keep & p_keep)[..., None].to(torch.complex64)
-            kv = torch.complex(kv_re, kv_im) * both
-            pv = torch.complex(pv_re, pv_im) * both
-            d_proj = float((kv.conj().transpose(-1, -2) @ kv - pv.conj().transpose(-1, -2) @ pv).abs().max())
-            d_sweeps = int((k_sw - p_sw).abs().max())
-            flips[trunc_thr] += int(differ.sum())
-            allowed[trunc_thr] += int(near.sum())
-            values[trunc_thr] += near.numel()
-            at = f"rand_tail chi={chi} thr={trunc_thr:g}"
-            check(np.isfinite(d_lam) and d_lam <= TOL_S * smax, f"{at}: |dlam| {d_lam:.3g} > {TOL_S} s_max")
-            check(not bool((differ & ~near).any()), f"{at}: keep masks differ away from the threshold")
-            check(d_proj <= TOL_PROJ, f"{at}: kept vh projector differs by {d_proj:.3g}")
-            check(d_sweeps <= 1, f"{at}: sweep counts differ by {d_sweeps} "
-                                 f"(kernel {k_sw.tolist()}, plain {p_sw.tolist()})")
-            details.append(f"chi={chi} thr={trunc_thr:g}: dlam {d_lam / smax:.2e} proj {d_proj:.2e} "
-                           f"kept {int(k_keep.sum())}/{int(p_keep.sum())} dsweeps {d_sweeps}")
+            # The rule's home, and the cluster home wherever the rule keeps another.
+            for home in dict.fromkeys((rule, "cluster")):
+                kv_re, kv_im, k_lam, _, k_sw = rand_tail(m_re, m_im, tot2, thr2, chi, MAX_SWEEPS, home=home)
+                torch.cuda.synchronize()
+                lc = lambda_check(k_lam, p_lam, near, TOL_S)
+                err_lam = max(err_lam, lc.d_lam)
+                k_keep, p_keep = k_lam > 0, p_lam > 0
+                both = (k_keep & p_keep)[..., None].to(torch.complex64)
+                kv = torch.complex(kv_re, kv_im) * both
+                pv = torch.complex(pv_re, pv_im) * both
+                d_proj = float((kv.conj().transpose(-1, -2) @ kv - pv.conj().transpose(-1, -2) @ pv).abs().max())
+                d_sweeps = int((k_sw - p_sw).abs().max())
+                if home == rule:
+                    flips[trunc_thr] += lc.flips
+                    allowed[trunc_thr] += int(near.sum())
+                    values[trunc_thr] += near.numel()
+                at = f"rand_tail chi={chi} thr={trunc_thr:g} {home}"
+                smax = float(p_lam.max())
+                check(lc.mask_ok, f"{at}: keep masks differ away from the threshold")
+                check(lc.lam_ok, f"{at}: |dlam| {lc.d_lam:.3g} on values both keep > {TOL_S} s_max + "
+                                 f"lam x {lc.rescale:.3g} (the rescale change of {lc.flips} flips)")
+                check(d_proj <= TOL_PROJ, f"{at}: kept vh projector differs by {d_proj:.3g}")
+                check(d_sweeps <= 1, f"{at}: sweep counts differ by {d_sweeps} "
+                                     f"(kernel {k_sw.tolist()}, plain {p_sw.tolist()})")
+                details.append(f"chi={chi} thr={trunc_thr:g} {home}: dlam {lc.d_lam / smax:.2e} proj {d_proj:.2e} "
+                               f"kept {int(k_keep.sum())}/{int(p_keep.sum())} flips {lc.flips} "
+                               f"(rescale {lc.rescale:.1e}) dsweeps {d_sweeps}")
         details.append(f"chi={chi} theta rel {e_theta:.2e}")
 
     # The range-finder on pair matrices in the θ layout's zero padding
@@ -466,8 +576,9 @@ def phase_rand_kernels(dev):
                     f"torch.linalg.qr NaN in {batched_nan}/{batch} matrices, rand_svd._orth finite, "
                     f"|ds|/s_max vs LAPACK {d_pad:.2e}")
 
-    def timed(chi, batch, plain_runs):
-        """K2 and K3 at one path shape, inputs as above."""
+    def timed(chi, batch, plain_runs, old_home):
+        """K2 and K3 at one path shape, inputs as above; K3 also at its
+        ``old_home`` and every cluster size on the same inputs."""
         n, ell = 2 * chi, rand_svd.rand_ell(2 * chi, chi)
         planes = path_planes(rng, batch, chi, dev)
         th = timings(lambda: theta_build(*planes))
@@ -494,29 +605,41 @@ def phase_rand_kernels(dev):
         tail = timings(lambda: rand_tail(m_re, m_im, tot2, thr2, chi, MAX_SWEEPS))
         # No sweep: the load, the epilogue (rank, one-thread rule) and the vh rows.
         tail_rest, _ = device_ms(lambda: rand_tail(m_re, m_im, tot2, thr2, chi, 0))
+        ab = home_ab(lambda h, k: rand_tail(m_re, m_im, tot2, thr2, chi, MAX_SWEEPS, home=h, cluster=k), ell,
+                     old_home, 4)
         tail_plain = median_ms(lambda: rand_tail_reference(m_re, m_im, tot2, thr2, chi, MAX_SWEEPS),
                                runs=plain_runs, warmup=1)
         tail_lib = timings(lambda: torch.linalg.svd(bm, full_matrices=False), calls=5, repeats=3)
         tail_flops = jacobi_flops(ell, n, sweeps) + batch * 2.0 * chi * n
         tail_bytes = 4 * batch * (2 * ell * n + 1 + 2 * chi * n + 2 * chi + 1)
         tail_bound, tail_by = bound(tail_flops, tail_bytes)
+        home = fr.tail_plane_home(ell, n, chi, max_smem)
+        info = cluster_info(home, ell, n, fr.tail_extra_bytes(ell, chi),
+                            lambda k: fr.tail_cluster_occupancy(ell, n, chi, k))
+        us_phase = 1e3 * tail["ms"] / (int(sweeps.max()) * (ell - 1))
+        if home == "cluster":
+            check(info["clusters_resident"] >= batch,
+                  f"K3 at chi={chi}: {info['clusters_resident']} clusters resident < B={batch} (not one wave)")
         edge = theta_tile_edge(batch, chi, cuda_build.sm_count(0))
         line = (f"B={batch} chi={chi}: theta_build (tiles {edge}x{edge}) {fmt(th)}, "
                 f"plain {th_plain:.4f} ms, one einsum of the gated theta {fmt(th_lib)}, batched matmul of the "
                 f"four products {fmt(th_mm)}, bound {th_bound:.5f} ms ({th_by}); rand_tail ({ell}x{n}, "
                 f"sweeps {sweeps.tolist()}) {fmt(tail)} (without the sweeps {tail_rest:.4f} ms device-only), "
-                f"plain {tail_plain:.4f} ms, torch.linalg.svd {fmt(tail_lib)}, bound {tail_bound:.5f} ms "
-                f"({tail_by})")
+                f"{us_phase:.2f} us/phase, {info}; plain {tail_plain:.4f} ms, torch.linalg.svd {fmt(tail_lib)}, "
+                f"bound {tail_bound:.5f} ms ({tail_by}); by home on the same inputs (device-only): {fmt_ab(ab)}")
         return line, (
             {"shape": f"B={batch} chi={chi}", **record_times(th, th_lib), "plain_ms": th_plain,
              "bound_ms": th_bound, "bound_by": th_by, "matmul4_ms": th_mm["ms"],
              "matmul4_call_ms": th_mm["call_ms"]},
             {"shape": f"B={batch} chi={chi} ({ell}x{n})", **record_times(tail, tail_lib),
-             "plain_ms": tail_plain, "bound_ms": tail_bound, "bound_by": tail_by},
+             "plain_ms": tail_plain, "bound_ms": tail_bound, "bound_by": tail_by, **info,
+             "us_per_phase": us_phase, "no_sweep_ms": tail_rest, "old_home": old_home,
+             "old_home_ms": ab[old_home]["ms"], "old_home_us_per_phase": ab[old_home]["us_per_phase"],
+             "by_home_ms": {k: v["ms"] for k, v in ab.items()}},
         )
 
-    line, (th, tail) = timed(PATH_CHI, BATCH, 20)
-    line28, (th28, tail28) = timed(PATH28_CHI, PATH28_BATCH, 3)
+    line, (th, tail) = timed(PATH_CHI, BATCH, 5, "shared")
+    line28, (th28, tail28) = timed(PATH28_CHI, PATH28_BATCH, 3, "global")
 
     def edge_ms(batch, chi, edge):
         """K2 at a tile edge of the caller's choosing (the rule's A/B; a
@@ -530,15 +653,17 @@ def phase_rand_kernels(dev):
     edges = {f"B={b} chi={c}": {e: edge_ms(b, c, e) for e in (16, 32)}
              for b, c in ((BATCH, PATH_CHI), (PATH28_BATCH, PATH28_CHI), (1, PATH28_CHI))}
     th["tile_edges_ms"] = edges
-    print(f"[kernels] theta_build and rand_tail vs plain twins, B={BATCH} (rand_tail at chi=128: planes in "
-          f"device memory): {'; '.join(details)} | "
+    sizes = {c: jk.cluster_size(rand_svd.rand_ell(2 * c, c)) for c, h in homes.items() if h == "cluster"}
+    print(f"[kernels] theta_build and rand_tail vs plain twins, B={BATCH}; rand_tail's homes by the rule {homes} "
+          f"(cluster sizes {sizes}): {'; '.join(details)} | "
           f"keep-mask flips / values near the threshold / values: "
           f"{'; '.join(f'thr {t:g}: {flips[t]} / {allowed[t]} / {values[t]}' for t in TAIL_THRESHOLDS)} | "
           f"range-finder on zero-padded pairs: {'; '.join(pads)} | {line} | {line28} | theta_build by tile "
           f"edge (device-only ms; theta_tile_edge picks one): "
           f"{'; '.join(f'{k}: ' + ', '.join(f'{e}: {t:.4f}' for e, t in v.items()) for k, v in edges.items())} "
-          f"(CUDA events; device-only: 10 queued calls, median of 5 repeats; per call: median of 20; "
-          f"rand_tail plain at chi=128: of 3)", flush=True)
+          f"| ptxas: {'; '.join(f'{k} {v}' for k, v in sorted(PTXAS.items()) if k.startswith('rand_tail'))} "
+          f"(CUDA events; device-only: 10 queued calls, median of 5 repeats (by home: 5, of 3); per call: median "
+          f"of 20; rand_tail plain: of 5, at chi=128: of 3)", flush=True)
     return (
         {"max_abs_err": err_theta, **th, "shapes": [{"max_abs_err": err_theta, **th28}]},
         {"max_abs_err": err_lam, **tail, "shapes": [{"max_abs_err": err_lam, **tail28}]},
@@ -547,7 +672,7 @@ def phase_rand_kernels(dev):
 
 def phase_fused(dev):
     """K4 against its plain twin on the card, then timed at the 28q shape."""
-    from aqc_research_tpu_torch.kernel_checks import near_threshold, path_planes
+    from aqc_research_tpu_torch.kernel_checks import lambda_check, near_threshold, path_planes
     from aqc_research_tpu_torch.ops import cuda_build
     from aqc_research_tpu_torch.ops import fused_pair as fp
     from aqc_research_tpu_torch.ops.fused_pair import fused_pair, fused_pair_reference, theta_build_reference
@@ -588,11 +713,10 @@ def phase_fused(dev):
             p_ut_re, p_ut_im, p_vh_re, p_vh_im, p_lam, p_sw = fused_pair_reference(*planes, thr2, MAX_SWEEPS)
             torch.cuda.synchronize()
             smax = float(p_lam.max())
-            d_lam = float((k_lam - p_lam).abs().max())
-            err_lam = max(err_lam, d_lam)
-            k_keep, p_keep = k_lam > 0, p_lam > 0
             near = near_threshold(s_theta, tot2, thr2, chi)
-            differ = k_keep != p_keep
+            lc = lambda_check(k_lam, p_lam, near, TOL_S)
+            err_lam = max(err_lam, lc.d_lam)
+            k_keep, p_keep = k_lam > 0, p_lam > 0
             both = (k_keep & p_keep).to(torch.complex64)
             # Projectors weighted by s_k / s_max: the Jacobi's stopping rule
             # fixes a kept direction only to ~1e-6 s_max / s_k, so one sweep
@@ -609,16 +733,17 @@ def phase_fused(dev):
             d_rec = float((rec - p_rec).abs().max()) / smax
             vh_norm = float(torch.linalg.vector_norm(k_vh, dim=-1).max())
             d_sweeps = int((k_sw - p_sw).abs().max())
-            flips[trunc_thr] += int(differ.sum())
+            flips[trunc_thr] += lc.flips
             allowed[trunc_thr] += int(near.sum())
             values[trunc_thr] += near.numel()
             label = f"chi={chi}{'' if rank is None else f' rank {rank}'} {decades:g} decades thr={trunc_thr:g}"
-            details.append(f"{label}: dlam {d_lam / smax:.2e} u {d_ut:.2e} (unweighted {d_ut_flat:.2e}) vh "
+            details.append(f"{label}: dlam {lc.d_lam / smax:.2e} u {d_ut:.2e} (unweighted {d_ut_flat:.2e}) vh "
                            f"{d_vh:.2e} rec {d_rec:.2e} max |vh row| {vh_norm:.3g} kept "
                            f"{int(k_keep.sum())}/{int(p_keep.sum())} dsweeps {d_sweeps}")
             at = f"fused_pair {label}"
-            check(np.isfinite(d_lam) and d_lam <= TOL_S * smax, f"{at}: |dlam| {d_lam:.3g} > {TOL_S} s_max")
-            check(not bool((differ & ~near).any()), f"{at}: keep masks differ away from the threshold")
+            check(lc.mask_ok, f"{at}: keep masks differ away from the threshold")
+            check(lc.lam_ok, f"{at}: |dlam| {lc.d_lam:.3g} on values both keep > {TOL_S} s_max + "
+                             f"lam x {lc.rescale:.3g} (the rescale change of {lc.flips} flips)")
             check(d_sweeps <= 1, f"{at}: sweep counts differ by {d_sweeps} "
                                  f"(kernel {k_sw.tolist()}, plain {p_sw.tolist()})")
             if decades == K4_DECADES:
@@ -634,7 +759,7 @@ def phase_fused(dev):
     kern = timings(lambda: fused_pair(*planes, thr2, MAX_SWEEPS), calls=5, repeats=3)
     # No sweep: the θ build, the copy, the epilogue and the uᵀ and vh rows.
     rest_ms, _ = device_ms(lambda: fused_pair(*planes, thr2, 0))
-    plain_ms = median_ms(lambda: fused_pair_reference(*planes, thr2, MAX_SWEEPS), runs=3, warmup=1)
+    plain_ms = median_ms(lambda: fused_pair_reference(*planes, thr2, MAX_SWEEPS), runs=2, warmup=1)
     # The one-block design that preceded the cluster path, on the same
     # inputs: the planes in device memory (a direct launch at the "global"
     # home; not counted).
@@ -658,7 +783,7 @@ def phase_fused(dev):
           f"{rest_ms:.4f} ms device-only; the device-memory home on the same inputs {global_ms:.4f} ms "
           f"device-only), plain {plain_ms:.4f} ms, "
           f"torch.linalg.svd of theta {fmt(lib)}, bound {bound_ms:.5f} ms ({bound_by}) "
-          f"(CUDA events; device-only: 5 queued calls, median of 3 repeats; per call: median of 20; plain of 3)",
+          f"(CUDA events; device-only: 5 queued calls, median of 3 repeats; per call: median of 20; plain of 2)",
           flush=True)
     return {"max_abs_err": err_lam, "shape": f"B={batch} chi={chi}", **record_times(kern, lib),
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "home": homes[chi],
@@ -683,7 +808,7 @@ def f64_objective(circ, thetas, target, base_bits, trunc_thr, dev) -> float:
 def run_horizon(case, route: str):
     """One horizon of ``case`` under the route in effect, checked as the
     slice's contract says; returns the line's numbers and the launches (in
-    total and by pair size n = 2χ)."""
+    total, by pair size n = 2χ and, for K1 and K3, by plane home)."""
     from aqc_research_tpu_torch.models.sp_lhs import jit_asp
 
     circ, x0, target, base_bits, trunc_thr, f_native, maxiter = (
@@ -703,7 +828,7 @@ def run_horizon(case, route: str):
     fobj = float(res.fobj)
     torch.cuda.synchronize()
     horizon_s = time.perf_counter() - tic
-    launches, launches_at = read_counts(), read_counts_at()
+    launches, launches_at, launches_home = read_counts(), read_counts_at(), read_counts_home()
 
     check(np.isfinite(fobj) and fobj < f_start, f"{route} horizon did not lower fobj: {f_start} -> {fobj}")
     check(not jit_asp.watchdog_events, f"watchdog fired: {jit_asp.watchdog_events}")
@@ -719,8 +844,8 @@ def run_horizon(case, route: str):
     line = (f"start fobj {route} {f_start:.7g} native {f_native:.7g} | horizon maxiter={maxiter}: "
             f"fobj {fobj:.7g} (f64 re-eval, {where}, {check_s:.1f} s: {f_check:.7g}), {res.num_iters} iters, "
             f"{horizon_s:.2f} s = {horizon_s / max(res.num_iters, 1):.3f} s/iter, launches {launches} "
-            f"(by n: {launches_at}), watchdog events {len(jit_asp.watchdog_events)}")
-    return line, launches, launches_at
+            f"(by n: {launches_at}; by home: {launches_home}), watchdog events {len(jit_asp.watchdog_events)}")
+    return line, launches, launches_at, launches_home
 
 
 def make_case(dev, num_qubits: int, chi: int, maxiter: int, f64_device, layers: int = 4):
@@ -770,8 +895,16 @@ def make_case(dev, num_qubits: int, chi: int, maxiter: int, f64_device, layers: 
 def phase_slice(case, tag: str):
     """One horizon of ``case`` forced onto "jacobi": K1 on every pair update
     below χ=96 and K4 at χ >= 96 (the auto rule), no rand-route kernel."""
-    line, launches, launches_at = run_horizon(case, "jacobi")
+    from aqc_research_tpu_torch.ops import cuda_build
+    from aqc_research_tpu_torch.ops import jacobi_kernel as jk
+
+    line, launches, launches_at, launches_home = run_horizon(case, "jacobi")
     check(launches["jacobi_rows"] > 0, "the jacobi horizon never launched the Jacobi kernel")
+    if case["chi"] < 96:  # K1 takes the full-χ pair updates: 2χ rows on the rule's home
+        n = 2 * case["chi"]
+        home = jk.plane_home(n, n, cuda_build.max_smem(0))
+        check(launches_at["jacobi_rows"].get(n, 0) > 0 and launches_home["jacobi_rows"].get(home, 0) > 0,
+              f"the jacobi horizon never ran K1 at {n}x{n} on its home {home!r}: {launches_at}, {launches_home}")
     check(launches["theta_build"] == 0 and launches["rand_tail"] == 0,
           f"the jacobi horizon launched rand-route kernels: {launches}")
     if case["chi"] >= 96:
@@ -779,7 +912,7 @@ def phase_slice(case, tag: str):
     else:
         check(launches["fused_pair"] == 0, f"the jacobi horizon at chi={case['chi']} launched K4: {launches}")
     print(f"[{tag}] {case['about']} | {line}", flush=True)
-    return launches, launches_at
+    return launches, launches_at, launches_home
 
 
 def phase_rand(case, tag: str):
@@ -787,20 +920,25 @@ def phase_rand(case, tag: str):
     rand; at χ=128 K3 must run at χ=128 and the watchdog's "jacobi"
     re-check must run K4."""
     from aqc_research_tpu_torch import config
+    from aqc_research_tpu_torch.ops import cuda_build, rand_svd
+    from aqc_research_tpu_torch.ops.fused_rand import tail_plane_home
 
     config.set_svd_impl(None)
     route = config.svd_impl(case["target"].device)
     check(route == "rand", f"the default route on the card is {route!r}, not 'rand'")
-    line, launches, launches_at = run_horizon(case, route)
+    line, launches, launches_at, launches_home = run_horizon(case, route)
     for name in ("jacobi_rows", "theta_build", "rand_tail"):
         check(launches[name] > 0, f"the rand horizon never launched {name}: {launches}")
     n = 2 * case["chi"]
     check(launches_at["rand_tail"].get(n, 0) > 0, f"the rand horizon never ran K3 at n={n}: {launches_at}")
+    home = tail_plane_home(rand_svd.rand_ell(n, case["chi"]), n, case["chi"], cuda_build.max_smem(0))
+    check(launches_home["rand_tail"].get(home, 0) > 0,
+          f"the rand horizon never ran K3 on its home {home!r} at n={n}: {launches_home}")
     if case["chi"] >= 96:
         check(launches["fused_pair"] > 0, f"the watchdog's jacobi re-check never launched K4: {launches}")
     print(f"[{tag}] same case, default route {route}/{config.jacobi_criterion()}: {line} | rand_tail launches at "
-          f"chi={case['chi']} (n={n}): {launches_at['rand_tail'].get(n, 0)}", flush=True)
-    return launches, launches_at
+          f"chi={case['chi']} (n={n}): {launches_at['rand_tail'].get(n, 0)}, home there {home!r}", flush=True)
+    return launches, launches_at, launches_home
 
 
 @contextmanager
@@ -933,13 +1071,14 @@ def main() -> int:
     print(f"[wall] {time.perf_counter() - tic:.1f} s from the device phase to the last check", flush=True)
     # Each kernel's launches come from the path it belongs to (K1 the 20q
     # jacobi horizon, K2 and K3 the 20q rand horizon, K4 the 28q jacobi
-    # horizon); every path's counts, in total and by pair size n = 2χ, are in
-    # launches_per_path.
+    # horizon); every path's counts, in total, by pair size n = 2χ and (K1,
+    # K3) by plane home, are in launches_per_path.
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": paths[own][0][name],
-         "launches_per_path": {path: {"total": counts[name], "by_n": counts_at[name]}
-                               for path, (counts, counts_at) in paths.items()},
+         "launches_per_path": {path: {"total": counts[name], "by_n": counts_at[name],
+                                      **({"by_home": homes[name]} if name in homes else {})}
+                               for path, (counts, counts_at, homes) in paths.items()},
          **stats[name]}
         for name, source, replaces, own in KERNELS
     ]}

@@ -184,20 +184,33 @@ def test_kernel_argument_checks_accept_the_slice_shapes():
 @pytest.mark.parametrize(
     "c,r,max_smem,home,threads",
     [
-        (128, 128, 232448, "shared", 256),
-        (256, 256, 232448, "global", 1024),  # 527,360 B: the 28q chi=128 pair matrices
-        (16, 16, 232448, "shared", 256),
-        (136, 256, 232448, "global", 1024),
-        (128, 128, 101376, "global", 1024),  # a card with less shared memory per block
+        (128, 128, 232448, "cluster", 288),  # the 20q path: 8 CTAs of 8 pairs, 33,152 B each
+        (256, 256, 232448, "cluster", 544),  # the 28q pair matrices: 8 CTAs of 16 pairs, 131,840 B each
+        (16, 16, 232448, "cluster", 64),  # a head: 8 CTAs of one pair
+        (136, 256, 232448, "cluster", 320),
+        (128, 128, 101376, "cluster", 288),  # a card with less shared memory per block
+        (8, 8, 232448, "shared", 128),  # below CLUSTER_MIN_ROWS: one block, a warp per pair
+        (32, 32, 232448, "cluster", 96),  # 8 CTAs of 2 pairs
+        (64, 64, 232448, "cluster", 160),
+        (18, 18, 232448, "cluster", 96),  # 9 pairs: 5 CTAs of 2, none idle
+        (256, 256, 101376, "global", 1024),  # 16 pairs of 256 lanes fit no CTA there
+        (64, 64, 8000, "global", 1024),  # neither a CTA of the cluster nor one block fits
+        (512, 512, 232448, "global", 1024),  # past the cluster loop's 256 rows
     ],
 )
 def test_plane_home_rule(c, r, max_smem, home, threads):
-    """Planes that fit one block's shared memory stay there (8 warps at
-    most, the 20q shapes unchanged); larger ones stay in device memory,
-    with a warp per row pair up to 32."""
+    """The path shapes and the heads from CLUSTER_MIN_ROWS = 16 rows live in
+    the shared memory of a thread-block cluster (a warp per pair, the pairs
+    spread over up to 8 CTAs); smaller heads in one block's shared memory
+    (8 warps at most); what neither holds in device memory, with a warp per
+    row pair up to 32."""
     assert jk.plane_home(c, r, max_smem) == home
-    assert jk.block_threads(c, home) == threads
+    assert jk.launch_shape(c, home, None)[1] == threads
     assert jk.block_threads(c) == 32 * min(8, c // 2)
+    if home == "cluster":
+        assert threads == jk.cluster_threads(c, jk.cluster_size(c))
+    else:
+        assert threads == jk.block_threads(c, home)
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

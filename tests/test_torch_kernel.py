@@ -1,8 +1,9 @@
 """The hand-written kernels (csrc/jacobi_rows.cu, csrc/theta_build.cu,
 csrc/rand_tail.cu, csrc/fused_pair.cu) against their plain twins, on a CUDA
-card, with planes in shared memory and, past one block's shared memory, in
-device memory (K1 at 256x256, K3 at chi = 128, K4 from 2chi = 272) or in a
-cluster's distributed shared memory (K4 at 176 <= 2chi <= 256).  Marked
+card, with planes in one block's shared memory, in a thread-block cluster's
+distributed shared memory (K1 and K3 at the path shapes, K4 at 176 <= 2chi
+<= 256) and in device memory (K1 and K3 at their old homes past one block,
+K4 from 2chi = 272).  Marked
 ``cuda``: skips without a card.  This file imports no JAX, so it also runs
 where JAX is not installed:
 
@@ -19,14 +20,16 @@ small ones that far, and vh = diag(1/s) uᴴ m multiplies the product's
 rounding by s_max / s_k — and the reconstruction within 1e-5 * s_max);
 keep masks equal except where a value's keep decision lies within the λ
 tolerance of the truncation threshold
-(aqc_research_tpu_torch.kernel_checks.near_threshold)."""
+(aqc_research_tpu_torch.kernel_checks.near_threshold), and λ held on the
+values both sides keep, allowing for the rescale change such a flip
+implies (kernel_checks.lambda_check)."""
 
 import numpy as np
 import pytest
 import torch
 
 from aqc_research_tpu_torch import config
-from aqc_research_tpu_torch.kernel_checks import near_threshold, padded_pair_batch, path_planes
+from aqc_research_tpu_torch.kernel_checks import lambda_check, near_threshold, padded_pair_batch, path_planes
 from aqc_research_tpu_torch.ops import fused_pair as tfp
 from aqc_research_tpu_torch.ops import fused_rand as tfr
 from aqc_research_tpu_torch.ops import jacobi_kernel as jk
@@ -85,12 +88,13 @@ def test_kernel_matches_twin_on_card(cuda_device, criterion):
 
 @pytest.mark.cuda
 def test_kernel_takes_the_256_shape_on_card(cuda_device):
-    """K1 at 256x256 (the 28q chi=128 pair matrices), planes in device
-    memory: the same singular values and sweep counts as its twin."""
+    """K1 at 256x256 (the 28q chi=128 pair matrices), planes in a cluster's
+    distributed shared memory: the same singular values and sweep counts
+    as its twin."""
     m = torch.tensor(graded(256, 2, 256), device=cuda_device)
     mt = m.transpose(-1, -2)
     re, im = mt.real.contiguous(), mt.imag.contiguous()
-    assert jk.plane_home(256, 256, jk.cuda_build.max_smem(0)) == "global"
+    assert jk.plane_home(256, 256, jk.cuda_build.max_smem(0)) == "cluster"
     before = jk.jacobi_rows.launches
     k_re, k_im, k_sw = jk.jacobi_rows(re, im, 12)
     assert jk.jacobi_rows.launches == before + 1
@@ -125,10 +129,11 @@ def test_pair_update_routes_agree_on_card(cuda_device):
     assert abs(np.vdot(out["jacobi"], out["native"])) >= 1 - 1e-5
 
 
-def tail_inputs(seed: int, batch: int, chi: int, dev):
+def tail_inputs(seed: int, batch: int, chi: int, dev, rank=None):
     """conj(B) planes, full weights and B's singular values of projected
-    rand-route pair matrices (the twin builds θ, torch projects it)."""
-    w_re, w_im = tfp.theta_build_reference(*path_planes(np.random.default_rng(seed), batch, chi, dev))
+    rand-route pair matrices (the twin builds θ, torch projects it); with
+    ``rank`` from bonds of that rank, zero-padded as on the MPS path."""
+    w_re, w_im = tfp.theta_build_reference(*path_planes(np.random.default_rng(seed), batch, chi, dev, rank=rank))
     a = torch.complex(w_re, w_im).transpose(-1, -2)
     bm = trs._range_project(a, trs.rand_ell(2 * chi, chi), trs._POWER_ITERS)
     tot2 = (w_re * w_re + w_im * w_im).sum((-2, -1))
@@ -159,17 +164,97 @@ def test_rand_tail_matches_twin_on_card(cuda_device, chi):
     assert tfr.rand_tail.launches == before + 1
     p_vh_re, p_vh_im, p_lam, p_inv, p_sw = tfr.rand_tail_reference(m_re, m_im, tot2, thr2, chi, 12)
     torch.cuda.synchronize()
-    smax = float(p_lam.max())
-    assert float((k_lam - p_lam).abs().max()) <= 1e-5 * smax
+    checked = lambda_check(k_lam, p_lam, near_threshold(s, tot2, thr2, chi), 1e-5)
+    assert checked.lam_ok and checked.mask_ok, checked
     k_keep, p_keep = k_lam > 0, p_lam > 0
     assert not bool(p_keep.all())  # truncation is active
-    assert bool(((k_keep == p_keep) | near_threshold(s, tot2, thr2, chi)).all())
     assert int((k_sw - p_sw).abs().max()) <= 1
     both = (k_keep & p_keep)[..., None].to(torch.complex64)
     kv = torch.complex(k_vh_re, k_vh_im) * both
     pv = torch.complex(p_vh_re, p_vh_im) * both
     proj = kv.conj().transpose(-1, -2) @ kv - pv.conj().transpose(-1, -2) @ pv
     assert float(proj.abs().max()) <= 2e-5
+
+
+def rows_planes(m):
+    """K1's transposed planes of (B, n, n) complex matrices on the card."""
+    mt = m.transpose(-1, -2)
+    return mt.real.contiguous(), mt.imag.contiguous()
+
+
+# (n, batch, rank): the 20q path shape (B=10 at 128 rows), the 28q pair
+# matrices at 256 rows, a head, each graded or zero-padded (bonds of rank
+# ``rank`` held at chi = n/2, as on the MPS path).
+K1_CLUSTER_CASES = [(128, 10, None), (128, 10, 4), (256, 3, None), (256, 3, 20), (64, 10, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,batch,rank", K1_CLUSTER_CASES)
+def test_jacobi_rows_cluster_matches_twin_on_card(cuda_device, n, batch, rank):
+    """K1 on the cluster home against its twin (singular values, sweep
+    counts within 1), and the same sweep counts as its old one-block home
+    (shared memory at 128 rows and below, device memory at 256) on the
+    same inputs: the loop's arithmetic is the same term for term."""
+    rng = np.random.default_rng(n + batch)
+    a = graded(n, batch, n) if rank is None else padded_pair_batch(rng, batch, n, rank).numpy()
+    re, im = rows_planes(torch.tensor(a, device=cuda_device))
+    assert jk.plane_home(n, n, jk.cuda_build.max_smem(0)) == "cluster"
+    before = dict(jk.jacobi_rows.launches_home)
+    k_re, k_im, k_sw = jk.jacobi_rows(re, im, 12, home="cluster")
+    assert jk.jacobi_rows.launches_home.get("cluster", 0) == before.get("cluster", 0) + 1
+    p_re, p_im, p_sw = jk.jacobi_rows_reference(re, im, 12)
+    o_re, o_im, o_sw = jk.jacobi_rows(re, im, 12, home="shared" if n <= 128 else "global")
+    torch.cuda.synchronize()
+
+    def values(w_re, w_im):
+        return torch.sqrt((w_re**2 + w_im**2).sum(-1)).sort(-1).values
+
+    ps = values(p_re, p_im)
+    assert float((values(k_re, k_im) - ps).abs().max()) <= 1e-5 * float(ps.max())
+    assert float((values(o_re, o_im) - ps).abs().max()) <= 1e-5 * float(ps.max())
+    assert int((k_sw - p_sw).abs().max()) <= 1
+    assert torch.equal(k_sw, o_sw)
+
+
+# (chi, batch, rank): the 20q path shape (B=10 at chi = 64), the 28q one
+# (B=14 at chi = 128), each on graded and on zero-padded pair matrices.
+K3_CLUSTER_CASES = [(64, 10, None), (64, 10, 4), (128, 14, None), (128, 14, 20)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chi,batch,rank", K3_CLUSTER_CASES)
+@pytest.mark.parametrize("thr2", [1e-12, 1e-4])
+def test_rand_tail_cluster_matches_twin_on_card(cuda_device, chi, batch, rank, thr2):
+    """K3 on the cluster home (its epilogue spread over the cluster's CTAs)
+    against its twin at trunc 1e-6 and 1e-2: λ and keep masks, the kept vh
+    projector, sweep counts within 1; and the same sweep counts as its old
+    home (shared memory at chi = 64, device memory at 128)."""
+    m_re, m_im, tot2, s = tail_inputs(chi + batch, batch, chi, cuda_device, rank)
+    assert tfr.tail_plane_home(m_re.shape[1], 2 * chi, chi, jk.cuda_build.max_smem(0)) == "cluster"
+    k_vh_re, k_vh_im, k_lam, _, k_sw = tfr.rand_tail(m_re, m_im, tot2, thr2, chi, 12, home="cluster")
+    p_vh_re, p_vh_im, p_lam, _, p_sw = tfr.rand_tail_reference(m_re, m_im, tot2, thr2, chi, 12)
+    o_sw = tfr.rand_tail(m_re, m_im, tot2, thr2, chi, 12, home="shared" if chi <= 112 else "global")[4]
+    torch.cuda.synchronize()
+    checked = lambda_check(k_lam, p_lam, near_threshold(s, tot2, thr2, chi), 1e-5)
+    assert checked.lam_ok and checked.mask_ok, checked
+    assert int((k_sw - p_sw).abs().max()) <= 1
+    assert torch.equal(k_sw, o_sw)
+    both = ((k_lam > 0) & (p_lam > 0))[..., None].to(torch.complex64)
+    kv = torch.complex(k_vh_re, k_vh_im) * both
+    pv = torch.complex(p_vh_re, p_vh_im) * both
+    proj = kv.conj().transpose(-1, -2) @ kv - pv.conj().transpose(-1, -2) @ pv
+    assert float(proj.abs().max()) <= 2e-5
+
+
+@pytest.mark.cuda
+def test_cluster_homes_fill_one_wave_on_card(cuda_device):
+    """A half-layer batch fits one wave on the cluster home: B=10 at the 20q
+    shapes, B=14 at the 28q ones (cudaOccupancyMaxActiveClusters)."""
+    for n, batch in ((128, 10), (256, 14)):
+        assert jk.cluster_occupancy(n, n, jk.cluster_size(n)) >= batch
+    for chi, batch in ((64, 10), (128, 14)):
+        ell = trs.rand_ell(2 * chi, chi)
+        assert tfr.tail_cluster_occupancy(ell, 2 * chi, chi, jk.cluster_size(ell)) >= batch
 
 
 @pytest.mark.cuda
@@ -192,13 +277,13 @@ def fused_matches_twin(planes, thr2: float = 1e-4) -> None:
     p_ut_re, p_ut_im, p_vh_re, p_vh_im, p_lam, p_sw = tfp.fused_pair_reference(*planes, thr2, 12)
     torch.cuda.synchronize()
     smax = float(p_lam.max())
-    assert float((k_lam - p_lam).abs().max()) <= 1e-5 * smax
     w0_re, w0_im = tfp.theta_build_reference(*planes)
     theta = torch.complex(w0_re, w0_im)
     chi = planes[1].shape[-1]
     k_keep, p_keep = k_lam > 0, p_lam > 0
     near = near_threshold(torch.linalg.svdvals(theta), (theta.abs() ** 2).sum((-2, -1)), thr2, chi)
-    assert bool(((k_keep == p_keep) | near).all())
+    checked = lambda_check(k_lam, p_lam, near, 1e-5)
+    assert checked.lam_ok and checked.mask_ok, checked
     assert int((k_sw - p_sw).abs().max()) <= 1
     both = (k_keep & p_keep).to(torch.complex64)
     weight = both * (p_lam / smax)

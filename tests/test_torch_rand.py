@@ -357,14 +357,26 @@ def test_rand_tail_argument_checks(plane, tot2, chi, why):
 
 
 @pytest.mark.parametrize(
-    "ell,n,chi,home",
-    [(72, 128, 64, "shared"), (104, 192, 96, "shared"), (120, 224, 112, "shared"), (136, 256, 128, "global")],
+    "ell,n,chi,max_smem,home",
+    [
+        (72, 128, 64, SMEM_H100, "cluster"),  # the 20q path: 8 CTAs of 5 pairs
+        (104, 192, 96, SMEM_H100, "cluster"),
+        (120, 224, 112, SMEM_H100, "cluster"),
+        (136, 256, 128, SMEM_H100, "cluster"),  # the 28q path: 8 CTAs of 9 pairs, 76,240 B each
+        (16, 16, 8, SMEM_H100, "cluster"),  # the heads from CLUSTER_MIN_ROWS rows
+        (24, 32, 16, SMEM_H100, "cluster"),
+        (40, 64, 32, SMEM_H100, "cluster"),
+        (14, 16, 7, SMEM_H100, "shared"),  # below CLUSTER_MIN_ROWS: one block
+        (72, 128, 64, 101376, "cluster"),  # a card with less shared memory per block
+        (136, 256, 128, 60000, "global"),  # there neither a CTA of the cluster nor one block fits
+    ],
 )
-def test_rand_tail_plane_home(ell, n, chi, home):
-    """The rand tail's planes stay in one block's shared memory up to
-    chi = 112; at chi = 128 (278,528 B of planes) they stay in device
-    memory, and the kernel takes the shape."""
-    assert tfr.tail_plane_home(ell, n, chi, SMEM_H100) == home
+def test_rand_tail_plane_home(ell, n, chi, max_smem, home):
+    """The rand tail's planes live in the shared memory of a thread-block
+    cluster from CLUSTER_MIN_ROWS = 16 rows up to chi = 128 (the path
+    shapes), with the epilogue's arrays in every CTA; smaller planes in one
+    block's; and the kernel takes every shape."""
+    assert tfr.tail_plane_home(ell, n, chi, max_smem) == home
     p = torch.zeros((1, ell, n))
     tfr.check_tail_args(p, p, torch.zeros(1), chi)
 
@@ -376,9 +388,16 @@ def test_rand_tail_checks_dtype_and_device():
     meta = torch.empty((2, 24, 32), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         tfr.rand_tail(meta, meta, t.to("meta"), 1e-12, CHI)
-    # The planes, the loop's statistics and the epilogue's arrays: 75,136 B at chi = 64.
-    assert tfr.tail_plane_home(72, 128, 64, 4 * (2 * 72 * 128 + 3 * 72 + 72 + 3 * 64)) == "shared"
-    assert tfr.tail_plane_home(72, 128, 64, 4 * (2 * 72 * 128 + 3 * 72 + 72 + 3 * 64) - 1) == "global"
+    # One block's planes, the loop's statistics and the epilogue's arrays:
+    # 1,148 B at 14 rows of 16 lanes, chi = 7 (below the cluster's rows).
+    assert tfr.tail_plane_home(14, 16, 7, 4 * (2 * 14 * 16 + 3 * 14 + 14 + 3 * 7)) == "shared"
+    assert tfr.tail_plane_home(14, 16, 7, 4 * (2 * 14 * 16 + 3 * 14 + 14 + 3 * 7) - 1) == "global"
+    # A CTA of the cluster at chi = 64 (8 CTAs of 5 pairs): the statistics of
+    # four phases and the epilogue's arrays, two seat buffers of both sides,
+    # and the go flag: 21,792 B, far below one block's 75,136.
+    need = 4 * (4 * 3 * 5 + 72 + 3 * 64 + 8 * 5 * 128) + 16
+    assert tfr.tail_plane_home(72, 128, 64, need) == "cluster"
+    assert tfr.tail_plane_home(72, 128, 64, need - 1) == "global"
 
 
 # -----------------------------------------------------------------------------
