@@ -38,8 +38,21 @@ def is_float(val: Any, extra_cond: bool = True) -> bool:
     return isinstance(val, _FLOAT_TYPES) and bool(extra_cond)
 
 
+def is_str(val: Any, extra_cond: bool = True) -> bool:
+    return isinstance(val, str) and bool(extra_cond)
+
+
+def is_list(val: Any, extra_cond: bool = True) -> bool:
+    return isinstance(val, list) and bool(extra_cond)
+
+
 def is_tuple(val: Any, extra_cond: bool = True) -> bool:
     return isinstance(val, tuple) and bool(extra_cond)
+
+
+def float_1d(arr: Any, extra_cond: bool = True) -> bool:
+    """True for a 1D real floating array."""
+    return _is_array(arr) and arr.ndim == 1 and _kind(arr) == "f" and bool(extra_cond)
 
 
 def block_structure(num_qubits: int, blocks: Any) -> bool:

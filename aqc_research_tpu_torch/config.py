@@ -119,8 +119,11 @@ def set_svd_impl(impl: str | None) -> None:
     * ``"rand"`` — the fused randomized-projection pair update
       (ops/fused_rand.py): the θ-build kernel, a torch range-finder, the
       reduced-Jacobi tail kernel.  Taken for complex64 pair updates with
-      χ % 8 == 0 and 2χ >= ``rand_svd.RAND_MIN_N``; every other pair update
-      takes the "jacobi" route (never an unfused rand SVD).
+      χ % 8 == 0 and 2χ >= ``rand_svd.RAND_MIN_N`` where
+      :func:`fused_rand_enabled` says so.  Every other pair update takes the
+      "jacobi" route on CUDA tensors; on other tensors those from
+      ``RAND_MIN_N`` on take the unfused ``rand_svd.rand_svd_top_k``, as the
+      JAX package's do off its accelerator.
     * ``None`` — auto, per tensor: "rand" on CUDA, "native" on CPU.
     """
     global _SVD_IMPL
@@ -173,7 +176,8 @@ def set_fused_pair(enabled: bool | None) -> None:
     * ``None``  — auto, per tensor: on for CUDA tensors at chi >= 96, off
       for CPU tensors (env override ``AQC_TORCH_FUSED_PAIR=1/0``).
 
-    Unlike the JAX package's switch it does not gate the rand route."""
+    As in the JAX package, the same override also gates the rand route's
+    fused update (:func:`fused_rand_enabled`, whose auto rule differs)."""
     global _FUSED_PAIR
     _FUSED_PAIR = enabled
 
@@ -187,6 +191,25 @@ def fused_pair_enabled(chi: int | None = None, dev=None) -> bool:
         dev = dev.device
     dev = device() if dev is None else torch.device(dev)
     return dev.type == "cuda" and chi is not None and chi >= _FUSED_PAIR_MIN_CHI
+
+
+def fused_rand_enabled(chi: int | None = None, dev=None) -> bool:
+    """Whether the ``"rand"`` route's pair update at bond dimension ``chi``
+    on ``dev`` (a device, a tensor or None for the default device) takes the
+    fused update (ops/fused_rand.py: K2, the range-finder, K3).
+
+    The JAX package's rule (its config.py:285-302): ``set_fused_pair``'s
+    override wins; auto means on for CUDA tensors at chi >= 8.  Where it is
+    off, ops/mps.py runs K1 on the square θ on CUDA tensors (the JAX
+    package's fallback on its accelerator, where the unfused rand SVD has a
+    known mid-optimization failure) and the unfused ``rand_svd_top_k``
+    elsewhere."""
+    if _FUSED_PAIR is not None:
+        return _FUSED_PAIR
+    if isinstance(dev, torch.Tensor):
+        dev = dev.device
+    dev = device() if dev is None else torch.device(dev)
+    return dev.type == "cuda" and chi is not None and chi >= 8
 
 
 def mps_watchdog_enabled() -> bool:

@@ -2,14 +2,15 @@
 
 The JAX package cannot be imported here (its config turns on jax x64
 globally), so the state crosses as plain data: a theta vector, an MPS's
-``gammas (n, 2, chi, chi)`` and ``lambdas (n-1, chi)``, and the ansatz's
-constructor arguments.  The parity tests feed both packages identical
-inputs and targets through these functions.
+``gammas (n, 2, chi, chi)`` and ``lambdas (n-1, chi)``, the ansatz's
+constructor arguments, and the ASP driver's per-horizon result dicts.  The
+parity tests feed both packages identical inputs and targets through these
+functions.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
@@ -17,6 +18,7 @@ import torch
 from .circuit.ansatz import Ansatz, TrotterAnsatz
 from .config import complex_dtype, device as default_device, real_of, real_dtype
 from .ops.mps import MPS
+from .targets import trotter
 
 
 def thetas_to_torch(thetas, dtype=None, device=None) -> torch.Tensor:
@@ -63,3 +65,22 @@ def ansatz_from_args(args: Dict[str, Any]) -> Ansatz:
     return Ansatz(
         args["num_qubits"], args["entangler"], args["block_tuple"], args["name"], args["power"]
     )
+
+
+def results_from_jax(all_results: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
+    """The JAX driver's per-horizon results (``all_results.pkl``, the
+    horizon checkpoint's ``all_results``) in the port's form: the same keys
+    and numpy values, the initial-state function replaced by the port's
+    function of the same name (a JAX function would pickle by reference to
+    the JAX package)."""
+    out = []
+    for res in all_results:
+        res = dict(res)
+        res["thetas"] = np.array(res["thetas"], dtype=np.float64)
+        res["blocks"] = np.array(res["blocks"])
+        if res.get("ini_state_func") is not None:
+            res["ini_state_func"] = getattr(trotter, res["ini_state_func"].__name__)
+        if res.get("stats") is not None:
+            res["stats"] = dict(res["stats"])
+        out.append(res)
+    return out

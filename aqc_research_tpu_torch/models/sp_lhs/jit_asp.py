@@ -6,6 +6,8 @@ One horizon is a compact L-BFGS over the fidelity objective
 is the X-layer product prep (e.g. the Neel state) given as ``base_bits``.
 The name :func:`optimize_horizon_mps_jit` keeps the JAX twin findable; the
 loop itself runs on the host (optim/lbfgs.py).
+:func:`optimize_horizon_mps_timed` runs the same loop in chunks and checks
+the wall clock between them.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from ...ops.mps import (
     v_mul_mps_growing,
 )
 from ...ops.mps_gradient import fast_dot_gradient_with_state
-from ...optim.lbfgs import minimize_lbfgs_compact
+from ...optim.lbfgs import lbfgs_chunk_programs, run_lbfgs_chunked
 
 
 class JitHorizonResult(NamedTuple):
@@ -78,17 +80,23 @@ def _mps_value_fns(circ: Ansatz, base_bits: tuple, trunc_thr: float):
     return value, value_and_grad
 
 
-def _run_horizon(circ, x0, tgt, base_bits, trunc_thr, fobj_thr, maxiter, no_improve_iters):
+def _run_horizon(circ, x0, tgt, base_bits, trunc_thr, fobj_thr, maxiter, no_improve_iters,
+                 time_limit=None, chunk_iters=None):
+    """The L-BFGS loop over the MPS objective: in one run, or in chunks of
+    ``chunk_iters`` iterations with the clock checked between them when
+    ``time_limit`` > 0.  Returns (JitHorizonResult, timed_out)."""
     value, value_and_grad = _mps_value_fns(circ, base_bits, trunc_thr)
-    res = minimize_lbfgs_compact(
+    programs = lbfgs_chunk_programs(
         lambda th: value(th, tgt),
-        x0,
+        lambda th: value_and_grad(th, tgt),
         maxiter=maxiter,
         fobj_thr=fobj_thr,
         no_improve_iters=no_improve_iters,
-        value_and_grad_fn=lambda th: value_and_grad(th, tgt),
     )
-    return JitHorizonResult(res.thetas, res.fobj, 1.0 - res.fobj, res.num_iters, res.converged)
+    res, timed_out = run_lbfgs_chunked(
+        programs, x0, maxiter=maxiter, time_limit=time_limit, chunk_iters=chunk_iters or max(maxiter, 1)
+    )
+    return JitHorizonResult(res.thetas, res.fobj, 1.0 - res.fobj, res.num_iters, res.converged), timed_out
 
 
 # -----------------------------------------------------------------------------
@@ -149,7 +157,7 @@ def _mps_watchdog(circ, thetas0, target, res: JitHorizonResult, *, base_bits, tr
     )
     with svd_impl_override(reference):
         return _run_horizon(circ, thetas0, target, base_bits, trunc_thr, fobj_thr,
-                            maxiter, no_improve_iters)
+                            maxiter, no_improve_iters)[0]
 
 
 def optimize_horizon_mps_jit(
@@ -170,17 +178,45 @@ def optimize_horizon_mps_jit(
 
     Under a route other than the watchdog's reference for the target's
     device the result passes the collapse watchdog."""
+    return optimize_horizon_mps_timed(
+        circ, thetas0, target, base_bits=base_bits, trunc_thr=trunc_thr, fidelity_thr=fidelity_thr,
+        maxiter=maxiter, no_improve_iters=no_improve_iters,
+    )[0]
+
+
+def optimize_horizon_mps_timed(
+    circ: Ansatz,
+    thetas0: torch.Tensor,
+    target: MPS,
+    *,
+    base_bits: Sequence[int],
+    trunc_thr: float = 1e-6,
+    fidelity_thr: Optional[float] = None,
+    maxiter: int = 100,
+    no_improve_iters: Optional[int] = None,
+    time_limit: Optional[float] = None,
+    chunk_iters: int = 25,
+):
+    """:func:`optimize_horizon_mps_jit` with the wall clock checked every
+    ``chunk_iters`` iterations (optim/lbfgs.run_lbfgs_chunked; no clock
+    when ``time_limit`` is None or <= 0).  Returns ``(JitHorizonResult,
+    timed_out)``.
+
+    The collapse watchdog runs here too; a flagged horizon recovers through
+    the one-run reference-route runner, which does not honour
+    ``time_limit`` again (a rare flagged event puts correctness first)."""
     if len(base_bits) != circ.num_qubits:
         raise ValueError(
             f"base_bits must give one 0/1 occupation per site: got "
             f"{len(base_bits)} for {circ.num_qubits} qubits"
         )
-    fobj_thr = None if fidelity_thr is None else (1.0 - float(fidelity_thr))
     base_t = tuple(int(b) for b in base_bits)
+    fobj_thr = None if fidelity_thr is None else (1.0 - float(fidelity_thr))
     no_imp = None if no_improve_iters is None else int(no_improve_iters)
-    res = _run_horizon(circ, thetas0, target, base_t, float(trunc_thr), fobj_thr,
-                       int(maxiter), no_imp)
-    return _mps_watchdog(
+    res, timed_out = _run_horizon(circ, thetas0, target, base_t, float(trunc_thr), fobj_thr, int(maxiter),
+                                  no_imp, time_limit, int(chunk_iters))
+    res = _mps_watchdog(
         circ, thetas0, target, res, base_bits=base_t, trunc_thr=float(trunc_thr),
         fobj_thr=fobj_thr, maxiter=int(maxiter), no_improve_iters=no_imp,
     )
+    return res, timed_out

@@ -30,6 +30,7 @@ from ..config import (
     complex_dtype,
     device as default_device,
     fused_pair_enabled,
+    fused_rand_enabled,
     jacobi_sweeps,
     real_of,
     svd_impl,
@@ -119,6 +120,22 @@ def mps_resize(mps: MPS, chi_new: int) -> MPS:
     return MPS(g, lam)
 
 
+def check_mps(mps: MPS) -> bool:
+    """Structural validation of an unbatched MPS: consistent shapes, lambdas
+    non-negative and descending (the JAX package's ops/mps.py:130)."""
+    if not isinstance(mps, MPS):
+        return False
+    n, chi = mps.num_sites, mps.chi
+    if tuple(mps.gammas.shape) != (n, 2, chi, chi):
+        return False
+    if tuple(mps.lambdas.shape) != (max(n - 1, 0), chi):
+        return False
+    lam = mps.lambdas.detach().cpu().double().numpy()
+    if np.any(lam < -1e-12):
+        return False
+    return not np.any(lam[:, :-1] < lam[:, 1:] - 1e-9)  # descending order
+
+
 # -----------------------------------------------------------------------------
 # Gate application.
 # -----------------------------------------------------------------------------
@@ -182,20 +199,19 @@ def _truncation_mask_topk(s: torch.Tensor, total: torch.Tensor, chi: int, trunc_
     return tail > (trunc_thr * total[..., None])
 
 
-def _truncated_svd(m: torch.Tensor, chi: int, trunc_thr: float):
-    """Top-chi SVD + discarded-weight keep mask, on the route in effect for
-    ``m``'s device.  ``m``: (..., 2chi, 2chi); leading axes are batch.
+def _truncated_svd(m: torch.Tensor, chi: int, trunc_thr: float, impl: str):
+    """Top-chi SVD + discarded-weight keep mask of ``m`` (..., 2chi, 2chi)
+    (leading axes are batch) by ``impl``: "native" (``torch.linalg.svd``),
+    "jacobi" (the Jacobi-rows kernel on CUDA, its plain twin on CPU;
+    matrices below 8 columns, the χ-growth heads, take the spec) or
+    "unfused" (``rand_svd.rand_svd_top_k``).
 
     Returns (u (..., 2chi, chi), s (..., chi), vh (..., chi, 2chi),
     mask (..., chi) bool, total (...,) Frobenius norm of m)."""
-    impl = svd_impl(m.device)
     if impl == "native":
         u, s, vh = torch.linalg.svd(m, full_matrices=False)
         mask, total = _truncation_mask(s, chi, trunc_thr)
         return u[..., :, :chi], s[..., :chi], vh[..., :chi, :], mask[..., :chi], total
-    # "jacobi" (and "rand" where its fused update does not apply): the
-    # hand-written kernel on CUDA (its plain twin on CPU); matrices below 8
-    # columns (χ-growth heads) take the spec.
     if m.dtype == torch.complex64 and not truncation_supported(trunc_thr):
         warnings.warn(
             f"trunc_thr={trunc_thr:g} is finer than the f32 Jacobi convergence "
@@ -204,7 +220,9 @@ def _truncated_svd(m: torch.Tensor, chi: int, trunc_thr: float):
             stacklevel=3,
         )
     sweeps = jacobi_sweeps() or DEFAULT_SWEEPS
-    if m.shape[-1] < 8:
+    if impl == "unfused":
+        u, s, vh = rand_svd.rand_svd_top_k(m, chi, sweeps)
+    elif m.shape[-1] < 8:
         u, s, vh = jacobi_svd_top_k(m, chi, sweeps)
     else:
         u, s, vh = jacobi_svd_kernel_top_k(m, chi, sweeps)
@@ -241,30 +259,50 @@ def _fused_rand_eligible(chi: int, dtype) -> bool:
     )
 
 
+def _rand_route_update(chi: int, dtype, dev) -> str:
+    """What the "rand" route runs for a pair update at bond dimension
+    ``chi`` on ``dev`` (the JAX package's ops/mps.py:327-347, 446-471):
+    "fused" (ops/fused_rand.py) where :func:`config.fused_rand_enabled` says
+    so and the shape guards hold; otherwise "jacobi" on CUDA (K1 on the
+    square θ: on its accelerator the JAX package falls back to its Jacobi
+    kernel, never to the unfused rand SVD with its known on-chip failure);
+    otherwise "unfused" (``rand_svd.rand_svd_top_k``) from
+    ``rand_svd.RAND_MIN_N`` on and "jacobi" below, as the JAX package
+    decides off its accelerator."""
+    dev = torch.device(dev)
+    if fused_rand_enabled(chi, dev) and _fused_rand_eligible(chi, dtype):
+        return "fused"
+    if dev.type != "cuda" and 2 * chi >= rand_svd.RAND_MIN_N:
+        return "unfused"
+    return "jacobi"
+
+
 def _pair_update(lam_l, lam_c, lam_r, g1, g2, gate4, chi, trunc_thr, dtype, rdtype):
     """Core Vidal pair update on raw tensors; returns (g1', g2', lam').
     Natively batched over identical leading axes: one call is one batched
     decomposition.  On the "jacobi" route complex64 updates with chi >= 8
     take the fused kernel K4 (ops/fused_pair.py) where
     ``config.fused_pair_enabled`` says so (the JAX package's
-    ops/mps.py:428-444); on the "rand" route eligible updates take the fused
-    randomized-projection update (ops/fused_rand.py); the rest take the
-    unfused "jacobi" route."""
+    ops/mps.py:428-444); on the "rand" route :func:`_rand_route_update`
+    picks the fused randomized-projection update (ops/fused_rand.py), the
+    unfused rand SVD or the "jacobi" decomposition."""
     impl = svd_impl(g1.device)
     if impl == "jacobi" and chi >= 8 and dtype == torch.complex64 and fused_pair_enabled(chi, g1.device):
         return fused_pair_update(
             lam_l, lam_c, lam_r, g1, g2, gate4, chi, trunc_thr, dtype, rdtype,
             jacobi_sweeps() or DEFAULT_SWEEPS,
         )
-    if impl == "rand" and _fused_rand_eligible(chi, dtype):
-        return fused_rand_pair_update(
-            lam_l, lam_c, lam_r, g1, g2, gate4, chi, trunc_thr, dtype, rdtype,
-            jacobi_sweeps() or DEFAULT_SWEEPS,
-        )
+    if impl == "rand":
+        impl = _rand_route_update(chi, dtype, g1.device)
+        if impl == "fused":
+            return fused_rand_pair_update(
+                lam_l, lam_c, lam_r, g1, g2, gate4, chi, trunc_thr, dtype, rdtype,
+                jacobi_sweeps() or DEFAULT_SWEEPS,
+            )
     m = _pair_theta(lam_l, lam_c, lam_r, g1, g2, gate4, chi, dtype)
     batch_shape = m.shape[:-2]
 
-    u, s, vh, mask, total = _truncated_svd(m, chi, trunc_thr)
+    u, s, vh, mask, total = _truncated_svd(m, chi, trunc_thr, impl)
 
     s_kept = torch.where(mask, s, torch.zeros_like(s))
     kept_norm = torch.sqrt((s_kept * s_kept).sum(-1))
@@ -416,6 +454,10 @@ def mps_dot(mps1: MPS, mps2: MPS) -> torch.Tensor:
     for q in range(mps1.num_sites):
         env = torch.einsum("sab,aA,sAB->bB", a1c[q], env, a2[q])
     return env[0, 0]
+
+
+def mps_norm(mps: MPS) -> torch.Tensor:
+    return torch.sqrt(mps_dot(mps, mps).real)
 
 
 def mps_flip_amplitudes(mps: MPS, base_bits: Tuple[int, ...]) -> torch.Tensor:
@@ -608,21 +650,24 @@ def v_dagger_mul_mps_layers(
     return out, cache
 
 
-def v_dagger_mul_mps(circ, thetas, mps: MPS, *, trunc_thr: Optional[float] = None) -> MPS:
-    """``V(Θ)† @ mps``: the trailing half-layer, the blocks in reverse order
+def _v_mul_mps_impl(circ, thetas, mps: MPS, dagger: bool, trunc_thr: Optional[float]) -> MPS:
+    """``V(Θ) @ mps`` or ``V(Θ)† @ mps`` (the JAX package's
+    ``_v_mul_mps_impl``, its ops/mps.py:1065): the front layer, the blocks
     (runs of disjoint pairs batched; non-adjacent blocks through the swap
-    network), then the front layer — ``circuit_power`` times."""
+    network), then the trailing 2nd-order half-layer — in reverse order for
+    V† — ``circuit_power`` times."""
     thr = _NO_TRUNCATION_THR if trunc_thr is None else float(trunc_thr)
     dtype = mps.gammas.dtype
-    f1q = front_gates(circ, circ.subset1q(thetas), dtype, dagger=True)
-    gates = block_gates(circ, circ.subset2q(thetas), dtype, dagger=True)
+    f1q = front_gates(circ, circ.subset1q(thetas), dtype, dagger=dagger)
+    gates = block_gates(circ, circ.subset2q(thetas), dtype, dagger=dagger)
     nb = circ.num_blocks
     half = circ.half_layer_num_blocks if circ.is_trotterized else 0
     all_adjacent = all(
         abs(int(circ.blocks[0, k]) - int(circ.blocks[1, k])) == 1 for k in range(nb)
     )
 
-    def apply_seq(mps_, order):
+    def apply_seq(mps_, count):
+        order = range(count - 1, -1, -1) if dagger else range(count)
         if not all_adjacent:
             for k in order:
                 g, lo, hi = _gate_lo_hi(circ, gates[k], k)
@@ -633,7 +678,22 @@ def v_dagger_mul_mps(circ, thetas, mps: MPS, *, trunc_thr: Optional[float] = Non
         return mps_
 
     for _ in range(circ.circuit_power):
-        mps = apply_seq(mps, range(half - 1, -1, -1))
-        mps = apply_seq(mps, range(nb - 1, -1, -1))
-        mps = _front_layer(circ, mps, f1q)
+        if dagger:
+            mps = apply_seq(mps, half)
+            mps = apply_seq(mps, nb)
+            mps = _front_layer(circ, mps, f1q)
+        else:
+            mps = _front_layer(circ, mps, f1q)
+            mps = apply_seq(mps, nb)
+            mps = apply_seq(mps, half)
     return mps
+
+
+def v_mul_mps(circ, thetas, mps: MPS, *, trunc_thr: Optional[float] = None) -> MPS:
+    """``V(Θ) @ mps``, each unit block one fused 4x4 pair update."""
+    return _v_mul_mps_impl(circ, thetas, mps, False, trunc_thr)
+
+
+def v_dagger_mul_mps(circ, thetas, mps: MPS, *, trunc_thr: Optional[float] = None) -> MPS:
+    """``V(Θ)† @ mps``."""
+    return _v_mul_mps_impl(circ, thetas, mps, True, trunc_thr)

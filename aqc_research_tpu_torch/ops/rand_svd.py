@@ -11,8 +11,10 @@ the Jacobi problem to l = chi + 8 columns first:
     4. project      B = Q^H A                    (l x n)
 
 The reduced Jacobi on B^H and the truncation then run in the rand-tail
-kernel (ops/fused_rand.py).  Steps 1-4 are plain torch ops (batched complex
-products and Householder QR), as the JAX package leaves them to XLA.
+kernel (ops/fused_rand.py), or, in the unfused :func:`rand_svd_top_k`, in
+the Jacobi-rows kernel K1 on the (l, n) rows of B^H.  Steps 1-4 are plain
+torch ops (batched complex products and Householder QR), as the JAX package
+leaves them to XLA.
 
 The sketch Omega is a real Gaussian drawn once per (b, n, l, dtype, device)
 from a CPU ``torch.Generator`` seeded with the JAX package's constant
@@ -24,7 +26,12 @@ parity tests hand the JAX sketch in (``omega=`` or by replacing
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
+
+from .jacobi_kernel import _sort_guard_top_k, jacobi_rows
+from .jacobi_svd import DEFAULT_SWEEPS
 
 # l = k + _OVERSAMPLE sampled columns, rounded up to even (the Jacobi seats
 # pair the columns); 8 keeps l a multiple of 8 at chi % 8 == 0.
@@ -100,3 +107,37 @@ def _range_project(
         z = _orth(torch.matmul(ah, y))
         y = _orth(torch.matmul(a, z))
     return torch.matmul(y.conj().transpose(-1, -2), a)
+
+
+def rand_svd_top_k(
+    m: torch.Tensor, k: int, sweeps: int = DEFAULT_SWEEPS, omega: torch.Tensor | None = None
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Top-k truncated SVD by randomized projection and the reduced Jacobi
+    rows (twin of the JAX package's ``rand_svd_top_k``, its
+    ops/rand_svd.py:440): the range-finder gives B = Q^H A (l, n), K1 (its
+    plain twin on CPU tensors) orthogonalizes the l rows of conj(B) — the
+    columns of B^H — and the sort and noise guard of the Jacobi route pick
+    the top k.  Row j of the result is (s_j u_j)^T of B^H, so its rows
+    scaled by 1/s are Vh of A directly; u = A vh^H diag(1/s).  Singular
+    values below the 32 eps s_max floor come back as exact zeros with
+    zeroed factor columns.
+
+    ``m``: (..., n, n) complex64 (complex128 is projected in complex64, as
+    in the JAX package), n even.  ``omega``: the (b, n, l) sketch, for
+    parity tests (default :func:`sketch`)."""
+    n = m.shape[-1]
+    if m.shape[-2] != n or n % 2:
+        raise ValueError(f"square even-sized input expected, got {tuple(m.shape)}")
+    batch_shape = m.shape[:-2]
+    cdtype = m.dtype if m.is_complex() else torch.complex64
+    a = m.reshape((-1, n, n)).to(torch.complex64)
+    bm = _range_project(a, rand_ell(n, k), _POWER_ITERS, omega)  # (b, l, n)
+    w_re, w_im, _ = jacobi_rows(bm.real.contiguous(), (-bm.imag).contiguous(), sweeps)
+    w, s, inv = _sort_guard_top_k(w_re, w_im, k, cdtype)
+    vh = w.conj() * inv[..., :, None].to(cdtype)  # (b, k, n)
+    u = torch.matmul(a.to(cdtype), vh.conj().transpose(-1, -2)) * inv[..., None, :].to(cdtype)
+    return (
+        u.reshape(batch_shape + (n, k)),
+        s.reshape(batch_shape + (k,)),
+        vh.reshape(batch_shape + (k, n)),
+    )

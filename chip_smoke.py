@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch port on one CUDA card: builds the hand-written
 kernels, holds each against its plain-torch twin, then drives ASP horizons
 of the 20-qubit χ=64 and the 28-qubit χ=128 MPS configurations on the jacobi
-route and on the default (rand) route.
+route and on the default (rand) route, and the ASP driver over a schedule
+of 20-qubit χ=64 horizons.
 
 Usage:  python3 chip_smoke.py        (from the root of a checkout; one card)
 
@@ -61,7 +62,20 @@ Phases, one line each:
                 point, timed in turns in this process (rand, jacobi, jacobi,
                 rand, twice), then one profiled sweep each: device busy
                 time, idle share, launches, host aten calls.
-  6. slice28  — phase 3 at 28 qubits, χ=128 (BASELINE config 5): the jacobi
+  5b. driver  — the ASP driver users start, time_evol.run_simulation, at
+                20 qubits χ=64 under the default options (route "rand",
+                use_jit_lbfgs resolving to True): horizons at t = 1.2 and
+                2.4 of 2 and 4 layers, 10 iterations each (a fidelity bar
+                no horizon reaches), the targets generated on the card.
+                Run 1 checks each horizon's fobj below its start, the
+                fidelities, the no-truncation re-evaluation within
+                TOL_FINAL of 1 - fobj, horizon 1 against its f64
+                re-evaluation on the host, no watchdog event, K1-K3
+                launched and K4 not; run 2 resumes run 1's folder (no
+                horizon again, the target cache hits); run 3 runs one
+                horizon on an expired clock (time_limit 1e-9, chunks of
+                2): is_timeout after 2 iterations.
+  6. slice28 — phase 3 at 28 qubits, χ=128 (BASELINE config 5): the jacobi
                 route runs K4 for every pair update at χ=128 and K1 for the
                 χ-growth heads; the final objective is re-evaluated in c128
                 under "native" on the card.
@@ -88,10 +102,14 @@ from __future__ import annotations
 
 import functools
 import json
+import logging
 import os
+import pickle
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from contextlib import contextmanager
 
@@ -133,6 +151,11 @@ TOL_ROUTES = 1e-4
 # (7.2e-5 measured on an H100 at the 20q iterate); the collapse class the
 # check exists for is O(1).
 TOL_FINAL = 3e-4
+# The driver phase: horizons at t = 1.2 and 2.4 (3 and 6 Trotter steps) from
+# the Neel state, as UserOptions' first two big steps.
+DRIVER_QUBITS, DRIVER_TIMES, DRIVER_STEPS = 20, (1.2, 2.4), (3, 6)
+# Fidelities of f32 states may exceed 1 by rounding (norms kept to ~1e-7).
+TOL_FID_ROUND = 1e-6
 # Peak rates of one H100 SXM for the bounds: f32 outside the tensor cores and
 # HBM3 bandwidth (NVIDIA's data sheet, at the 700 W limit).
 PEAK_F32_FLOPS = 67e12
@@ -1031,6 +1054,173 @@ def phase_routes(case, tag: str, routes, repeats: int, calls: int):
           f"{calls} sweeps each: " + " || ".join(parts), flush=True)
 
 
+@contextmanager
+def driver_spies():
+    """Records what one ``run_simulation`` does, through the driver module's
+    own names: the targets and the seconds of ``get_target_states``, the
+    seconds of each ``generate_all_mps_targets`` (none on a cache hit), each
+    horizon's ``_optimize_jit`` result and each ``_time_evolution`` call.
+    The driver's log lines are held back to warnings meanwhile."""
+    from aqc_research_tpu_torch.models.sp_lhs import target_states, time_evol
+
+    seen = {"targets": None, "targets_s": [], "generate_s": [], "optimized": [], "horizons": 0}
+    real = {"get": time_evol.get_target_states, "gen": target_states.generate_all_mps_targets,
+            "opt": time_evol._optimize_jit, "evol": time_evol._time_evolution}
+
+    def timed(fn, into):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            into.append(time.perf_counter() - tic)
+            return out
+        return call
+
+    get = timed(real["get"], seen["targets_s"])
+
+    def get_targets(opts):
+        seen["targets"] = get(opts)
+        return seen["targets"]
+
+    def optimize(**kwargs):
+        seen["optimized"].append(real["opt"](**kwargs))
+        return seen["optimized"][-1]
+
+    def evolve(**kwargs):
+        seen["horizons"] += 1
+        return real["evol"](**kwargs)
+
+    loggers = [logging.getLogger(f"{name}.py") for name in ("time_evol", "target_states", "evol_utils", "plots")]
+    levels = [lg.level for lg in loggers]
+    time_evol.get_target_states = get_targets
+    target_states.generate_all_mps_targets = timed(real["gen"], seen["generate_s"])
+    time_evol._optimize_jit, time_evol._time_evolution = optimize, evolve
+    for lg in loggers:
+        lg.setLevel(logging.WARNING)
+    try:
+        yield seen
+    finally:
+        time_evol.get_target_states = real["get"]
+        target_states.generate_all_mps_targets = real["gen"]
+        time_evol._optimize_jit, time_evol._time_evolution = real["opt"], real["evol"]
+        for lg, level in zip(loggers, levels):
+            lg.setLevel(level)
+
+
+def driver_options(result_dir: str, **changes):
+    """The driver phase's options: 20 qubits, χ=64, horizons at t = 1.2 and
+    2.4 (3 and 6 Trotter steps) of 2 and 4 layers, 10 iterations, the
+    default route and loop switch; a fidelity bar no horizon reaches, so
+    each runs its 10 iterations."""
+    from aqc_research_tpu_torch.models.sp_lhs.user_options import UserOptions
+
+    opts = UserOptions()
+    opts.num_qubits, opts.chi_max = DRIVER_QUBITS, PATH_CHI
+    opts.evol_times, opts.trotter_steps = np.array(DRIVER_TIMES), np.array(DRIVER_STEPS)
+    opts.num_layers_inc, opts.maxiter = 2, 10
+    opts.fidelity_thr = 0.9999999
+    opts.result_dir, opts.verbose = result_dir, False
+    for key, value in changes.items():
+        setattr(opts, key, value)
+    return opts
+
+
+def phase_driver():
+    """The ASP driver a user starts (``time_evol.run_simulation``) on the
+    card: run 1 fresh, run 2 resuming run 1's folder (no horizon again, the
+    target cache hits), run 3 one horizon on an expired clock."""
+    from aqc_research_tpu_torch import config
+    from aqc_research_tpu_torch.circuit.ansatz import TrotterAnsatz
+    from aqc_research_tpu_torch.models.sp_lhs import jit_asp, time_evol
+
+    tic_phase = time.perf_counter()
+    config.set_precision("fast")
+    config.set_svd_impl(None)
+    config.set_fused_pair(None)
+    route = config.svd_impl(torch.device("cuda"))
+    check(route == "rand", f"the default route on the card is {route!r}, not 'rand'")
+    result_dir = tempfile.mkdtemp(prefix="aqc_driver_")
+    try:
+        opts = driver_options(result_dir)
+        check(opts.use_jit_lbfgs is None and opts.resolve_use_jit_lbfgs() is True,
+              "use_jit_lbfgs=None does not resolve to True on the card")
+        jit_asp.watchdog_events.clear()
+        reset_counts()
+        with driver_spies() as run1:
+            out1 = time_evol.run_simulation(opts)
+        torch.cuda.synchronize()
+        counts, counts_at, homes = read_counts(), read_counts_at(), read_counts_home()
+        with open(os.path.join(out1, "all_results.pkl"), "rb") as fld:
+            results = pickle.load(fld)
+        check(not jit_asp.watchdog_events, f"watchdog fired: {jit_asp.watchdog_events}")
+        check(len(results) == 2 and len(run1["optimized"]) == 2 and len(run1["generate_s"]) == 1,
+              f"run 1: {len(results)} horizons, {len(run1['optimized'])} optimized, "
+              f"{len(run1['generate_s'])} target generations")
+        for name in ("jacobi_rows", "theta_build", "rand_tail"):
+            check(counts[name] > 0, f"the driver never launched {name}: {counts}")
+        check(counts["fused_pair"] == 0, f"the driver launched K4 at chi={PATH_CHI}: {counts}")
+
+        base_bits = tuple(1 if q % 2 == 0 else 0 for q in range(DRIVER_QUBITS))  # Neel prep
+        horizons = []
+        for res, opt, targ in zip(results, run1["optimized"], run1["targets"]):
+            circ = TrotterAnsatz.make(opts.num_qubits, np.asarray(res["blocks"]), True)
+            value, _ = jit_asp._mps_value_fns(circ, base_bits, float(opts.trunc_thr))
+            f_start = float(value(torch.tensor(opt["ini_thetas"], device=targ.t1_gt.device), targ.t1_gt))
+            fobj = opt["cost"]
+            fids = [res[k] for k in ("fid_a1_vs_gt", "fid_t1_vs_gt", "fid_a1_vs_t1")]
+            gap = abs(res["fid_a1_vs_gt"] - (1.0 - fobj))
+            at = f"driver horizon t={res['evol_time1']}"
+            check(np.isfinite(fobj) and fobj < f_start, f"{at}: fobj {fobj} not below its start {f_start}")
+            check(all(np.isfinite(f) and 0.0 < f <= 1.0 + TOL_FID_ROUND for f in fids), f"{at}: fidelities {fids}")
+            check(gap <= TOL_FINAL, f"{at}: no-truncation fid_a1_vs_gt {res['fid_a1_vs_gt']} vs 1 - fobj "
+                                    f"{1.0 - fobj}: gap {gap:.3g} > {TOL_FINAL}")
+            check(res["num_iters"] == opt["num_iters"] and not res["is_timeout"], f"{at}: {res['num_iters']} iters")
+            horizons.append({"t": res["evol_time1"], "layers": res["num_layers"], "iters": res["num_iters"],
+                             "s_per_iter": opt["time"] / max(res["num_iters"], 1), "f_start": f_start,
+                             "fobj": fobj, "gap": gap, "fids": fids, "circ": circ, "opt": opt, "target": targ})
+        first = horizons[0]
+        tic = time.perf_counter()
+        f_check = f64_objective(first["circ"], torch.tensor(first["opt"]["thetas"]), first["target"].t1_gt,
+                                base_bits, float(opts.trunc_thr), torch.device("cpu"))
+        check_s = time.perf_counter() - tic
+        check(abs(f_check - first["fobj"]) <= TOL_FINAL,
+              f"driver horizon 1: fobj {first['fobj']} vs f64 re-evaluation (LAPACK on the host) {f_check}")
+
+        # Run 2: resume run 1's folder.
+        with driver_spies() as run2:
+            out2 = time_evol.run_simulation(driver_options(result_dir, resume_dir=out1))
+        check(out2 == out1 and run2["horizons"] == 0, f"run 2 ran {run2['horizons']} horizons again")
+        check(not run2["generate_s"], "run 2: the target cache missed")
+        # Run 3: one horizon on an expired clock.
+        with driver_spies() as run3:
+            out3 = time_evol.run_simulation(driver_options(
+                result_dir, evol_times=np.array(DRIVER_TIMES[:1]), trotter_steps=np.array(DRIVER_STEPS[:1]),
+                time_limit=1e-9, jit_chunk_iters=2))
+        with open(os.path.join(out3, "all_results.pkl"), "rb") as fld:
+            timed = pickle.load(fld)
+        check(not run3["generate_s"], "run 3: the target cache missed")
+        check(len(timed) == 1 and timed[0]["is_timeout"] and timed[0]["num_iters"] == 2,
+              f"run 3: is_timeout {timed[0]['is_timeout']}, {timed[0]['num_iters']} iters (want True, 2)")
+        check(not jit_asp.watchdog_events, f"watchdog fired: {jit_asp.watchdog_events}")
+    finally:
+        shutil.rmtree(result_dir, ignore_errors=True)
+    wall = time.perf_counter() - tic_phase
+    per_horizon = "; ".join(
+        f"t={h['t']}: {h['layers']} layers, {h['iters']} iters, {h['s_per_iter']:.3f} s/iter, fobj "
+        f"{h['f_start']:.6g} -> {h['fobj']:.6g}, fid_a1_vs_gt {h['fids'][0]:.6f} (no truncation; gap to 1 - fobj "
+        f"{h['gap']:.2e}), fid_t1_vs_gt {h['fids'][1]:.6f}, fid_a1_vs_t1 {h['fids'][2]:.6f}" for h in horizons)
+    print(f"[driver] run_simulation, {DRIVER_QUBITS}q chi={PATH_CHI}, horizons t={list(DRIVER_TIMES)} (steps "
+          f"{list(DRIVER_STEPS)}), fast/{route}/{config.jacobi_criterion()}, maxiter 10: run 1 targets generated in "
+          f"{run1['generate_s'][0]:.3f} s (get_target_states {run1['targets_s'][0]:.3f} s) | {per_horizon} | horizon "
+          f"1 vs f64 re-evaluation (LAPACK on the host, {check_s:.1f} s): {f_check:.7g} | launches {counts} (by n: "
+          f"{counts_at}; by home: {homes}), watchdog events 0 | run 2 (resume): 0 horizons again, target cache "
+          f"loaded in {run2['targets_s'][0]:.3f} s (generation {run1['generate_s'][0]:.3f} s) | run 3 (time_limit "
+          f"1e-9, chunks of 2): is_timeout, {timed[0]['num_iters']} iters, cache loaded in "
+          f"{run3['targets_s'][0]:.3f} s | phase wall {wall:.1f} s", flush=True)
+    return counts, counts_at, homes
+
+
 KERNELS = (
     ("jacobi_rows", "aqc_research_tpu_torch/csrc/jacobi_rows.cu",
      "aqc_research_tpu/ops/pallas_jacobi.py:244", "jacobi20"),
@@ -1061,6 +1251,7 @@ def main() -> int:
         paths["jacobi20"] = phase_slice(case, "slice")
         paths["rand20"] = phase_rand(case, "rand")
         phase_routes(case, "routes", ("rand", "jacobi"), repeats=2, calls=5)
+        paths["driver20"] = phase_driver()
         case = make_case(dev, 28, PATH28_CHI, maxiter=10, f64_device=dev)
         paths["jacobi28"] = phase_slice(case, "slice28")
         paths["rand28"] = phase_rand(case, "rand28")

@@ -365,6 +365,32 @@ def test_rand_route_pair_update_agrees_with_native_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+def test_rand_route_with_fusion_off_runs_k1_on_card(cuda_device):
+    """With ``set_fused_pair(False)`` the rand route runs K1 on the square θ
+    on CUDA tensors (never the unfused rand SVD or a plain twin): one K1
+    launch at 2χ = 128 rows, no θ-build or rand-tail launch, the state
+    within 1e-4 of the native route's."""
+    n = 8
+    trot = Trotter(num_qubits=n, evol_time=0.8, num_steps=2, delta=1.0, second_order=True)
+    with config.svd_impl_override("native"):
+        state = trot.as_mps(neel_init_state(n), trunc_thr=1e-6, chi_max=64,
+                            dtype=torch.complex64, device=cuda_device)
+    block = _block_4x4_lo_hi(trotter_alphas(0.3, 1.0), torch.complex64, cuda_device)
+    with config.svd_impl_override("native"):
+        want = tm.mps_to_vector(tm.apply_pairs_mps(state, block.expand(3, 4, 4), (1, 3, 5), trunc_thr=1e-6))
+    config.set_fused_pair(False)
+    try:
+        before = (jk.jacobi_rows.launches_at.get(128, 0), tfp.theta_build.launches, tfr.rand_tail.launches)
+        with config.svd_impl_override("rand"):
+            got = tm.mps_to_vector(tm.apply_pairs_mps(state, block.expand(3, 4, 4), (1, 3, 5), trunc_thr=1e-6))
+        after = (jk.jacobi_rows.launches_at.get(128, 0), tfp.theta_build.launches, tfr.rand_tail.launches)
+    finally:
+        config.set_fused_pair(None)
+    assert after == (before[0] + 1, before[1], before[2])
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-4)
+
+
+@pytest.mark.cuda
 def test_range_finder_at_256_rows_on_card(cuda_device):
     """The 28q chi=128 pair matrices: 256 rows, 14 matrices (one
     half-layer), zero-padded as θ is.  ``qr_chunk(256)`` = 15, so the

@@ -64,9 +64,10 @@ def jax_sketch(b: int, n: int, ell: int) -> np.ndarray:
 @pytest.fixture
 def rand_route(monkeypatch):
     """Both packages on the rand route with the fused update at the small
-    test shapes: RAND_MIN_N lowered on both sides, the JAX sketch handed to
-    the port, both Jacobi criteria set to the port's default ("hybrid");
-    restored after."""
+    test shapes: RAND_MIN_N lowered on both sides, the fused update forced
+    on for CPU tensors in both (``set_fused_pair(True)``), the JAX sketch
+    handed to the port, both Jacobi criteria set to the port's default
+    ("hybrid"); restored after."""
     monkeypatch.setattr(jrs, "RAND_MIN_N", 2 * CHI)
     monkeypatch.setattr(trs, "RAND_MIN_N", 2 * CHI)
     monkeypatch.setattr(
@@ -79,6 +80,7 @@ def rand_route(monkeypatch):
     jcfg.set_jacobi_criterion("hybrid")
     config.set_jacobi_criterion("hybrid")
     config.set_svd_impl("rand")
+    config.set_fused_pair(True)
     jax.clear_caches()
     yield
     jcfg.set_svd_impl(None)
@@ -86,6 +88,7 @@ def rand_route(monkeypatch):
     jcfg.set_jacobi_criterion(None)
     config.set_jacobi_criterion(previous)
     config.set_svd_impl(None)
+    config.set_fused_pair(None)
     jax.clear_caches()
 
 
@@ -450,20 +453,30 @@ def test_fused_rand_pair_update_keeps_batch_axes(rand_route):
 
 
 @pytest.mark.parametrize(
-    "chi,dtype,min_n",
-    [(16, torch.complex64, 128), (12, torch.complex64, 16), (16, torch.complex128, 32)],
+    "chi,dtype,min_n,on_cpu",
+    [(16, torch.complex64, 128, "jacobi"), (12, torch.complex64, 16, "unfused"),
+     (16, torch.complex128, 32, "unfused")],
     ids=["below-min-n", "chi-not-multiple-of-8", "complex128"],
 )
-def test_rand_route_falls_back_to_jacobi(monkeypatch, chi, dtype, min_n):
-    """Outside the guards the rand route IS the jacobi route (bit for bit;
-    the twin of the JAX package's test_below_min_n_falls_back_to_plain_jacobi)."""
+def test_rand_route_falls_back_to_jacobi(monkeypatch, chi, dtype, min_n, on_cpu):
+    """Outside the fused update's guards the rand route is the jacobi route
+    on CUDA tensors (K1, the JAX package's fallback on its accelerator).  On
+    CPU tensors it is the jacobi route bit for bit below RAND_MIN_N (the
+    twin of the JAX package's test_below_min_n_falls_back_to_plain_jacobi)
+    and the unfused rand SVD from it, as the JAX package decides off its
+    accelerator (tests/test_torch_dispatch.py holds that against JAX)."""
     monkeypatch.setattr(trs, "RAND_MIN_N", min_n)
 
     def refuse(*args, **kwargs):
         raise AssertionError("the fused rand update must not run here")
 
     monkeypatch.setattr(tm, "fused_rand_pair_update", refuse)
+    unfused = []
+    real = trs.rand_svd_top_k
+    monkeypatch.setattr(trs, "rand_svd_top_k", lambda *a, **k: unfused.append(a[1]) or real(*a, **k))
     assert not tm._fused_rand_eligible(chi, dtype)
+    assert tm._rand_route_update(chi, dtype, torch.device("cuda")) == "jacobi"
+    assert tm._rand_route_update(chi, dtype, torch.device("cpu")) == on_cpu
     ins = [torch.tensor(x) for x in _pair_inputs(9, 3, chi)]
     ins[3], ins[4], ins[5] = ins[3].to(dtype), ins[4].to(dtype), ins[5].to(dtype)
     rdtype = config.real_of(dtype)
@@ -471,8 +484,10 @@ def test_rand_route_falls_back_to_jacobi(monkeypatch, chi, dtype, min_n):
     for route in ("rand", "jacobi"):
         with config.svd_impl_override(route):
             out[route] = tm._pair_update(*ins, chi, 1e-5, dtype, rdtype)
-    for r, j in zip(out["rand"], out["jacobi"]):
-        assert torch.equal(r, j)
+    assert unfused == ([chi] if on_cpu == "unfused" else [])
+    if on_cpu == "jacobi":
+        for r, j in zip(out["rand"], out["jacobi"]):
+            assert torch.equal(r, j)
 
 
 def test_rand_route_takes_the_fused_update_when_eligible(rand_route, monkeypatch):
