@@ -3,9 +3,9 @@ a circuit is a hashable tuple of :class:`Gate` records.
 
 Supported gate set: x, y, z, h, rx, ry, rz, p (phase), cx, cz, cp.  Qubit
 indices are little-endian (bit q of the basis index).  The dense appliers
-(``apply_program``, ``program_to_state``) belong to the dense slice and are
-not ported yet; the MPS engine applies programs itself
-(ops/mps.py ``mps_from_program``).
+(``apply_program``, ``program_to_state``, ``program_to_matrix``) apply a
+program gate by gate with the statevector engine's primitives; the MPS
+engine applies programs itself (ops/mps.py ``mps_from_program``).
 """
 
 from __future__ import annotations
@@ -16,7 +16,8 @@ from typing import Iterable, Optional, Tuple
 
 import torch
 
-from ..config import complex_dtype
+from ..config import complex_dtype, device as default_device
+from ..ops.statevector import apply_1q, apply_2q
 from . import gates as G
 
 _ONE_QUBIT = ("x", "y", "z", "h", "rx", "ry", "rz", "p")
@@ -121,3 +122,60 @@ def gate_matrix(gate: Gate, dtype=None, device=None) -> torch.Tensor:
     if name == "cp":
         return G.controlled(G.phase(param, dtype, device))
     raise ValueError(f"unsupported gate: {name}")
+
+
+def inverse_program(program: GateProgram) -> GateProgram:
+    """Adjoint program: reversed order with negated angles (x/y/z/h/cx/cz are
+    self-adjoint)."""
+    return tuple(
+        gate if gate.param is None else Gate(gate.name, gate.qubits, -gate.param)
+        for gate in reversed(program)
+    )
+
+
+def apply_program(state: torch.Tensor, program: GateProgram, tail: int = 1) -> torch.Tensor:
+    """Applies a gate program to a state (or to matrix columns via ``tail``),
+    one pass over the state per gate, in the state's dtype and on its
+    device."""
+    for gate in program:
+        mat = gate_matrix(gate, state.dtype, state.device)
+        if len(gate.qubits) == 1:
+            state = apply_1q(state, mat, gate.qubits[0], tail)
+        else:
+            state = apply_2q(state, mat, gate.qubits[0], gate.qubits[1], tail)
+    return state
+
+
+def program_to_state(program: GateProgram, num_qubits: int, dtype=None, device=None) -> torch.Tensor:
+    """``program @ |0...0>`` as a dense vector (default: the precision in
+    effect, the default device)."""
+    dtype = complex_dtype() if dtype is None else dtype
+    device = default_device() if device is None else device
+    state = torch.zeros(2**num_qubits, dtype=dtype, device=device)
+    state[0] = 1
+    return apply_program(state, program)
+
+
+def program_to_matrix(program: GateProgram, num_qubits: int, dtype=None, device=None) -> torch.Tensor:
+    """Dense operator of a program.  Exponentially sized — tests/targets
+    only."""
+    dtype = complex_dtype() if dtype is None else dtype
+    device = default_device() if device is None else device
+    eye = torch.eye(2**num_qubits, dtype=dtype, device=device)
+    return apply_program(eye, program, 2**num_qubits)
+
+
+def state_preparation_program(
+    num_qubits: int,
+    *,
+    flip_bit: int = -1,
+    state_prep_func=None,
+) -> GateProgram:
+    """Program preparing ``S X_i |0>`` / ``S |0>`` / ``|0>``."""
+    qb = ProgramBuilder(num_qubits)
+    if flip_bit >= 0:
+        qb.x(flip_bit)
+    prog = qb.build()
+    if callable(state_prep_func):
+        prog = prog + tuple(state_prep_func(num_qubits))
+    return prog

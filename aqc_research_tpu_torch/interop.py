@@ -3,9 +3,9 @@
 The JAX package cannot be imported here (its config turns on jax x64
 globally), so the state crosses as plain data: a theta vector, an MPS's
 ``gammas (n, 2, chi, chi)`` and ``lambdas (n-1, chi)``, the ansatz's
-constructor arguments, and the ASP driver's per-horizon result dicts.  The
-parity tests feed both packages identical inputs and targets through these
-functions.
+constructor arguments, the dense targets' fields, and the ASP driver's
+per-horizon result dicts (MPS and dense).  The parity tests feed both
+packages identical inputs and targets through these functions.
 """
 
 from __future__ import annotations
@@ -67,12 +67,39 @@ def ansatz_from_args(args: Dict[str, Any]) -> Ansatz:
     )
 
 
+def classic_targets_from_jax(targets: List[Any], opts: Any, dtype=None, device=None) -> list:
+    """The JAX driver's dense targets (its ``TargetClassicState`` list, read
+    by field: ``num_qubits``, ``num_trot_steps``, ``evol_time``, ``my_id``,
+    ``second_order`` and the numpy vectors ``t1_gt`` and ``t1``) as the
+    port's ``TargetClassicState`` list under the port's options ``opts``,
+    the vectors in ``dtype`` on ``device`` (default: the precision in
+    effect, the default device)."""
+    from .models.sp_lhs.target_states import TargetClassicState
+
+    dtype = complex_dtype() if dtype is None else dtype
+    device = default_device() if device is None else device
+    return [
+        TargetClassicState(
+            opts=opts,
+            num_qubits=int(t.num_qubits),
+            num_trot_steps=int(t.num_trot_steps),
+            evol_time=float(t.evol_time),
+            my_id=int(t.my_id),
+            t1_gt=torch.tensor(np.array(t.t1_gt), device=device).to(dtype),
+            t1=torch.tensor(np.array(t.t1), device=device).to(dtype),
+            second_order=bool(t.second_order),
+        )
+        for t in targets
+    ]
+
+
 def results_from_jax(all_results: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
     """The JAX driver's per-horizon results (``all_results.pkl``, the
-    horizon checkpoint's ``all_results``) in the port's form: the same keys
-    and numpy values, the initial-state function replaced by the port's
-    function of the same name (a JAX function would pickle by reference to
-    the JAX package)."""
+    horizon checkpoint's ``all_results``), of the MPS and the dense
+    objective, in the port's form: the same keys and numpy values (a
+    dense result's surrogate weight a float), the initial-state function
+    replaced by the port's function of the same name (a JAX function would
+    pickle by reference to the JAX package)."""
     out = []
     for res in all_results:
         res = dict(res)
@@ -82,5 +109,7 @@ def results_from_jax(all_results: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
             res["ini_state_func"] = getattr(trotter, res["ini_state_func"].__name__)
         if res.get("stats") is not None:
             res["stats"] = dict(res["stats"])
+            if "weight" in res["stats"]:
+                res["stats"]["weight"] = float(res["stats"]["weight"])
         out.append(res)
     return out

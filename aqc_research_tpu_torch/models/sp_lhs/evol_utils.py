@@ -1,8 +1,8 @@
-"""Utilities of the ASP time-evolution driver (twin of the MPS parts of
+"""Utilities of the ASP time-evolution driver (twin of
 ``aqc_research_tpu/models/sp_lhs/evol_utils.py``): result archives, the
-solution state, persistence, command-line arguments and timestamped output
-folders.  Results hold numpy ``float64`` thetas, so their pickles need
-neither framework.
+solution state (MPS or dense), persistence, command-line arguments and
+timestamped output folders.  Results hold numpy ``float64`` thetas, and
+targets are saved as numpy, so the pickles need neither framework.
 """
 
 from __future__ import annotations
@@ -12,7 +12,7 @@ import os
 import pickle
 from argparse import ArgumentParser
 from pprint import pprint
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -20,8 +20,9 @@ import torch
 from ... import checking as chk
 from ... import config
 from ...circuit.ansatz import Ansatz, TrotterAnsatz
-from ...circuit.program import GateProgram
+from ...circuit.program import GateProgram, program_to_state
 from ...ops import mps as mpsop
+from ...ops.statevector import v_mul_vec
 from ...utils import copy_file_to_folder, create_logger
 from .user_options import UserOptions
 
@@ -45,18 +46,21 @@ def get_solution_from_optim_result(
     trotterized: bool,
     state_prep_func: Optional[Callable[[int], GateProgram]] = None,
     trunc_thr: Optional[float] = None,
-) -> mpsop.MPS:
-    """Rebuilds the solution state ``V(Θ) S |0>`` in MPS form, on
-    ``config.device()`` in the precision in effect."""
-    if not opts.use_mps:
-        raise NotImplementedError(
-            "dense solution states belong to the dense slice of the port (ROADMAP.md section 1, items 6-10)"
-        )
+) -> Union[mpsop.MPS, torch.Tensor]:
+    """Rebuilds the solution state ``V(Θ) S |0>`` — an MPS, or a dense
+    vector when ``opts.use_mps`` is off — on ``config.device()`` in the
+    precision in effect (``trunc_thr``: MPS only)."""
     num_qubits = result["num_qubits"]
     if trotterized:
         circ = TrotterAnsatz.make(num_qubits, np.asarray(result["blocks"]), opts.second_order_trotter)
     else:
         circ = Ansatz.make(num_qubits, result["entangler"], np.asarray(result["blocks"]))
+    if not opts.use_mps:
+        if state_prep_func is not None:
+            state = program_to_state(state_prep_func(num_qubits), num_qubits)
+        else:
+            state = program_to_state((), num_qubits)
+        return v_mul_vec(circ, np.asarray(result["thetas"]), state)
     if trunc_thr is None:
         trunc_thr = opts.trunc_thr
     if state_prep_func is not None:
@@ -74,10 +78,11 @@ def get_solution_from_optim_result(
 def save_optim_results(
     output_dir: str,
     results: List[Dict],
-    target: Optional[mpsop.MPS] = None,
+    target: Optional[Union[mpsop.MPS, torch.Tensor]] = None,
     tag: str = "",
 ) -> None:
-    """Pickles sorted optimization results; an MPS target as numpy arrays."""
+    """Pickles sorted optimization results; the target (an MPS or a dense
+    vector) as numpy arrays."""
     assert chk.is_str(output_dir)
     assert all(results[0]["cost"] <= r["cost"] for r in results)
     tag = "" if len(tag) == 0 else ("_" + tag)
@@ -85,6 +90,8 @@ def save_optim_results(
     filename = f"trotter{tag}_n{results[0]['num_qubits']}__c{best_cost}.pkl"
     if isinstance(target, mpsop.MPS):
         target = (target.gammas.detach().cpu().numpy(), target.lambdas.detach().cpu().numpy())
+    elif isinstance(target, torch.Tensor):
+        target = target.detach().cpu().numpy()
     with open(os.path.join(output_dir, filename), "wb") as fld:
         pickle.dump({"results": results, "target": target}, fld)
         _logger.info("saved optimization results to %s", fld.name)

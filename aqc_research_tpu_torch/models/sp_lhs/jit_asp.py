@@ -1,20 +1,31 @@
-"""ASP horizon optimization over the MPS objective (twin of the MPS subset
-of ``aqc_research_tpu/models/sp_lhs/jit_asp.py``).
+"""ASP horizon optimization (twin of
+``aqc_research_tpu/models/sp_lhs/jit_asp.py``): one horizon is a compact
+L-BFGS (optim/lbfgs.py) over a surrogate objective, on the tensors' device.
+The ``_jit`` names keep the JAX twins findable; the loops run on the host.
 
-One horizon is a compact L-BFGS over the fidelity objective
-``1 - |<V lvec | target>|^2`` and its analytic co-sweep gradient; ``lvec``
-is the X-layer product prep (e.g. the Neel state) given as ``base_bits``.
-The name :func:`optimize_horizon_mps_jit` keeps the JAX twin findable; the
-loop itself runs on the host (optim/lbfgs.py).
-:func:`optimize_horizon_mps_timed` runs the same loop in chunks and checks
-the wall clock between them.
+* **Dense** (full state vectors): :func:`make_surrogate_loss` is the
+  stateless max-projection surrogate (fixed weight, hard argmax), optimized
+  by :func:`optimize_horizon_jit` with the ``torch.autograd`` gradient —
+  the flagship of ``bench.py``; :func:`make_surrogate_stateful` carries
+  the reference's 1.1x max-projection hysteresis and the weight EMA
+  ``w += 0.1 (sqrt|fobj| - w)`` through the loop with the analytic
+  co-sweep gradient, optimized by :func:`optimize_horizon_surrogate_jit`
+  (the ASP driver's ``sur_max`` objective).
+* **MPS**: the fidelity objective ``1 - |<V lvec | target>|^2`` and its
+  analytic co-sweep gradient; ``lvec`` is the X-layer product prep (e.g.
+  the Neel state) given as ``base_bits``
+  (:func:`optimize_horizon_mps_jit`, with the collapse watchdog).
+
+The ``_timed`` runners run the same loops in chunks and check the wall
+clock between them.
 """
 
 from __future__ import annotations
 
 import logging
-from typing import NamedTuple, Optional, Sequence
+from typing import Callable, NamedTuple, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ...circuit.ansatz import Ansatz
@@ -29,16 +40,267 @@ from ...ops.mps import (
     v_dagger_mul_mps_layers,
     v_mul_mps_growing,
 )
+from ...ops.gradients import grad_of_dot_product
 from ...ops.mps_gradient import fast_dot_gradient_with_state
-from ...optim.lbfgs import lbfgs_chunk_programs, run_lbfgs_chunked
+from ...ops.statevector import as_state, as_thetas, v_dagger_mul_vec
+from ...optim.lbfgs import lbfgs_chunk_programs, minimize_lbfgs_compact, run_lbfgs_chunked, stateless
 
 
 class JitHorizonResult(NamedTuple):
     thetas: torch.Tensor
     fobj: torch.Tensor  # best (lowest) objective value
-    fidelity: torch.Tensor  # 1 - fobj
+    fidelity: torch.Tensor  # dense: hs2[0] at the best thetas; MPS: 1 - fobj
     num_iters: int
     converged: bool
+
+
+# -----------------------------------------------------------------------------
+# Dense surrogate objectives.
+# -----------------------------------------------------------------------------
+
+
+def flip_state_indices(num_qubits: int, state_prep_program=None) -> np.ndarray:
+    """Dense-basis indices of {S|0>, S X_i|0>} when S is an X-layer product
+    program (identity / Neel / half-zero preps)."""
+    base = 0
+    if state_prep_program is not None:
+        for gate in state_prep_program:
+            if gate.name != "x":
+                raise ValueError("flip_state_indices expects an X-layer product prep")
+            base ^= 1 << gate.qubits[0]
+    return np.asarray([base] + [base ^ (1 << k) for k in range(num_qubits)])
+
+
+def make_surrogate_loss(
+    circ: Ansatz,
+    state_idx: Sequence[int],
+    weight: float = 0.0,
+) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
+    """Returns ``loss(thetas, target)`` = the max-projection surrogate
+    ``1 - (1-w)·hs2[0] - w·max_i hs2[i]``, differentiable in ``thetas``."""
+    idx = [int(i) for i in np.asarray(state_idx)]
+    w = float(weight)
+
+    def loss(thetas, target):
+        vh = v_dagger_mul_vec(circ, thetas, target)
+        if w == 0.0:
+            return 1.0 - vh[idx[0]].abs() ** 2
+        hs2 = vh[torch.as_tensor(idx, device=vh.device)].abs() ** 2
+        return 1.0 - (1.0 - w) * hs2[0] - w * hs2.max()
+
+    return loss
+
+
+class SurrogateState(NamedTuple):
+    """The reference ``sur_max`` objective's state: the hysteresis-selected
+    leading flip state (a host int: the host branches on it) and, on the
+    device, the EMA weight and the latest evaluation's hs2[0] and fobj."""
+
+    max_no: int  # leading flip-state index
+    weight: torch.Tensor  # EMA weight of the max-projection term
+    fidelity: torch.Tensor  # hs2[0] at the latest evaluation
+    fobj: torch.Tensor  # fobj at the latest evaluation
+
+
+def make_surrogate_stateful(
+    circ: Ansatz,
+    state_idx: Sequence[int],
+    gamma: float = 0.1,
+):
+    """The reference's stateful ``sur_max`` objective as functions: returns
+    ``(value, value_and_grad)`` with signatures
+
+        value(thetas, state, target)          -> (fobj, state')
+        value_and_grad(thetas, state, target) -> (fobj, grad, state')
+
+    * every evaluation applies the 1.1x max-projection hysteresis over the
+      flip states, in order, and ticks the weight EMA ``w += gamma
+      (sqrt|fobj| - w)`` — under SciPy L-BFGS-B the reference's objective
+      and gradient are always called as a pair, so both state updates fire
+      at every evaluation point, linesearch trials included;
+    * ``value_and_grad`` adds the analytic co-sweep gradient.  The
+      gradient of ``<x | V† t>`` is antilinear in x, so the two terms
+      ``-2 Re[(1-w) conj(hs[0]) ∇<e_0|V†t> + w conj(hs[m]) ∇<e_m|V†t>]``
+      (just ``-2 Re[conj(hs[0]) ∇<e_0|V†t>]`` when m = 0) take one sweep
+      from x = (1-w) hs[0] e_0 + w hs[m] e_m, where the JAX twin runs one
+      sweep per term.
+
+    The hysteresis runs on the host over hs2, read back once per evaluation
+    (the JAX twin's ``fori_loop`` and ``lax.cond`` become host code), in
+    hs2's own precision; ``state_idx`` are the dense-basis indices of the
+    flip states (:func:`flip_state_indices`)."""
+    idx = [int(i) for i in np.asarray(state_idx)]
+
+    def _project(thetas, target, st: SurrogateState):
+        vh = v_dagger_mul_vec(circ, thetas, target)
+        hs = vh[torch.as_tensor(idx, device=vh.device)]
+        hs2 = hs.abs() ** 2
+        h = hs2.cpu().numpy()
+        ratio = h.dtype.type(1.1)
+        max_no, max_proj = st.max_no, h[st.max_no]
+        for i in range(len(idx)):
+            if ratio * max_proj < h[i]:
+                max_proj, max_no = h[i], i
+        w = st.weight
+        fobj = (1.0 - (1.0 - w) * hs2[0] - w * hs2[max_no]).to(thetas.dtype)
+        return vh, hs, hs2, max_no, fobj
+
+    def _next_state(st, max_no, hs2, fobj, dtype):
+        w_new = st.weight + gamma * (torch.sqrt(fobj.abs()) - st.weight)
+        return SurrogateState(max_no, w_new, hs2[0].to(dtype), fobj)
+
+    def value(thetas, st, target):
+        _, _, hs2, max_no, fobj = _project(thetas, target, st)
+        return fobj, _next_state(st, max_no, hs2, fobj, thetas.dtype)
+
+    def value_and_grad(thetas, st, target):
+        vh, hs, hs2, max_no, fobj = _project(thetas, target, st)
+        x = torch.zeros_like(vh)
+        if max_no == 0:
+            x[idx[0]] = hs[0]
+        else:
+            w = st.weight.to(hs2.dtype)
+            x[idx[0]] = (1.0 - w) * hs[0]
+            x[idx[max_no]] = w * hs[max_no]
+        grad = -2.0 * grad_of_dot_product(circ, thetas, x, vh, front_layer=True).real
+        return fobj, grad.to(thetas.dtype), _next_state(st, max_no, hs2, fobj, thetas.dtype)
+
+    return value, value_and_grad
+
+
+def _fidelity_readout(circ: Ansatz, idx0: int, thetas: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """``|<idx0| V(thetas)† |target>|^2``."""
+    with torch.no_grad():
+        return v_dagger_mul_vec(circ, thetas, target)[idx0].abs() ** 2
+
+
+def _dense_inputs(thetas0, target):
+    target = as_state(target)
+    return as_thetas(thetas0, target).detach().to(target.device), target
+
+
+def optimize_horizon_jit(
+    circ: Ansatz,
+    thetas0,
+    target,
+    *,
+    state_idx: Sequence[int],
+    weight: float = 0.0,
+    fidelity_thr: Optional[float] = None,
+    maxiter: int = 100,
+    no_improve_iters: Optional[int] = None,
+    solver: str = "compact",
+) -> JitHorizonResult:
+    """Optimizes one ASP horizon over the stateless dense surrogate
+    (:func:`make_surrogate_loss`) with compact L-BFGS and the
+    ``torch.autograd`` gradient through the statevector engine, on the
+    target's device (the JAX twin's ``jax.value_and_grad``).
+
+    ``fidelity_thr`` maps to the loss threshold ``1 - fidelity_thr`` (exact
+    for ``weight == 0``, approximate otherwise).  ``solver``: "compact"
+    (two-loop L-BFGS + Armijo backtracking); "zoom" (optax's L-BFGS with a
+    zoom linesearch in the JAX package) is not ported."""
+    if solver == "zoom":
+        raise NotImplementedError(
+            "solver='zoom' (optax L-BFGS with zoom linesearch) is not ported (ROADMAP.md section 1, "
+            "item 9); use solver='compact'"
+        )
+    if solver != "compact":
+        raise ValueError(f"unknown solver {solver!r} (use 'compact')")
+    x0, tgt = _dense_inputs(thetas0, target)
+    idx = [int(i) for i in np.asarray(state_idx)]
+    loss = make_surrogate_loss(circ, idx, weight)
+    fobj_thr = None if fidelity_thr is None else (1.0 - float(fidelity_thr))
+    res = minimize_lbfgs_compact(
+        lambda th: loss(th, tgt), x0, maxiter=int(maxiter), fobj_thr=fobj_thr,
+        no_improve_iters=None if no_improve_iters is None else int(no_improve_iters),
+    )
+    fid = _fidelity_readout(circ, idx[0], res.thetas, tgt)
+    return JitHorizonResult(res.thetas, res.fobj, fid, res.num_iters, res.converged)
+
+
+class JitSurrogateResult(NamedTuple):
+    thetas: torch.Tensor
+    fobj: torch.Tensor  # best (lowest) surrogate value
+    fidelity: torch.Tensor  # hs2[0] at the best thetas
+    num_iters: int
+    converged: bool
+    weight: torch.Tensor  # final EMA weight
+    max_no: int  # final hysteresis-selected flip state
+
+
+def optimize_horizon_surrogate_jit(
+    circ: Ansatz,
+    thetas0,
+    target,
+    *,
+    state_idx: Sequence[int],
+    weight0: float = 1.0,  # the reference's initial weight
+    gamma: float = 0.1,
+    fidelity_thr: Optional[float] = None,
+    maxiter: int = 100,
+    no_improve_iters: Optional[int] = None,
+) -> JitSurrogateResult:
+    """Optimizes one ASP horizon with the full reference surrogate —
+    max-projection hysteresis + weight EMA carried through the compact
+    L-BFGS loop, the analytic co-sweep gradient — on the target's device.
+
+    Stops on ``fidelity > fidelity_thr`` (with a live EMA weight fobj is not
+    1 - fidelity, so the threshold acts on the fidelity itself)."""
+    return optimize_horizon_surrogate_timed(
+        circ, thetas0, target, state_idx=state_idx, weight0=weight0, gamma=gamma,
+        fidelity_thr=fidelity_thr, maxiter=maxiter, no_improve_iters=no_improve_iters,
+    )[0]
+
+
+def optimize_horizon_surrogate_timed(
+    circ: Ansatz,
+    thetas0,
+    target,
+    *,
+    state_idx: Sequence[int],
+    weight0: float = 1.0,
+    gamma: float = 0.1,
+    fidelity_thr: Optional[float] = None,
+    maxiter: int = 100,
+    no_improve_iters: Optional[int] = None,
+    time_limit: Optional[float] = None,
+    chunk_iters: int = 25,
+):
+    """:func:`optimize_horizon_surrogate_jit` with the wall clock checked
+    every ``chunk_iters`` iterations (no clock when ``time_limit`` is None
+    or <= 0: the one-run result).  Returns ``(JitSurrogateResult,
+    timed_out)``."""
+    x0, tgt = _dense_inputs(thetas0, target)
+    idx = [int(i) for i in np.asarray(state_idx)]
+    value, vgrad = make_surrogate_stateful(circ, idx, float(gamma))
+    st0 = SurrogateState(
+        0,
+        torch.tensor(float(weight0), dtype=x0.dtype, device=x0.device),
+        torch.tensor(0.0, dtype=x0.dtype, device=x0.device),
+        torch.tensor(float("inf"), dtype=x0.dtype, device=x0.device),
+    )
+    fid_thr = None if fidelity_thr is None else float(fidelity_thr)
+    programs = lbfgs_chunk_programs(
+        lambda x, st: value(x, st, tgt),
+        lambda x, st: vgrad(x, st, tgt),
+        maxiter=int(maxiter),
+        no_improve_iters=None if no_improve_iters is None else int(no_improve_iters),
+        stop_fn=None if fid_thr is None else (lambda st: st.fidelity > fid_thr),
+    )
+    timed = time_limit is not None and time_limit > 0
+    res, st, timed_out = run_lbfgs_chunked(
+        programs, x0, st0, maxiter=int(maxiter), time_limit=time_limit,
+        chunk_iters=int(chunk_iters) if timed else max(int(maxiter), 1),
+    )
+    fid = _fidelity_readout(circ, idx[0], res.thetas, tgt)
+    out = JitSurrogateResult(res.thetas, res.fobj, fid, res.num_iters, res.converged, st.weight, st.max_no)
+    return out, timed_out
+
+
+# -----------------------------------------------------------------------------
+# The MPS objective.
+# -----------------------------------------------------------------------------
 
 
 def _mps_value_fns(circ: Ansatz, base_bits: tuple, trunc_thr: float):
@@ -87,13 +349,12 @@ def _run_horizon(circ, x0, tgt, base_bits, trunc_thr, fobj_thr, maxiter, no_impr
     ``time_limit`` > 0.  Returns (JitHorizonResult, timed_out)."""
     value, value_and_grad = _mps_value_fns(circ, base_bits, trunc_thr)
     programs = lbfgs_chunk_programs(
-        lambda th: value(th, tgt),
-        lambda th: value_and_grad(th, tgt),
+        *stateless(lambda th: value(th, tgt), lambda th: value_and_grad(th, tgt)),
         maxiter=maxiter,
         fobj_thr=fobj_thr,
         no_improve_iters=no_improve_iters,
     )
-    res, timed_out = run_lbfgs_chunked(
+    res, _, timed_out = run_lbfgs_chunked(
         programs, x0, maxiter=maxiter, time_limit=time_limit, chunk_iters=chunk_iters or max(maxiter, 1)
     )
     return JitHorizonResult(res.thetas, res.fobj, 1.0 - res.fobj, res.num_iters, res.converged), timed_out

@@ -5,7 +5,10 @@
 On the CUDA card by default, in the fast precision (float32/complex64);
 ``--cpu`` runs on the CPU in the high precision (float64/complex128) with
 the optimization loop of models/sp_lhs/jit_asp.py on the CPU, since the
-host-protocol path is not ported yet (ROADMAP.md section 1, item 13).
+host-protocol path is not ported yet (ROADMAP.md section 1, item 13).  The
+objective is ``UserOptions.objective``, as in the JAX launcher: the MPS
+``"sur_fast_mps_trotter"`` by default, the dense ``"sur_max"`` where a
+script sets it (``run_simulation(opts)`` from Python).
 """
 
 from __future__ import annotations

@@ -1,20 +1,21 @@
-"""Computation, caching and loading of the ASP target states, MPS form (twin
-of the MPS part of ``aqc_research_tpu/models/sp_lhs/target_states.py``).
+"""Computation, caching and loading of the ASP target states (twin of
+``aqc_research_tpu/models/sp_lhs/target_states.py``).
 
 Every horizon has two Trotter targets: the ground truth ``t1_gt``
-(``precise_multiplier()`` times more steps) and the reference ``t1``.  They
-are generated incrementally: each horizon's circuit is applied to the
-previous horizon's MPS.  The list is pickled per qubit count into
-``opts.result_dir``, validated against the options on load and regenerated
-when stale.  The dense targets belong to the dense slice and are not ported
-yet.
+(``precise_multiplier()`` times more steps) and the reference ``t1``.  MPS
+targets are generated incrementally: each horizon's circuit is applied to
+the previous horizon's MPS.  Dense (classic) targets are evolved from
+scratch per horizon with the fused-block Trotter engine.  Each list is
+pickled per qubit count into ``opts.result_dir`` as numpy arrays, validated
+against the options on load and regenerated when stale; a loaded target
+lives on ``config.device()`` in the precision in effect.
 """
 
 from __future__ import annotations
 
 import os
 import pickle
-from typing import Any, List, Optional
+from typing import Any, List, Optional, Union
 
 import numpy as np
 import torch
@@ -199,17 +200,153 @@ def get_target_mps_states(
     return data
 
 
-def get_target_classic_states(
-    opts: Any, num_qubits: int, second_order: bool, input_file: Optional[str] = None
-):
-    """Dense targets: not ported yet."""
-    raise NotImplementedError(
-        "dense (classic) targets belong to the dense slice of the port "
-        "(ROADMAP.md section 1, items 6-10); use an MPS objective"
+class TargetClassicState:
+    """Target |t1> as a dense vector plus the options that produced it; the
+    vectors are tensors, pickled as numpy."""
+
+    def __init__(
+        self,
+        *,
+        opts: Any,
+        num_qubits: int,
+        num_trot_steps: int,
+        evol_time: float,
+        my_id: int,
+        t1_gt: torch.Tensor,
+        t1: torch.Tensor,
+        second_order: bool,
+    ):
+        assert chk.is_int(num_qubits, num_qubits >= 2)
+        assert num_trot_steps in list(opts.trotter_steps)
+        assert evol_time in list(opts.evol_times)
+        assert isinstance(t1_gt, torch.Tensor) and isinstance(t1, torch.Tensor)
+        self.num_qubits = int(num_qubits)
+        self.num_trot_steps = int(num_trot_steps)
+        self.precise_multiplier = precise_multiplier()
+        self.delta = float(opts.delta)
+        self.evol_time = float(evol_time)
+        self.my_id = int(my_id)
+        self.t1_gt = t1_gt
+        self.t1 = t1
+        self.second_order = bool(second_order)
+
+    def __getstate__(self):
+        """The vectors pickle as numpy arrays, so a cache written on the card
+        loads on the CPU and the reverse."""
+        state = self.__dict__.copy()
+        for key in ("t1_gt", "t1"):
+            state[key] = state[key].detach().cpu().numpy()
+        return state
+
+    def __setstate__(self, state):
+        """Restores the vectors onto ``config.device()`` in the precision in
+        effect."""
+        for key in ("t1_gt", "t1"):
+            state[key] = torch.from_numpy(np.asarray(state[key])).to(config.device(), config.complex_dtype())
+        self.__dict__.update(state)
+
+    @staticmethod
+    def check_cached_data(opts: Any, num_qubits: int, data: List[Any]) -> bool:
+        """Structural validation of a cached list against the options."""
+        if not chk.is_list(data):
+            return False
+        for i in range(min(len(data), len(opts.evol_times), len(opts.trotter_steps))):
+            dat, t, s = data[i], opts.evol_times[i], opts.trotter_steps[i]
+            if not (
+                isinstance(dat, TargetClassicState)
+                and dat.num_qubits == num_qubits
+                and dat.num_trot_steps == s
+                and dat.precise_multiplier == precise_multiplier()
+                and np.isclose(dat.delta / opts.delta, 1)
+                and np.isclose(dat.evol_time / t, 1)
+                and dat.my_id == i
+                and isinstance(dat.t1_gt, torch.Tensor)
+                and isinstance(dat.t1, torch.Tensor)
+                and tuple(dat.t1_gt.shape) == tuple(dat.t1.shape) == (2**num_qubits,)
+            ):
+                return False
+        return True
+
+
+def generate_classic_target(
+    *,
+    opts: Any,
+    num_qubits: int,
+    num_trot_steps: int,
+    evol_time: float,
+    my_id: int,
+    second_order: bool,
+    dtype=None,
+    device=None,
+) -> TargetClassicState:
+    """One horizon's dense targets from scratch, evolved with the fused-block
+    Trotter engine in ``dtype`` on ``device`` (default: the precision in
+    effect, ``config.device()``)."""
+
+    def evolve(steps):
+        trot = trotop.Trotter(
+            num_qubits=num_qubits, evol_time=evol_time, num_steps=steps,
+            delta=opts.delta, second_order=second_order,
+        )
+        return trot.as_vector(opts.ini_state_func[0](num_qubits), dtype=dtype, device=device)
+
+    timer = MyTimer()
+    with timer("|t1_gt>"):
+        t1_gt = evolve(num_trot_steps * precise_multiplier())
+    with timer("|t1>"):
+        t1 = evolve(num_trot_steps)
+    _logger.info(
+        "t=%0.3f: fid(|t1>, |t1_gt>) = %0.6f  |  timings: %s",
+        evol_time,
+        trotop.fidelity(t1_gt, t1),
+        timer.rounded_metrics(3),
+    )
+    return TargetClassicState(
+        opts=opts,
+        num_qubits=num_qubits,
+        num_trot_steps=num_trot_steps,
+        evol_time=evol_time,
+        my_id=my_id,
+        t1_gt=t1_gt,
+        t1=t1,
+        second_order=second_order,
     )
 
 
-def get_target_states(opts: Any) -> List[TargetMpsState]:
+def get_target_classic_states(
+    opts: Any, num_qubits: int, second_order: bool, input_file: Optional[str] = None
+) -> List[TargetClassicState]:
+    """Load-or-compute dense targets with cache validation."""
+    filename = os.path.join(opts.result_dir, f"target_classic_states_n{num_qubits}.pkl")
+    if not (isinstance(input_file, str) and os.path.isfile(input_file)):
+        input_file = filename
+    if os.path.isfile(input_file):
+        _logger.info("loading precomputed target classic states from %s", input_file)
+        with open(input_file, "rb") as fld:
+            data = pickle.load(fld)
+        if TargetClassicState.check_cached_data(opts, num_qubits, data):
+            return data
+        _logger.info("target cache is stale for these options — regenerating")
+
+    data = [
+        generate_classic_target(
+            opts=opts,
+            num_qubits=num_qubits,
+            num_trot_steps=int(nts),
+            evol_time=float(etm),
+            my_id=my_id,
+            second_order=second_order,
+        )
+        for my_id, (nts, etm) in enumerate(zip(opts.trotter_steps, opts.evol_times))
+    ]
+    assert TargetClassicState.check_cached_data(opts, num_qubits, data)
+    os.makedirs(os.path.dirname(filename), exist_ok=True)
+    with open(filename, "wb") as fld:
+        pickle.dump(data, fld)
+    return data
+
+
+def get_target_states(opts: Any) -> Union[List[TargetClassicState], List[TargetMpsState]]:
     """Dispatch on ``opts.use_mps``."""
     get = get_target_mps_states if opts.use_mps else get_target_classic_states
     return get(

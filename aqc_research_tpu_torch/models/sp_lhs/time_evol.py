@@ -1,13 +1,15 @@
 """ASP time-evolution driver: Trotter big steps + shallow-ansatz compression
-(twin of ``aqc_research_tpu/models/sp_lhs/time_evol.py``, its MPS path).
+(twin of ``aqc_research_tpu/models/sp_lhs/time_evol.py``).
 
 Per time horizon: build a Trotter-like ansatz with the 'perfect'
-initialization, optimize the MPS fidelity objective with the L-BFGS loop of
-models/sp_lhs/jit_asp.py, expand the circuit when the fidelity falls short,
-re-evaluate the solution without truncation, checkpoint, and finally persist
-and plot.  Not ported yet: the host-protocol objectives
-(``use_jit_lbfgs=False``; ROADMAP.md section 1, item 13) and the dense
-objective (the dense slice, items 6-10); both raise NotImplementedError.
+initialization, optimize the objective with the L-BFGS loop of
+models/sp_lhs/jit_asp.py — the MPS fidelity objective
+(``sur_fast_mps_trotter``) or the dense max-projection surrogate with its
+hysteresis and weight EMA (``sur_max``) — expand the circuit when the
+fidelity falls short, re-evaluate an MPS solution without truncation,
+checkpoint, and finally persist and plot.  Not ported yet: the
+host-protocol objectives (``use_jit_lbfgs=False``; ROADMAP.md section 1,
+item 13), which raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import os
 import pickle
 import time
 from pprint import pformat
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -32,7 +34,7 @@ from ...utils import UserExit, create_logger, print_options
 from . import evol_utils as trot_utils
 from . import jit_asp
 from .plots import plot_fidelity_profiles
-from .target_states import TargetMpsState, get_target_states
+from .target_states import TargetClassicState, TargetMpsState, get_target_states
 from .user_options import UserOptions
 
 _logger = create_logger(__file__)
@@ -115,7 +117,7 @@ def _load_horizon_checkpoint(output_dir: str, opts: UserOptions):
 
 
 def _calc_fidelity_threshold(
-    target: TargetMpsState,
+    target: Union[TargetClassicState, TargetMpsState],
     fidelity_thr: Optional[float] = None,
 ) -> Tuple[float, float]:
     """Threshold = max(user thr, fidelity(t1, t1_gt)); automatic selection is
@@ -170,7 +172,7 @@ def _model_function(
     opts: UserOptions,
     num_layers: int,
     evol_time: float,
-    target: MPS,
+    target: Union[MPS, torch.Tensor],
     fid_thr: float,
     prev_solution: Optional[dict] = None,
 ) -> dict:
@@ -226,41 +228,48 @@ def _optimize_jit(
     opts: UserOptions,
     circ: TrotterAnsatz,
     thetas_0: np.ndarray,
-    target: MPS,
+    target: Union[MPS, torch.Tensor],
     fid_thr: float,
 ) -> dict:
     """One horizon's optimization on the target's device
-    (``opts.use_jit_lbfgs``): the MPS fidelity objective and the L-BFGS loop
-    of jit_asp.py, the thetas in ``config.real_dtype()``.  ``time_limit >
-    0`` runs the loop in chunks of ``jit_chunk_iters`` iterations with the
-    clock checked between them; otherwise in one run.  Returns the result
-    dict of the JAX package's driver."""
-    if not opts.use_mps:
-        raise NotImplementedError(
-            "the dense objective belongs to the dense slice of the port "
-            "(ROADMAP.md section 1, items 6-10); use objective='sur_fast_mps_trotter'"
-        )
+    (``opts.use_jit_lbfgs``): the MPS fidelity objective, or the dense
+    surrogate with its hysteresis and weight EMA, and the L-BFGS loop of
+    jit_asp.py, the thetas in ``config.real_dtype()``.  ``time_limit > 0``
+    runs the loop in chunks of ``jit_chunk_iters`` iterations with the clock
+    checked between them; otherwise in one run.  Returns the result dict of
+    the JAX package's driver."""
     x0 = torch.tensor(np.asarray(thetas_0), dtype=config.real_dtype(), device=target.device)
     time_limit = float(getattr(opts, "time_limit", -1) or -1)
     prep = opts.ini_state_func[0](circ.num_qubits)
-    base = 0
-    for gate in prep:
-        assert gate.name == "x", "the MPS path expects an X-layer prep"
-        base ^= 1 << gate.qubits[0]
-    kw = dict(
-        base_bits=tuple((base >> k) & 1 for k in range(circ.num_qubits)),
-        trunc_thr=float(opts.trunc_thr),
-        fidelity_thr=fid_thr,
-        maxiter=int(opts.maxiter),
-    )
+    timed = dict(time_limit=time_limit, chunk_iters=int(getattr(opts, "jit_chunk_iters", 25)))
     timed_out = False
-    if time_limit > 0:
-        res, timed_out = jit_asp.optimize_horizon_mps_timed(
-            circ, x0, target, time_limit=time_limit,
-            chunk_iters=int(getattr(opts, "jit_chunk_iters", 25)), **kw,
+    if opts.use_mps:
+        base = 0
+        for gate in prep:
+            assert gate.name == "x", "the MPS path expects an X-layer prep"
+            base ^= 1 << gate.qubits[0]
+        kw = dict(
+            base_bits=tuple((base >> k) & 1 for k in range(circ.num_qubits)),
+            trunc_thr=float(opts.trunc_thr),
+            fidelity_thr=fid_thr,
+            maxiter=int(opts.maxiter),
         )
+        if time_limit > 0:
+            res, timed_out = jit_asp.optimize_horizon_mps_timed(circ, x0, target, **timed, **kw)
+        else:
+            res = jit_asp.optimize_horizon_mps_jit(circ, x0, target, **kw)
+        weight = 0.0
     else:
-        res = jit_asp.optimize_horizon_mps_jit(circ, x0, target, **kw)
+        kw = dict(
+            state_idx=jit_asp.flip_state_indices(circ.num_qubits, prep),
+            fidelity_thr=fid_thr,
+            maxiter=int(opts.maxiter),
+        )
+        if time_limit > 0:
+            res, timed_out = jit_asp.optimize_horizon_surrogate_timed(circ, x0, target, **timed, **kw)
+        else:
+            res = jit_asp.optimize_horizon_surrogate_jit(circ, x0, target, **kw)
+        weight = float(res.weight)
     num_iters = int(res.num_iters)
     return {
         "cost": float(res.fobj),
@@ -271,7 +280,7 @@ def _optimize_jit(
         "thetas": res.thetas.detach().cpu().numpy().astype(np.float64),
         "blocks": circ.blocks.copy(),
         "entangler": circ.entangler,
-        "stats": {"weight": 0.0, "use_jit_lbfgs": True},
+        "stats": {"weight": weight, "use_jit_lbfgs": True},
         "is_timeout": bool(timed_out),
         "fidelity": float(res.fidelity),
     }
@@ -282,12 +291,12 @@ def _time_evolution(
     opts: UserOptions,
     num_layers: int,
     num_expansions: int,
-    target: TargetMpsState,
+    target: Union[TargetClassicState, TargetMpsState],
     output_dir: str,
     prev_solution: Optional[dict] = None,
 ) -> dict:
     """One time horizon: optimize, expand when the fidelity falls short,
-    re-evaluate the solution without truncation at the end."""
+    re-evaluate an MPS solution without truncation at the end."""
     assert chk.is_int(num_layers, num_layers >= 1)
     assert chk.is_int(num_expansions, num_expansions >= 0)
     _logger.info("\n%s\nEvolution time: %f\n%s", "&" * 60, target.evol_time, "&" * 60)
@@ -332,15 +341,16 @@ def _time_evolution(
         num_layers += 1
         _logger.info("fidelity below the bar — expanding the ansatz by one layer")
 
-    _logger.info("re-evaluating the solution at the no-truncation threshold ...")
-    a1 = trot_utils.get_solution_from_optim_result(
-        opts=opts,
-        result=a_state_result,
-        trotterized=True,
-        state_prep_func=opts.ini_state_func[0],
-        trunc_thr=no_truncation_threshold(),
-    )
-    fid_a1_vs_gt = fidelity(a1, target.t1_gt)
+    if opts.use_mps:
+        _logger.info("re-evaluating the solution at the no-truncation threshold ...")
+        a1 = trot_utils.get_solution_from_optim_result(
+            opts=opts,
+            result=a_state_result,
+            trotterized=True,
+            state_prep_func=opts.ini_state_func[0],
+            trunc_thr=no_truncation_threshold(),
+        )
+        fid_a1_vs_gt = fidelity(a1, target.t1_gt)
 
     assert num_layers == a_state_result["num_layers"]
     res = {

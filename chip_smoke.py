@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch port on one CUDA card: builds the hand-written
 kernels, holds each against its plain-torch twin, then drives ASP horizons
 of the 20-qubit χ=64 and the 28-qubit χ=128 MPS configurations on the jacobi
-route and on the default (rand) route, and the ASP driver over a schedule
-of 20-qubit χ=64 horizons.
+route and on the default (rand) route, the ASP driver over a schedule of
+20-qubit χ=64 horizons, and the dense statevector path: bench.py's 12-qubit
+flagship and the driver's dense objective.
 
 Usage:  python3 chip_smoke.py        (from the root of a checkout; one card)
 
@@ -75,6 +76,22 @@ Phases, one line each:
                 horizon again, the target cache hits); run 3 runs one
                 horizon on an expired clock (time_limit 1e-9, chunks of
                 2): is_timeout after 2 iterations.
+  5c. dense12 — the dense statevector path, which launches none of the
+                hand-written kernels (checked): (a) bench.py's 12-qubit
+                flagship (2-layer Trotter ansatz, perfect init + 0.2 rad,
+                seed 12345; target Trotter(1.2, 30 steps)) through
+                jit_asp.optimize_horizon_jit to infidelity 1e-3 in c64/f32:
+                one warm-up counting the evaluations, 3 timed runs (min,
+                median), one profiled run (aten calls per evaluation, idle
+                share, over a run cut at 8 iterations), one profiled
+                obj+grad and value; fobj <= 1e-3,
+                47-85 iterations, the final θ re-evaluated in c128 on the
+                card within 1e-5; (b) the co-sweep gradient against
+                autograd at the start point: c128 within 1e-10 relative, c64
+                within 1e-4 of c128; (c) run_simulation(objective="sur_max")
+                at 12 qubits, horizons t = 1.2 and 2.4 of 2 and 4 layers,
+                maxiter 40, the default fidelity bar: fid_a1_vs_gt within
+                1e-5 of each result's fidelity.  The record's dense12 path.
   6. slice28 — phase 3 at 28 qubits, χ=128 (BASELINE config 5): the jacobi
                 route runs K4 for every pair update at χ=128 and K1 for the
                 χ-growth heads; the final objective is re-evaluated in c128
@@ -156,6 +173,18 @@ TOL_FINAL = 3e-4
 DRIVER_QUBITS, DRIVER_TIMES, DRIVER_STEPS = 20, (1.2, 2.4), (3, 6)
 # Fidelities of f32 states may exceed 1 by rounding (norms kept to ~1e-7).
 TOL_FID_ROUND = 1e-6
+# The dense phase: bench.py's flagship (bench.py:41-46) — 12 qubits, 2
+# layers, 0.2 rad perturbation of the perfect init (seed 12345), infidelity
+# 1e-3 within 300 iterations.  The JAX package on a CPU takes 63 iterations
+# in c64 and 61 in c128; the band allows other f32 rounding paths.
+DENSE_QUBITS, DENSE_LAYERS, DENSE_PERTURBATION, DENSE_SEED = 12, 2, 0.2, 12345
+DENSE_INFIDELITY, DENSE_MAXITER, DENSE_ITERS = 1e-3, 300, (47, 85)
+DENSE_PROFILE_ITERS = 8
+TOL_DENSE_RECHECK = 1e-5  # f32 fobj vs its c128 re-evaluation
+TOL_COSWEEP_C128 = 1e-10  # co-sweep vs autograd, relative, c128
+TOL_COSWEEP_C64 = 1e-4  # c64 gradients vs the c128 co-sweep, relative
+TOL_DENSE_FID = 1e-5  # the driver's fid_a1_vs_gt vs the result's fidelity (f32)
+DENSE_DRIVER_MAXITER = 40
 # Peak rates of one H100 SXM for the bounds: f32 outside the tensor cores and
 # HBM3 bandwidth (NVIDIA's data sheet, at the 700 W limit).
 PEAK_F32_FLOPS = 67e12
@@ -994,36 +1023,52 @@ def sweep_ms(value_and_grad, case, route: str, calls: int) -> float:
     return 1e3 * wall / calls
 
 
+def _own_us(evt) -> float:
+    """A profiler event's own device time in µs (the attribute's name
+    differs between torch versions)."""
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def profile_calls(fn) -> dict:
+    """``fn()`` under ``torch.profiler``: wall, device busy time (the sum of
+    the device-side events' own times: kernels, copies, fills), the idle
+    share 1 - busy / wall of that call, the host's aten calls and the
+    events."""
+    from torch.autograd import DeviceType
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        tic = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - tic)
+    events = prof.key_averages()
+    busy_ms = sum(_own_us(e) for e in events if e.device_type == DeviceType.CUDA) / 1e3
+    check(busy_ms > 0, "the profiler saw no device time")
+    aten = sum(e.count for e in events if e.key.startswith("aten::"))
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle": 1.0 - busy_ms / wall_ms, "aten_calls": aten,
+            "events": events}
+
+
 def profile_sweep(value_and_grad, case, route: str) -> dict:
-    """One objective+gradient sweep under ``torch.profiler``: device busy
-    time (the sum of the device-side events' own times: kernels, copies,
-    fills), the idle share 1 - busy / wall of that call, each hand-written
-    kernel's launches, the heaviest device kernels and the host's aten calls."""
+    """One objective+gradient sweep under ``torch.profiler``
+    (:func:`profile_calls`), with each hand-written kernel's launches, the
+    linalg_qr calls and the heaviest device kernels."""
     from torch.autograd import DeviceType
 
     before = read_counts()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with route_override(route), torch.profiler.profile(activities=acts) as prof:
-        tic = time.perf_counter()
-        value_and_grad(case["x0"], case["target"])
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - tic)
+    with route_override(route):
+        prof = profile_calls(lambda: value_and_grad(case["x0"], case["target"]))
     launches = {name: n - before[name] for name, n in read_counts().items()}
-    events = prof.key_averages()
-
-    def own_us(evt):
-        for name in ("self_device_time_total", "self_cuda_time_total"):
-            if hasattr(evt, name):
-                return float(getattr(evt, name))
-        return 0.0
-
-    device = sorted(((e.key, own_us(e), e.count) for e in events if e.device_type == DeviceType.CUDA),
+    events = prof.pop("events")
+    device = sorted(((e.key, _own_us(e), e.count) for e in events if e.device_type == DeviceType.CUDA),
                     key=lambda t: -t[1])
-    busy_ms = sum(t[1] for t in device) / 1e3
-    check(busy_ms > 0, f"{route}: the profiler saw no device time")
-    aten = {e.key: e.count for e in events if e.key.startswith("aten::")}
-    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle": 1.0 - busy_ms / wall_ms, "launches": launches,
-            "aten_calls": sum(aten.values()), "qr_calls": aten.get("aten::linalg_qr", 0),
+    qr_calls = sum(e.count for e in events if e.key == "aten::linalg_qr")
+    return {**prof, "launches": launches, "qr_calls": qr_calls,
             "top": [(k[:48], us / 1e3, n) for k, us, n in device[:6]]}
 
 
@@ -1221,6 +1266,215 @@ def phase_driver():
     return counts, counts_at, homes
 
 
+@contextmanager
+def dense_spies():
+    """Counts the flagship run's evaluations through the names it calls:
+    every surrogate-loss call and every autograd value-and-gradient call
+    (values = loss calls - value-and-gradient calls)."""
+    from aqc_research_tpu_torch.models.sp_lhs import jit_asp
+    from aqc_research_tpu_torch.optim import lbfgs
+
+    seen = {"loss": 0, "value_and_grad": 0}
+    real_loss, real_vg = jit_asp.make_surrogate_loss, lbfgs.autograd_value_and_grad
+
+    def make_loss(*args, **kwargs):
+        loss = real_loss(*args, **kwargs)
+
+        def counted(*a):
+            seen["loss"] += 1
+            return loss(*a)
+        return counted
+
+    def make_vg(fun):
+        vg = real_vg(fun)
+
+        def counted(x):
+            seen["value_and_grad"] += 1
+            return vg(x)
+        return counted
+
+    jit_asp.make_surrogate_loss, lbfgs.autograd_value_and_grad = make_loss, make_vg
+    try:
+        yield seen
+    finally:
+        jit_asp.make_surrogate_loss, lbfgs.autograd_value_and_grad = real_loss, real_vg
+
+
+def dense_flagship(dev, dtype):
+    """bench.py's configuration (``__graft_entry__._flagship(12, 2)`` plus
+    its perturbation), rebuilt in the port: 2-layer 2nd-order Trotter
+    ansatz, perfect init at t=1.2, δ=1, plus 0.2·N(0,1) rad (seed 12345);
+    target Trotter(1.2, 30 steps, 2nd order) of the Néel state in
+    ``dtype`` on ``dev``; the Néel index and its one-bit flips."""
+    from aqc_research_tpu_torch.circuit.ansatz import TrotterAnsatz
+    from aqc_research_tpu_torch.circuit.structures import make_trotter_like_circuit
+    from aqc_research_tpu_torch.models.sp_lhs import jit_asp
+    from aqc_research_tpu_torch.targets import trotter as trotop
+
+    n = DENSE_QUBITS
+    circ = TrotterAnsatz.make(n, make_trotter_like_circuit(n, DENSE_LAYERS), True)
+    thetas = trotop.init_ansatz_to_trotter(circ, np.zeros(circ.num_thetas), evol_time=1.2, delta=1.0)
+    thetas = thetas + DENSE_PERTURBATION * np.random.default_rng(DENSE_SEED).standard_normal(thetas.shape)
+    target = trotop.Trotter(num_qubits=n, evol_time=1.2, num_steps=30, delta=1.0, second_order=True).as_vector(
+        trotop.neel_init_state(n), dtype=dtype, device=dev)
+    idx = jit_asp.flip_state_indices(n, trotop.neel_init_state(n))
+    return circ, thetas, target, idx
+
+
+def wall_s(fn) -> float:
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - tic
+
+
+def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+
+def phase_dense(dev):
+    """The dense statevector path on the card (no hand-written kernel on it):
+    (a) bench.py's 12-qubit flagship through ``optimize_horizon_jit`` to
+    infidelity 1e-3 in c64/f32 — one warm-up, 3 timed runs, one profiled;
+    (b) the co-sweep gradient against autograd at the flagship start point
+    in c128 and in c64; (c) ``run_simulation(objective="sur_max")`` at 12
+    qubits over two horizons.  K1-K4 must not launch."""
+    from aqc_research_tpu_torch import config
+    from aqc_research_tpu_torch.models.sp_lhs import jit_asp, time_evol
+    from aqc_research_tpu_torch.models.sp_lhs.user_options import UserOptions
+    from aqc_research_tpu_torch.ops.gradients import grad_of_dot_product, grad_of_dot_product_autodiff
+    from aqc_research_tpu_torch.ops.statevector import v_dagger_mul_vec
+    from aqc_research_tpu_torch.optim.lbfgs import autograd_value_and_grad
+
+    tic_phase = time.perf_counter()
+    config.set_precision("fast")
+    reset_counts()
+
+    # (a) The flagship, fast precision.
+    circ, thetas, target, idx = dense_flagship(dev, torch.complex64)
+    x0 = torch.tensor(thetas, dtype=torch.float32, device=dev)
+
+    def run():
+        return jit_asp.optimize_horizon_jit(circ, x0, target, state_idx=idx, fidelity_thr=1.0 - DENSE_INFIDELITY,
+                                            maxiter=DENSE_MAXITER)
+
+    with dense_spies() as evals:
+        res = run()
+    torch.cuda.synchronize()
+    n_vg = evals["value_and_grad"]
+    n_value = evals["loss"] - n_vg
+    times = [wall_s(run) for _ in range(3)]
+    fobj, iters = float(res.fobj), res.num_iters
+    check(np.isfinite(fobj) and fobj <= DENSE_INFIDELITY, f"dense flagship: fobj {fobj} > {DENSE_INFIDELITY}")
+    check(DENSE_ITERS[0] <= iters <= DENSE_ITERS[1], f"dense flagship: {iters} iterations outside {DENSE_ITERS}")
+    flagship_s = time.perf_counter() - tic_phase
+    # The profiled run is cut at DENSE_PROFILE_ITERS iterations: a steady
+    # window (the profiler's digest of a whole run's ~450 k host events took
+    # most of a 133 s phase on the H100).
+    tic = time.perf_counter()
+    with dense_spies() as prof_evals:
+        run_prof = profile_calls(lambda: jit_asp.optimize_horizon_jit(
+            circ, x0, target, state_idx=idx, fidelity_thr=1.0 - DENSE_INFIDELITY, maxiter=DENSE_PROFILE_ITERS))
+    prof_evaluations = prof_evals["loss"]
+    loss = jit_asp.make_surrogate_loss(circ, idx)
+    vg = autograd_value_and_grad(lambda x: loss(x, target))
+    vg_prof = profile_calls(lambda: vg(x0))
+    with torch.no_grad():
+        value_prof = profile_calls(lambda: loss(x0, target))
+    # The engine re-evaluated in c128 at the final θ against the run's own
+    # target; then against the target built in c128 (the c64 target loses
+    # norm over its 330 f32 block applications, as the JAX package's does).
+    target128 = dense_flagship(dev, torch.complex128)[2]
+    with torch.no_grad():
+        f128 = float(1.0 - v_dagger_mul_vec(circ, res.thetas.double(), target.to(torch.complex128))[int(idx[0])]
+                     .abs() ** 2)
+        f128_target128 = float(1.0 - v_dagger_mul_vec(circ, res.thetas.double(), target128)[int(idx[0])].abs() ** 2)
+    norm_gap = 1.0 - float(target.abs().pow(2).sum())
+    check(abs(f128 - fobj) <= TOL_DENSE_RECHECK, f"dense flagship: fobj {fobj} vs c128 re-evaluation {f128}")
+    profile_s = time.perf_counter() - tic
+
+    # (b) The co-sweep against autograd at the start point.
+    tic = time.perf_counter()
+    grads = {}
+    for dtype in (torch.complex128, torch.complex64):
+        tgt = target128.to(dtype)
+        th = torch.tensor(thetas, dtype=config.real_of(dtype), device=dev)
+        x = torch.zeros_like(tgt)
+        x[int(idx[0])] = 1.0
+        with torch.no_grad():
+            vh = v_dagger_mul_vec(circ, th, tgt)
+        cs_s = wall_s(lambda: grad_of_dot_product(circ, th, x, vh))
+        ad_s = wall_s(lambda: grad_of_dot_product_autodiff(circ, th, x, tgt))
+        grads[dtype] = (grad_of_dot_product(circ, th, x, vh), grad_of_dot_product_autodiff(circ, th, x, tgt),
+                        cs_s, ad_s)
+    g_cs, g_ad = grads[torch.complex128][:2]
+    err128 = rel_err(g_cs, g_ad)
+    check(err128 <= TOL_COSWEEP_C128, f"co-sweep vs autograd in c128: relative {err128:.3g}")
+    err64 = {name: rel_err(g.to(torch.complex128), ref)
+             for name, g, ref in (("co-sweep", grads[torch.complex64][0], g_cs),
+                                  ("autograd", grads[torch.complex64][1], g_ad))}
+    check(max(err64.values()) <= TOL_COSWEEP_C64, f"c64 gradients vs c128: {err64}")
+
+    cosweep_s = time.perf_counter() - tic
+
+    # (c) The dense driver.
+    tic = time.perf_counter()
+    result_dir = tempfile.mkdtemp(prefix="aqc_dense_")
+    try:
+        opts = driver_options(result_dir, num_qubits=DENSE_QUBITS, objective="sur_max", maxiter=DENSE_DRIVER_MAXITER,
+                              fidelity_thr=UserOptions().fidelity_thr)
+        check(not opts.use_mps, "objective 'sur_max' resolves to the MPS engine")
+        with driver_spies() as seen:
+            out = time_evol.run_simulation(opts)
+        torch.cuda.synchronize()
+        with open(os.path.join(out, "all_results.pkl"), "rb") as fld:
+            results = pickle.load(fld)
+    finally:
+        shutil.rmtree(result_dir, ignore_errors=True)
+    check(len(results) == 2 and len(seen["optimized"]) == 2, f"dense driver: {len(results)} horizons")
+    horizons = []
+    for res_h, opt in zip(results, seen["optimized"]):
+        at = f"dense driver horizon t={res_h['evol_time1']}"
+        gap = abs(res_h["fid_a1_vs_gt"] - opt["fidelity"])
+        check(np.isfinite(opt["cost"]) and not res_h["use_mps"], f"{at}: fobj {opt['cost']}")
+        check(gap <= TOL_DENSE_FID, f"{at}: fid_a1_vs_gt {res_h['fid_a1_vs_gt']} vs the result's fidelity "
+                                    f"{opt['fidelity']}: gap {gap:.3g} > {TOL_DENSE_FID}")
+        horizons.append(f"t={res_h['evol_time1']}: {res_h['num_layers']} layers, {opt['num_iters']} iters, "
+                        f"{opt['time'] / max(opt['num_iters'], 1):.4f} s/iter ({opt['time']:.3f} s), fobj "
+                        f"{opt['cost']:.7g}, weight {opt['stats']['weight']:.5g}, fidelity {opt['fidelity']:.7f}, "
+                        f"fid_a1_vs_gt {res_h['fid_a1_vs_gt']:.7f} (gap {gap:.2e}), fid_t1_vs_gt "
+                        f"{res_h['fid_t1_vs_gt']:.7f}")
+    driver_s = time.perf_counter() - tic
+    counts, counts_at, homes = read_counts(), read_counts_at(), read_counts_home()
+    check(not any(counts.values()), f"the dense path launched a hand-written kernel: {counts}")
+    wall = time.perf_counter() - tic_phase
+    evals_per_run = n_value + n_vg
+    print(f"[dense12] flagship {DENSE_QUBITS}q {DENSE_LAYERS}-layer Trotter ansatz ({circ.num_thetas} thetas), "
+          f"0.2 rad seed {DENSE_SEED}, fast (c64/f32), optimize_horizon_jit (autograd gradient) to infidelity "
+          f"{DENSE_INFIDELITY}: {iters} iters, fobj {fobj:.7g} (c128 re-evaluation {f128:.7g}; against the target "
+          f"built in c128 {f128_target128:.7g}, the c64 target's 1 - norm^2 {norm_gap:.3g}), "
+          f"{n_value} values + {n_vg} value+grads per run | 3 timed runs {', '.join(f'{t:.4f}' for t in times)} s: "
+          f"min {min(times):.4f} s, median {float(np.median(times)):.4f} s "
+          f"({float(np.median(times)) / evals_per_run * 1e3:.3f} ms per evaluation, "
+          f"{float(np.median(times)) / iters * 1e3:.3f} ms per iteration) | profiled run cut at {DENSE_PROFILE_ITERS} "
+          f"iterations ({prof_evaluations} evaluations): {run_prof['wall_ms']:.1f} ms wall, device busy "
+          f"{run_prof['busy_ms']:.1f} ms (idle {run_prof['idle']:.1%}), {run_prof['aten_calls']} aten calls "
+          f"({run_prof['aten_calls'] / prof_evaluations:.0f} per evaluation) | one obj+grad: "
+          f"{vg_prof['aten_calls']} aten calls, {vg_prof['wall_ms']:.2f} ms wall, idle {vg_prof['idle']:.1%}; one "
+          f"value: {value_prof['aten_calls']} aten calls, {value_prof['wall_ms']:.2f} ms wall", flush=True)
+    print(f"[dense12] co-sweep vs autograd at the start point: c128 relative {err128:.3e} (co-sweep "
+          f"{grads[torch.complex128][2] * 1e3:.2f} ms, autograd {grads[torch.complex128][3] * 1e3:.2f} ms); c64 vs "
+          f"c128: co-sweep {err64['co-sweep']:.3e}, autograd {err64['autograd']:.3e} (co-sweep "
+          f"{grads[torch.complex64][2] * 1e3:.2f} ms, autograd {grads[torch.complex64][3] * 1e3:.2f} ms)", flush=True)
+    print(f"[dense12] run_simulation objective=sur_max, {DENSE_QUBITS}q, horizons t={list(DRIVER_TIMES)} (steps "
+          f"{list(DRIVER_STEPS)}), maxiter {DENSE_DRIVER_MAXITER}, fidelity bar from fidelity_thr "
+          f"{opts.fidelity_thr}: targets {seen['targets_s'][0]:.3f} s | {'; '.join(horizons)} | launches {counts} | "
+          f"phase wall {wall:.1f} s (flagship runs {flagship_s:.1f}, profiles and c128 re-check {profile_s:.1f}, "
+          f"gradients {cosweep_s:.1f}, driver {driver_s:.1f})", flush=True)
+    return counts, counts_at, homes
+
+
 KERNELS = (
     ("jacobi_rows", "aqc_research_tpu_torch/csrc/jacobi_rows.cu",
      "aqc_research_tpu/ops/pallas_jacobi.py:244", "jacobi20"),
@@ -1252,6 +1506,7 @@ def main() -> int:
         paths["rand20"] = phase_rand(case, "rand")
         phase_routes(case, "routes", ("rand", "jacobi"), repeats=2, calls=5)
         paths["driver20"] = phase_driver()
+        paths["dense12"] = phase_dense(dev)
         case = make_case(dev, 28, PATH28_CHI, maxiter=10, f64_device=dev)
         paths["jacobi28"] = phase_slice(case, "slice28")
         paths["rand28"] = phase_rand(case, "rand28")

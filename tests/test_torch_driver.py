@@ -17,8 +17,8 @@ modules under it) held against the JAX package on the CPU.
 * ``v_mul_mps`` at no truncation within 1e-10 as dense vectors;
   ``_warm_start_thetas`` within 1e-14.
 * the port alone: the target cache, resume, the chunked runner, the
-  options' auto rule, the branches that are not ported, the plot without
-  matplotlib.
+  options' auto rule, the host-protocol branch that is not ported, the
+  plot without matplotlib.
 
 One JAX ``run_simulation`` call in all (it compiles its loop)."""
 
@@ -380,14 +380,14 @@ def test_use_jit_lbfgs_auto_rule(monkeypatch):
 
 
 def test_unported_branches_raise(tmp_path):
-    opts = _mini_opts(UserOptions, tmp_path, num_horizons=1)
-    opts.use_jit_lbfgs = False
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tte.run_simulation(opts)
-    opts.use_jit_lbfgs = True
-    opts.objective = "sur_max"
-    with pytest.raises(NotImplementedError, match="dense slice"):
-        tte.run_simulation(opts)
+    """The host-protocol path raises, for either objective; the dense
+    objective runs (tests/test_torch_dense_asp.py holds it against JAX)."""
+    for objective in ("sur_fast_mps_trotter", "sur_max"):
+        opts = _mini_opts(UserOptions, tmp_path, num_horizons=1)
+        opts.objective = objective
+        opts.use_jit_lbfgs = False
+        with pytest.raises(NotImplementedError, match="item 13"):
+            tte.run_simulation(opts)
 
 
 def test_result_dir_default_is_the_ports_own():

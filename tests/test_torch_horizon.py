@@ -96,8 +96,17 @@ def test_lbfgs_compact_matches_jax(kwargs):
 
 
 def test_lbfgs_needs_a_gradient():
-    with pytest.raises(ValueError):
-        tlbfgs.minimize_lbfgs_compact(lambda x: (x * x).sum(), torch.ones(3), maxiter=2)
+    """Without ``value_and_grad_fn`` the gradient is torch.autograd's (the
+    JAX twin's jax.value_and_grad): the same run as with the analytic one;
+    an objective whose value carries no graph raises."""
+    x0 = np.random.default_rng(1).uniform(-1.5, 1.5, 7)
+    tf, tvg = _rosenbrock(torch)
+    auto = tlbfgs.minimize_lbfgs_compact(tf, torch.tensor(x0), maxiter=30)
+    given = tlbfgs.minimize_lbfgs_compact(tf, torch.tensor(x0), value_and_grad_fn=tvg, maxiter=30)
+    assert auto.num_iters == given.num_iters == 30
+    np.testing.assert_allclose(auto.thetas.numpy(), given.thetas.numpy(), atol=1e-10)
+    with pytest.raises(ValueError, match="value_and_grad_fn"):
+        tlbfgs.minimize_lbfgs_compact(lambda x: (x * x).sum().detach(), torch.ones(3), maxiter=2)
 
 
 def test_horizon_native_matches_jax(case):
