@@ -20,6 +20,7 @@ import torch
 from ... import checking as chk
 from ... import config
 from ...circuit.ansatz import Ansatz, TrotterAnsatz
+from ...circuit.export import ansatz_to_program
 from ...circuit.program import GateProgram, program_to_state
 from ...ops import mps as mpsop
 from ...ops.statevector import v_mul_vec
@@ -38,6 +39,21 @@ def load_results_from_archive(filename: str) -> List[Dict]:
     print(f"{len(horizons)} time horizon(s) in the archive")
     pprint(f"horizon times: {horizons}")
     return data
+
+
+def program_from_result(result: dict, tol: float = 0.0) -> GateProgram:
+    """The solution's gate program from an optimization result (a CX
+    Trotter ansatz); gates within ``tol`` of angle 0 are left out."""
+    assert isinstance(result, dict)
+    assert result["entangler"] == "cx"
+    circ = TrotterAnsatz.make(
+        result["num_qubits"], np.asarray(result["blocks"]), bool(result["second_order_trotter"])
+    )
+    return ansatz_to_program(circ, np.asarray(result["thetas"]), tol=tol)
+
+
+# The reference's name ("qcircuit" is a GateProgram here).
+qcircuit_from_result = program_from_result
 
 
 def get_solution_from_optim_result(

@@ -41,7 +41,7 @@ from ...ops.mps import (
     v_mul_mps_growing,
 )
 from ...ops.gradients import grad_of_dot_product
-from ...ops.mps_gradient import fast_dot_gradient_with_state
+from ...ops.mps_gradient import fast_dot_gradient, fast_dot_gradient_with_state
 from ...ops.statevector import as_state, as_thetas, v_dagger_mul_vec
 from ...optim.lbfgs import lbfgs_chunk_programs, minimize_lbfgs_compact, run_lbfgs_chunked, stateless
 
@@ -322,19 +322,22 @@ def _mps_value_fns(circ: Ansatz, base_bits: tuple, trunc_thr: float):
         return (1.0 - amps[0].abs() ** 2).to(th.dtype)
 
     def value_and_grad(th: torch.Tensor, tgt: MPS):
-        if not use_cache:
-            raise NotImplementedError(
-                "only the layered Trotter co-sweep gradient is ported (TrotterAnsatz)"
-            )
         lvec = mps_basis_state(base_bits, tgt.chi, tgt.gammas.dtype, tgt.device)
-        # The V† sweep's per-layer cache makes the co-sweep z-free; its final
-        # w (= V lvec) gives the forward-consistent objective.  grow_w: lvec
-        # is a rank-1 product state (exact).
-        vh, zcache = v_dagger_mul_mps_layers(circ, th, tgt, trunc_thr=trunc_thr)
-        grad, w_fin = fast_dot_gradient_with_state(
-            circ, th, lvec, vh, zcache, trunc_thr=trunc_thr, grow_w=True
-        )
-        hs0 = mps_dot(w_fin, tgt)
+        if use_cache:
+            # The V† sweep's per-layer cache makes the co-sweep z-free; its
+            # final w (= V lvec) gives the forward-consistent objective.
+            # grow_w: lvec is a rank-1 product state (exact).
+            vh, zcache = v_dagger_mul_mps_layers(circ, th, tgt, trunc_thr=trunc_thr)
+            grad, w_fin = fast_dot_gradient_with_state(
+                circ, th, lvec, vh, zcache, trunc_thr=trunc_thr, grow_w=True
+            )
+            hs0 = mps_dot(w_fin, tgt)
+        else:
+            # No layer cache (a one-layer horizon): the amplitude from the V†
+            # sweep, the co-sweep updating w and z together.
+            vh = v_dagger_mul_mps(circ, th, tgt, trunc_thr=trunc_thr)
+            hs0 = mps_flip_amplitudes(vh, base_bits)[0]
+            grad = fast_dot_gradient(circ, th, lvec, vh, trunc_thr=trunc_thr)
         fobj = (1.0 - hs0.abs() ** 2).to(th.dtype)
         grad = (-2.0 * hs0.conj() * grad).real.to(th.dtype)
         return fobj, grad

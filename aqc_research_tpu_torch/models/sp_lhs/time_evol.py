@@ -2,14 +2,14 @@
 (twin of ``aqc_research_tpu/models/sp_lhs/time_evol.py``).
 
 Per time horizon: build a Trotter-like ansatz with the 'perfect'
-initialization, optimize the objective with the L-BFGS loop of
-models/sp_lhs/jit_asp.py — the MPS fidelity objective
-(``sur_fast_mps_trotter``) or the dense max-projection surrogate with its
-hysteresis and weight EMA (``sur_max``) — expand the circuit when the
-fidelity falls short, re-evaluate an MPS solution without truncation,
-checkpoint, and finally persist and plot.  Not ported yet: the
-host-protocol objectives (``use_jit_lbfgs=False``; ROADMAP.md section 1,
-item 13), which raise NotImplementedError.
+initialization, optimize, expand the circuit when the fidelity falls short,
+re-evaluate an MPS solution without truncation, checkpoint, and finally
+persist and plot.  Two optimizer protocols (``UserOptions.
+resolve_use_jit_lbfgs``): the L-BFGS loop of models/sp_lhs/jit_asp.py on the
+tensors' device — the MPS fidelity objective (``sur_fast_mps_trotter``) or
+the dense max-projection surrogate (``sur_max``) — or SciPy's L-BFGS-B on
+the host over the host-protocol surrogates of sur_fast_mps.py and
+sur_max.py (``_create_objective``), whose evaluations run on the device.
 """
 
 from __future__ import annotations
@@ -25,15 +25,20 @@ import torch
 
 from ... import checking as chk
 from ... import config
-from ...circuit.ansatz import TrotterAnsatz
+from ...circuit.ansatz import TrotterAnsatz, first_layer_included, layer_to_block_range
 from ...circuit.structures import make_trotter_like_circuit
 from ...ops.mps import MPS, no_truncation_threshold
+from ...optim import optimizer as optim
+from ...optim.stoppers import EarlyStopper, GradientAmplifier, TimeoutChecker
 from ...targets import trotter as trotop
 from ...targets.trotter import fidelity
 from ...utils import UserExit, create_logger, print_options
 from . import evol_utils as trot_utils
 from . import jit_asp
+from .objective_base import SpLHSObjectiveBase
 from .plots import plot_fidelity_profiles
+from .sur_fast_mps import SpSurrogateObjectiveFastMpsTrotter
+from .sur_max import SpSurrogateObjectiveMax
 from .target_states import TargetClassicState, TargetMpsState, get_target_states
 from .user_options import UserOptions
 
@@ -116,6 +121,54 @@ def _load_horizon_checkpoint(output_dir: str, opts: UserOptions):
     return list(data["all_results"]), data.get("prev_solution")
 
 
+def _create_objective(
+    *,
+    opts: UserOptions,
+    circ: TrotterAnsatz,
+    target: Union[MPS, torch.Tensor],
+    layer_range: Union[Tuple[int, int], None],
+) -> SpLHSObjectiveBase:
+    """The host-protocol objective of ``opts.objective`` over ``layer_range``
+    with the gradient amplifier where ``opts.enable_grad_scaling``."""
+    params = {
+        "job_index": 0,
+        "num_qubits": circ.num_qubits,
+        "max_flips": 1,
+        "maxiter": opts.maxiter,
+        "verbose": opts.verbose,
+        "enable_optim_stats": True,
+        "num_simulations": 1,
+        "trunc_thr": opts.trunc_thr,
+        "chi_max": opts.chi_max,
+        "state_prep_func": opts.ini_state_func[0],
+    }
+    grad_scaler = None
+    if opts.enable_grad_scaling:
+        grad_scaler = GradientAmplifier(history=5, strong=False, verbose=opts.verbose)
+    if opts.objective == "sur_max":
+        objv = SpSurrogateObjectiveMax(
+            user_parameters=params,
+            circ=circ,
+            block_range=layer_to_block_range(circ, layer_range),
+            front_layer=first_layer_included(circ, layer_range),
+            verbose=opts.verbose,
+            grad_scaler=grad_scaler,
+        )
+    elif opts.objective == "sur_fast_mps_trotter":
+        objv = SpSurrogateObjectiveFastMpsTrotter(
+            user_parameters=params,
+            circ=circ,
+            layer_range=layer_range,
+            alt_layers=False,
+            verbose=opts.verbose,
+            grad_scaler=grad_scaler,
+        )
+    else:
+        raise ValueError(f"no such objective {opts.objective!r} (sur_max | sur_fast_mps_trotter)")
+    objv.set_target(target)
+    return objv
+
+
 def _calc_fidelity_threshold(
     target: Union[TargetClassicState, TargetMpsState],
     fidelity_thr: Optional[float] = None,
@@ -177,7 +230,8 @@ def _model_function(
     prev_solution: Optional[dict] = None,
 ) -> dict:
     """Builds the ansatz with the perfect Trotter initialization (or the
-    previous horizon's warm start) and runs L-BFGS."""
+    previous horizon's warm start) and runs L-BFGS: the device loop, or
+    SciPy's on the host (``opts.resolve_use_jit_lbfgs()``)."""
     tic = time.perf_counter()
     assert num_layers >= 1 and 0 < fid_thr <= 1
     _logger.info("#layers: %d, evol.time: %0.3f", num_layers, evol_time)
@@ -205,12 +259,18 @@ def _model_function(
             delta=opts.delta,
             layer_range=(0, num_layers),
         )
-    if not opts.resolve_use_jit_lbfgs():
-        raise NotImplementedError(
-            "the host-protocol objectives and optimizer (use_jit_lbfgs=False) are "
-            "not ported yet (ROADMAP.md section 1, item 13); set opts.use_jit_lbfgs = True"
+    if opts.resolve_use_jit_lbfgs():
+        result = _optimize_jit(opts=opts, circ=circ, thetas_0=thetas_0, target=target, fid_thr=fid_thr)
+    else:
+        objv = _create_objective(opts=opts, circ=circ, target=target, layer_range=(0, num_layers))
+        optimizer = optim.AqcOptimizer(optimizer_name="lbfgs", maxiter=int(opts.maxiter), verbose=opts.verbose)
+        result = optimizer.optimize(
+            objv,
+            circ,
+            thetas_0,
+            stopper=EarlyStopper(fidelity_thr=fid_thr),
+            timeout=TimeoutChecker(time_limit=opts.time_limit),
         )
-    result = _optimize_jit(opts=opts, circ=circ, thetas_0=thetas_0, target=target, fid_thr=fid_thr)
     result.update(
         {
             "num_qubits": circ.num_qubits,

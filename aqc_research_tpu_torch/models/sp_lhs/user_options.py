@@ -115,12 +115,14 @@ class UserOptions:
 
         # The optimization loop of models/sp_lhs/jit_asp.py with the
         # objective, the gradient and the L-BFGS state on the tensors'
-        # device — the card's production path.  The host path (the SciPy
-        # protocol objectives) is the reference-parity path of the JAX
-        # package; in this package it is not ported yet.  None = auto: on
-        # with a CUDA default device, off on the CPU.  time_limit is
-        # enforced by running the loop in chunks (the host checks the clock
-        # every ``jit_chunk_iters`` iterations).
+        # device — the card's production path.  Off: the host protocol,
+        # SciPy's L-BFGS-B over the surrogate objectives (sur_max.py,
+        # sur_fast_mps.py), whose evaluations still run on the device — the
+        # reference-parity path of the JAX package.  None = auto: on with a
+        # CUDA default device, off on the CPU.  time_limit is enforced by
+        # running the loop in chunks (the host checks the clock every
+        # ``jit_chunk_iters`` iterations); on the host protocol by the
+        # objective's timeout check (an int number of seconds).
         self.use_jit_lbfgs = None
 
         # L-BFGS iterations per chunk of that loop; only matters when

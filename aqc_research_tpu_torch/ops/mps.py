@@ -277,6 +277,18 @@ def _rand_route_update(chi: int, dtype, dev) -> str:
     return "jacobi"
 
 
+def pair_thetas(mps: MPS, gates4: torch.Tensor, lo_sites: Tuple[int, ...]) -> torch.Tensor:
+    """The (P, 2chi, 2chi) matrices :func:`apply_pairs_mps` decomposes for
+    the disjoint pairs ``lo_sites`` (a probe utility; same gather)."""
+    lo = torch.as_tensor(np.asarray(lo_sites, dtype=int), dtype=torch.long, device=mps.gammas.device)
+    lam_ext = _lam_ext(mps)
+    return _pair_theta(
+        lam_ext[..., lo, :], lam_ext[..., lo + 1, :], lam_ext[..., lo + 2, :],
+        mps.gammas[..., lo, :, :, :], mps.gammas[..., lo + 1, :, :, :],
+        torch.as_tensor(gates4, device=mps.gammas.device), mps.chi, mps.gammas.dtype,
+    )
+
+
 def _pair_update(lam_l, lam_c, lam_r, g1, g2, gate4, chi, trunc_thr, dtype, rdtype):
     """Core Vidal pair update on raw tensors; returns (g1', g2', lam').
     Natively batched over identical leading axes: one call is one batched
@@ -414,6 +426,15 @@ def apply_gate_mps(mps: MPS, gate, *, trunc_thr: float = _NO_TRUNCATION_THR) -> 
     return apply_2q_any_mps(mps, g.reshape(4, 4), lo, hi, trunc_thr=trunc_thr)
 
 
+def apply_program_mps(mps: MPS, program: GateProgram, *, trunc_thr: Optional[float] = None) -> MPS:
+    """Applies a whole gate program, gate by gate (non-adjacent 2-qubit
+    gates through the swap network)."""
+    thr = _NO_TRUNCATION_THR if trunc_thr is None else float(trunc_thr)
+    for gate in program:
+        mps = apply_gate_mps(mps, gate, trunc_thr=thr)
+    return mps
+
+
 def mps_from_program(
     program: GateProgram,
     num_qubits: int,
@@ -424,11 +445,7 @@ def mps_from_program(
     device=None,
 ) -> MPS:
     """``program @ |0...0>`` in MPS form."""
-    thr = _NO_TRUNCATION_THR if trunc_thr is None else float(trunc_thr)
-    mps = mps_zero(num_qubits, chi_max, dtype, device)
-    for gate in program:
-        mps = apply_gate_mps(mps, gate, trunc_thr=thr)
-    return mps
+    return apply_program_mps(mps_zero(num_qubits, chi_max, dtype, device), program, trunc_thr=trunc_thr)
 
 
 # -----------------------------------------------------------------------------
@@ -491,6 +508,75 @@ def mps_to_vector(mps: MPS) -> torch.Tensor:
         v = torch.einsum("...b,sbc->s...c", v, a[i])
     # Axes are (s_n, ..., s_1): C-order ravel is the little-endian index.
     return v[..., 0].reshape(-1)
+
+
+def mps_from_dense(state, chi_max: int, dtype=None, device=None) -> MPS:
+    """Exact MPS of a dense state (numpy or tensor) by successive SVDs on the
+    host, singular values below 1e-14 dropped (a test utility)."""
+    dtype = complex_dtype() if dtype is None else dtype
+    device = default_device() if device is None else device
+    if isinstance(state, torch.Tensor):
+        state = state.detach().cpu().numpy()
+    state = np.asarray(state)
+    n = int(round(np.log2(state.size)))
+    if 2**n != state.size:
+        raise ValueError(f"a state of {state.size} amplitudes is not one of qubits")
+    gammas = np.zeros((n, 2, chi_max, chi_max), dtype=np.complex128)
+    lambdas = np.zeros((max(n - 1, 0), chi_max))
+    # Axes (s_1, ..., s_n): site 1 (the least significant bit) splits first.
+    psi = state.reshape([2] * n).transpose(list(range(n - 1, -1, -1)))
+    left_dim, prev_lam = 1, np.ones(1)
+    mats = psi.reshape(2, -1)
+    for i in range(n - 1):
+        u, s, vh = np.linalg.svd(mats, full_matrices=False)
+        k = min(chi_max, int(np.sum(s > 1e-14)))
+        u, s, vh = u[:, :k], s[:k], vh[:k, :]
+        inv = np.where(prev_lam > 1e-14, 1.0 / prev_lam, 0.0)
+        gammas[i, :, :left_dim, :k] = u.reshape(2, left_dim, k) * inv[None, :, None]
+        lambdas[i, :k] = s
+        prev_lam, left_dim = s, k
+        # (diag(s) vh) is (k, 2^(n-i-1)) with s_{i+1} slowest: bring the
+        # next site's index in front of the bond.
+        mats = (np.diag(s) @ vh).reshape(k, 2, -1).transpose(1, 0, 2).reshape(2 * k, -1)
+    inv = np.where(prev_lam > 1e-14, 1.0 / prev_lam, 0.0)
+    gammas[n - 1, :, :left_dim, 0] = mats.reshape(2, left_dim) * inv[None, :]
+    return MPS(
+        torch.as_tensor(gammas, device=device).to(dtype),
+        torch.as_tensor(lambdas, device=device).to(real_of(dtype)),
+    )
+
+
+def rand_mps_vec(
+    num_qubits: int,
+    num_layers: int = 3,
+    chi_max: int = 32,
+    *,
+    generator: Optional[torch.Generator] = None,
+    entangler: Optional[str] = None,
+    thetas=None,
+    dtype=None,
+    device=None,
+) -> MPS:
+    """Random low-entanglement MPS: a random-angle spin-layout ansatz of
+    ``num_layers * (n - 1)`` blocks applied to |0...0>.  The entangler
+    (cx, cz or cp) and the angles, uniform in (-π, π), come from
+    ``generator`` (torch's default one when None) unless given; ``thetas`` (numpy or tensor) pins the angles,
+    which is how a caller reproduces another program's draw."""
+    from ..circuit.ansatz import Ansatz
+    from ..circuit.export import ansatz_to_program
+    from ..circuit.structures import create_ansatz_structure
+
+    if entangler is None:
+        entangler = ("cx", "cz", "cp")[int(torch.randint(3, (1,), generator=generator))]
+    blocks = create_ansatz_structure(num_qubits, "spin", "full", num_layers * (num_qubits - 1))
+    circ = Ansatz.make(num_qubits, entangler, blocks)
+    if thetas is None:
+        thetas = torch.pi * (2 * torch.rand(circ.num_thetas, generator=generator, dtype=torch.float64) - 1)
+    if isinstance(thetas, torch.Tensor):
+        thetas = thetas.detach().cpu().numpy()
+    return mps_from_program(
+        ansatz_to_program(circ, thetas), num_qubits, chi_max=chi_max, dtype=dtype, device=device
+    )
 
 
 # -----------------------------------------------------------------------------

@@ -76,6 +76,21 @@ Phases, one line each:
                 horizon again, the target cache hits); run 3 runs one
                 horizon on an expired clock (time_limit 1e-9, chunks of
                 2): is_timeout after 2 iterations.
+  5b'. host20 — the driver's host protocol (use_jit_lbfgs=False): SciPy's
+                L-BFGS-B over the sur_fast_mps_trotter surrogate, every
+                evaluation on the card, at 20 qubits χ=64, one layer per
+                step (horizons t = 1.2 and 2.4 of 1 and 2 layers), maxiter
+                10: each horizon's first objective and gradient within 1e-4
+                and 1e-3 (relative) of the device loop's value_and_grad at
+                the same θ, the final fobj below its start and within
+                TOL_FINAL of its c128 re-evaluation on the card, the
+                1-layer horizon on the uncached co-sweep and the 2-layer one
+                on the z-cached co-sweep (counted by spies), K2 and K3
+                launched and K4 not; SciPy's nit, nfev and message, s/iter
+                and evaluations per iteration; one evaluation per horizon
+                profiled at its final θ (wall, device busy, idle share,
+                aten calls, linalg_qr calls, launches).  The record's
+                host20 path.
   5c. dense12 — the dense statevector path, which launches none of the
                 hand-written kernels (checked): (a) bench.py's 12-qubit
                 flagship (2-layer Trotter ansatz, perfect init + 0.2 rad,
@@ -185,6 +200,15 @@ TOL_COSWEEP_C128 = 1e-10  # co-sweep vs autograd, relative, c128
 TOL_COSWEEP_C64 = 1e-4  # c64 gradients vs the c128 co-sweep, relative
 TOL_DENSE_FID = 1e-5  # the driver's fid_a1_vs_gt vs the result's fidelity (f32)
 DENSE_DRIVER_MAXITER = 40
+# The host-protocol phase: the driver phase's horizons at one layer per
+# step (1 and 2 layers), SciPy's L-BFGS-B over the surrogate on the card.
+# At each horizon's start point the surrogate (its leading flip state |0>,
+# the amplifier's first estimate 1) is the fidelity objective: its fobj and
+# gradient against the device loop's value_and_grad, both f32.
+HOST_MAXITER = 10
+TOL_HOST_F = 1e-4
+TOL_HOST_G = 1e-3  # relative l2
+
 # Peak rates of one H100 SXM for the bounds: f32 outside the tensor cores and
 # HBM3 bandwidth (NVIDIA's data sheet, at the 700 W limit).
 PEAK_F32_FLOPS = 67e12
@@ -1267,6 +1291,179 @@ def phase_driver():
 
 
 @contextmanager
+def host_spies():
+    """Records what one host-protocol ``run_simulation`` does, through the
+    names it calls: per horizon the objective ``_create_objective`` made
+    (its ansatz and target), the first objective and gradient call's θ and
+    values (and the leading flip state then), SciPy's result (``nit``,
+    ``nfev``, ``njev``, message), the ``_model_function`` result, and the
+    co-sweep branch each gradient took (uncached layered, or z-cached).  The
+    driver's log lines are held back to warnings meanwhile."""
+    from aqc_research_tpu_torch.models.sp_lhs import time_evol
+    from aqc_research_tpu_torch.ops import mps_gradient
+    from aqc_research_tpu_torch.optim import optimizer
+
+    horizons = []
+    real = {"create": time_evol._create_objective, "model": time_evol._model_function,
+            "scipy": optimizer.AQCOptimResult.update_from_scipy,
+            "uncached": mps_gradient._fast_dot_gradient_layered,
+            "cached": mps_gradient._fast_dot_gradient_layered_zcache}
+
+    def create(**kwargs):
+        objv = real["create"](**kwargs)
+        h = {"circ": kwargs["circ"], "target": kwargs["target"], "objv": objv, "first_f": None,
+             "first_g": None, "uncached": 0, "cached": 0}
+        horizons.append(h)
+        fun, jac = objv.objective, objv.gradient
+
+        def objective(th):
+            f = fun(th)
+            if h["first_f"] is None:
+                h["first_f"] = (np.array(th, copy=True), f)
+            return f
+
+        def gradient(th):
+            max_no = objv._max_no
+            g = jac(th)
+            if h["first_g"] is None:
+                h["first_g"] = (np.array(th, copy=True), np.array(g, copy=True), max_no)
+            return g
+
+        objv.objective, objv.gradient = objective, gradient
+        return objv
+
+    def model(**kwargs):
+        out = real["model"](**kwargs)
+        horizons[-1]["result"] = out
+        return out
+
+    def scipy_result(self, res, blocks):
+        horizons[-1]["scipy"] = {"nit": int(res.nit), "nfev": int(res.nfev), "njev": int(res.njev),
+                                 "message": str(res.message)}
+        return real["scipy"](self, res, blocks)
+
+    def counted(name):
+        def call(*args, **kwargs):
+            horizons[-1][name] += 1
+            return real[name](*args, **kwargs)
+        return call
+
+    loggers = [logging.getLogger(f"{name}.py") for name in ("time_evol", "target_states", "evol_utils", "plots")]
+    levels = [lg.level for lg in loggers]
+    time_evol._create_objective, time_evol._model_function = create, model
+    optimizer.AQCOptimResult.update_from_scipy = scipy_result
+    mps_gradient._fast_dot_gradient_layered = counted("uncached")
+    mps_gradient._fast_dot_gradient_layered_zcache = counted("cached")
+    for lg in loggers:
+        lg.setLevel(logging.WARNING)
+    try:
+        yield horizons
+    finally:
+        time_evol._create_objective, time_evol._model_function = real["create"], real["model"]
+        optimizer.AQCOptimResult.update_from_scipy = real["scipy"]
+        mps_gradient._fast_dot_gradient_layered = real["uncached"]
+        mps_gradient._fast_dot_gradient_layered_zcache = real["cached"]
+        for lg, level in zip(loggers, levels):
+            lg.setLevel(level)
+
+
+def phase_host(card_line: str, dev):
+    """The driver's host protocol on the card (``use_jit_lbfgs=False``):
+    SciPy's L-BFGS-B over ``sur_fast_mps_trotter`` at 20 qubits χ=64,
+    horizons of 1 layer (no layer cache: the uncached co-sweep) and 2 layers
+    (the z-cached one), each evaluation on the card."""
+    import contextlib
+    import io
+
+    from aqc_research_tpu_torch import config
+    from aqc_research_tpu_torch.models.sp_lhs import jit_asp, time_evol
+
+    tic_phase = time.perf_counter()
+    config.set_precision("fast")
+    config.set_svd_impl(None)
+    config.set_fused_pair(None)
+    route = config.svd_impl(dev)
+    check(route == "rand", f"the default route on the card is {route!r}, not 'rand'")
+    result_dir = tempfile.mkdtemp(prefix="aqc_host_")
+    try:
+        opts = driver_options(result_dir, num_layers_inc=1, use_jit_lbfgs=False, maxiter=HOST_MAXITER)
+        check(not opts.resolve_use_jit_lbfgs() and opts.objective == "sur_fast_mps_trotter",
+              "the host phase does not resolve to the host protocol over the MPS objective")
+        reset_counts()
+        # The objectives' progress dots go to stdout: keep them off this
+        # script's lines.
+        with host_spies() as horizons, contextlib.redirect_stdout(io.StringIO()):
+            out = time_evol.run_simulation(opts)
+        torch.cuda.synchronize()
+        counts, counts_at, homes = read_counts(), read_counts_at(), read_counts_home()
+        run_s = time.perf_counter() - tic_phase
+        with open(os.path.join(out, "all_results.pkl"), "rb") as fld:
+            results = pickle.load(fld)
+    finally:
+        shutil.rmtree(result_dir, ignore_errors=True)
+
+    check(len(results) == len(horizons) == 2, f"host run: {len(results)} horizons, {len(horizons)} objectives")
+    for name in ("theta_build", "rand_tail"):
+        check(counts[name] > 0, f"the host path never launched {name}: {counts}")
+    check(counts["fused_pair"] == 0, f"the host path launched K4 at chi={PATH_CHI}: {counts}")
+    base_bits = tuple(1 if q % 2 == 0 else 0 for q in range(DRIVER_QUBITS))  # Neel prep
+    lines = []
+    for layers, (res, h) in enumerate(zip(results, horizons), start=1):
+        at = f"host horizon t={res['evol_time1']}"
+        opt, sci, objv = h["result"], h["scipy"], h["objv"]
+        check(res["num_layers"] == layers and h["circ"].num_layers == layers, f"{at}: {res['num_layers']} layers")
+        want = (1, 0) if layers == 1 else (0, 1)
+        check((h["uncached"] > 0, h["cached"] > 0) == (want[0] > 0, want[1] > 0),
+              f"{at}: co-sweeps uncached {h['uncached']}, z-cached {h['cached']} (want only "
+              f"{'uncached' if layers == 1 else 'z-cached'})")
+        # The start point: SciPy's first call is at x0.
+        th0, f0 = h["first_f"]
+        th_g, g0, max_no0 = h["first_g"]
+        check(np.array_equal(th0, opt["ini_thetas"]) and np.array_equal(th_g, th0),
+              f"{at}: the first calls are not at the start point")
+        check(max_no0 == 0, f"{at}: leading flip state {max_no0} at the start point")
+        _, value_and_grad = jit_asp._mps_value_fns(h["circ"], base_bits, float(opts.trunc_thr))
+        f_ref, g_ref = value_and_grad(torch.tensor(th0, dtype=config.real_dtype(), device=dev), h["target"])
+        f_ref, g_ref = float(f_ref), g_ref.double().cpu().numpy()
+        df, dg = abs(f0 - f_ref), float(np.linalg.norm(g0 - g_ref) / np.linalg.norm(g_ref))
+        check(df <= TOL_HOST_F, f"{at}: start fobj host {f0} vs device loop {f_ref}: {df:.3g} > {TOL_HOST_F}")
+        check(dg <= TOL_HOST_G, f"{at}: start gradient host vs device loop: relative {dg:.3g} > {TOL_HOST_G}")
+        fobj = float(opt["cost"])
+        check(np.isfinite(fobj) and fobj < f0, f"{at}: fobj {fobj} not below its start {f0}")
+        thetas = torch.tensor(opt["thetas"], dtype=torch.float64)
+        f64 = f64_objective(h["circ"], thetas, h["target"], base_bits, float(opts.trunc_thr), dev)
+        check(abs(f64 - fobj) <= TOL_FINAL, f"{at}: final fobj {fobj} vs c128 re-evaluation on the card {f64}")
+        # One evaluation (objective + gradient) at the final θ, profiled:
+        # where a host-protocol evaluation spends its time.
+        th_fin = np.asarray(opt["thetas"])
+        # The run's state and counters, before the profiled call moves them.
+        weight, max_no = objv._weight, objv._max_no
+        n_fun, n_grad = objv._service.num_fun_ev, objv._service.num_grad_ev
+        before = read_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            prof = profile_calls(lambda: (objv.objective(th_fin), objv.gradient(th_fin)))
+        per_eval = {name: n - before[name] for name, n in read_counts().items()}
+        qr_calls = sum(e.count for e in prof["events"] if e.key == "aten::linalg_qr")
+        nit = max(sci["nit"], 1)
+        lines.append(
+            f"t={res['evol_time1']}: {layers} layer(s), nit {sci['nit']}, nfev {sci['nfev']}, njev {sci['njev']}, "
+            f"SciPy: {sci['message']!r}, {opt['time']:.3f} s = {opt['time'] / nit:.3f} s/iter, objective calls "
+            f"{n_fun} and gradients {n_grad} ({n_fun / nit:.2f} / {n_grad / nit:.2f} per iteration), "
+            f"co-sweeps uncached {h['uncached']} / z-cached {h['cached']}, fobj {f0:.7g} -> {fobj:.7g} "
+            f"(c128 re-evaluation on the card {f64:.7g}), start vs device loop: fobj {df:.2e}, gradient "
+            f"{dg:.2e} relative, weight {weight:.4g}, max_no {max_no}, fid_a1_vs_gt "
+            f"{res['fid_a1_vs_gt']:.6f}; one evaluation at the final theta, profiled: {prof['wall_ms']:.1f} ms "
+            f"wall, device busy {prof['busy_ms']:.1f} ms (idle {prof['idle']:.1%}), {prof['aten_calls']} aten "
+            f"calls, {qr_calls} linalg_qr, launches {per_eval}")
+    wall = time.perf_counter() - tic_phase
+    print(f"[host20] run_simulation use_jit_lbfgs=False objective=sur_fast_mps_trotter, {DRIVER_QUBITS}q "
+          f"chi={PATH_CHI}, num_layers_inc 1, horizons t={list(DRIVER_TIMES)}, maxiter {HOST_MAXITER}, "
+          f"fast/{route}/{config.jacobi_criterion()} | {'; '.join(lines)} | launches {counts} (by n: {counts_at}; "
+          f"by home: {homes}) | run_simulation {run_s:.1f} s, phase wall {wall:.1f} s | {card_line}", flush=True)
+    return counts, counts_at, homes
+
+
+@contextmanager
 def dense_spies():
     """Counts the flagship run's evaluations through the names it calls:
     every surrogate-loss call and every autograd value-and-gradient call
@@ -1506,6 +1703,7 @@ def main() -> int:
         paths["rand20"] = phase_rand(case, "rand")
         phase_routes(case, "routes", ("rand", "jacobi"), repeats=2, calls=5)
         paths["driver20"] = phase_driver()
+        paths["host20"] = phase_host(card_line, dev)
         paths["dense12"] = phase_dense(dev)
         case = make_case(dev, 28, PATH28_CHI, maxiter=10, f64_device=dev)
         paths["jacobi28"] = phase_slice(case, "slice28")

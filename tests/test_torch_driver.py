@@ -6,9 +6,13 @@ modules under it) held against the JAX package on the CPU.
   (``use_jit_lbfgs=True``), precision "high" and route "native" on both
   sides, a fidelity bar neither reaches (every horizon runs all 8
   iterations): per horizon the three fidelities and the thetas within
-  1e-8, equal layer and iteration counts.  One layer per horizon step is
-  not used: its gradient takes the non-layered branch the port does not
-  have yet (ROADMAP.md section 1, item 4).
+  1e-8, equal layer and iteration counts.  The same loop at one layer per
+  horizon step (one horizon of 1 layer: no layer cache, the uncached
+  co-sweep) within 1e-8 of the JAX loop.
+* the host protocol (``use_jit_lbfgs=False``: SciPy's L-BFGS-B over the
+  host-protocol objectives), both objectives, one layer per horizon step
+  (horizons of 1 and 2 layers), the same settings: per horizon within 1e-8
+  of the JAX driver's host path, equal iteration counts.
 * resuming a port run from the JAX run's first horizon
   (``interop.results_from_jax``): the second horizon within 1e-8.
 * targets: ``generate_all_mps_targets`` at 6 qubits, χ=16, 3 horizons,
@@ -17,10 +21,11 @@ modules under it) held against the JAX package on the CPU.
 * ``v_mul_mps`` at no truncation within 1e-10 as dense vectors;
   ``_warm_start_thetas`` within 1e-14.
 * the port alone: the target cache, resume, the chunked runner, the
-  options' auto rule, the host-protocol branch that is not ported, the
-  plot without matplotlib.
+  options' auto rule, the host-protocol branch, the launcher's ``--cpu``,
+  the plot without matplotlib.
 
-One JAX ``run_simulation`` call in all (it compiles its loop)."""
+One JAX ``run_simulation`` per loop and objective (each compiles its
+programs)."""
 
 import glob
 import os
@@ -380,14 +385,76 @@ def test_use_jit_lbfgs_auto_rule(monkeypatch):
 
 
 def test_unported_branches_raise(tmp_path):
-    """The host-protocol path raises, for either objective; the dense
-    objective runs (tests/test_torch_dense_asp.py holds it against JAX)."""
+    """The host-protocol branch, which raised before it was ported, runs for
+    either objective: SciPy's counters and the objective's statistics in
+    the result, no device loop."""
     for objective in ("sur_fast_mps_trotter", "sur_max"):
         opts = _mini_opts(UserOptions, tmp_path, num_horizons=1)
         opts.objective = objective
         opts.use_jit_lbfgs = False
-        with pytest.raises(NotImplementedError, match="item 13"):
-            tte.run_simulation(opts)
+        opts.maxiter = 3
+        results = _archive(tte.run_simulation(opts))
+        assert len(results) == 1 and results[0]["num_iters"] == 3 and not results[0]["is_timeout"]
+        stats = results[0]["stats"]
+        assert "use_jit_lbfgs" not in stats and stats["num_grad_ev"] >= 3
+        assert stats["hs2"].shape == (stats["num_grad_ev"], 5)  # |0> and 4 flip states
+
+
+def _host_opts(cls, result_dir, objective):
+    """The host protocol at one layer per horizon step: horizons of 1 and 2
+    layers."""
+    opts = _mini_opts(cls, result_dir)
+    opts.objective = objective
+    opts.num_layers_inc = 1
+    opts.use_jit_lbfgs = False
+    return opts
+
+
+@pytest.fixture(scope="module", params=["sur_fast_mps_trotter", "sur_max"])
+def jax_host_run(request, tmp_path_factory):
+    """One JAX host-protocol run per objective: (objective, its results)."""
+    out = jte.run_simulation(_host_opts(JUserOptions, tmp_path_factory.mktemp("jax_host"), request.param))
+    return request.param, _archive(out)
+
+
+def test_host_protocol_matches_jax(jax_host_run, tmp_path):
+    objective, want = jax_host_run
+    got = _archive(tte.run_simulation(_host_opts(UserOptions, tmp_path, objective)))
+    assert [r["num_layers"] for r in got] == [r["num_layers"] for r in want] == [1, 2]
+    for g, w in zip(got, want):
+        _same_horizon(g, w)
+        assert not g["is_timeout"] and g["num_iters"] > 0
+        np.testing.assert_allclose(g["stats"]["weight"], w["stats"]["weight"], atol=1e-3, rtol=0)  # float16
+
+
+def test_jit_loop_one_layer_matches_jax(tmp_path):
+    """The device loop at one layer: the uncached value_and_grad branch."""
+    runs = []
+    for cls, run, sub in ((JUserOptions, jte.run_simulation, "jax"), (UserOptions, tte.run_simulation, "port")):
+        opts = _mini_opts(cls, tmp_path / sub, num_horizons=1)
+        opts.num_layers_inc = 1
+        runs.append(_archive(run(opts)))
+    want, got = runs
+    assert got[0]["num_layers"] == 1 and got[0]["stats"]["use_jit_lbfgs"]
+    _same_horizon(got[0], want[0])
+
+
+def test_launcher_cpu_takes_the_host_path(monkeypatch):
+    """``run_time_evol --cpu``, as the JAX launcher: the CPU in f64 and
+    ``use_jit_lbfgs`` left to resolve to the host protocol."""
+    from aqc_research_tpu_torch.models.sp_lhs import run_time_evol
+
+    seen = []
+    monkeypatch.setattr(run_time_evol, "run_simulation", lambda opts: seen.append(
+        (opts.use_jit_lbfgs, opts.resolve_use_jit_lbfgs(), config.device().type, config.precision())))
+    monkeypatch.setattr(sys, "argv", ["run_time_evol", "-n", "4", "--cpu"])
+    previous = (config._DEVICE, config.precision())
+    try:
+        run_time_evol.main()
+    finally:
+        config.set_device(previous[0])
+        config.set_precision(previous[1])
+    assert seen == [(None, False, "cpu", "high")]
 
 
 def test_result_dir_default_is_the_ports_own():

@@ -232,6 +232,9 @@ def test_port_import_leaves_jax_out():
         "aqc_research_tpu_torch.models.sp_lhs.jit_asp",
         "aqc_research_tpu_torch.models.sp_lhs.target_states",
         "aqc_research_tpu_torch.models.sp_lhs.time_evol",
+        "aqc_research_tpu_torch.models.sp_lhs.run_time_evol",
+        "aqc_research_tpu_torch.io.checkpoint",
+        "aqc_research_tpu_torch.circuit.export",
         "aqc_research_tpu_torch.ops.gradients",
         "aqc_research_tpu_torch.ops.statevector",
         "aqc_research_tpu_torch.ops.jacobi_kernel",

@@ -147,10 +147,16 @@ def test_gradient_with_state_matches_jax(case, native_routes, grow_w):
     np.testing.assert_allclose(again.numpy(), tgrad.numpy(), atol=PARITY)
 
 
-def test_gradient_paths_not_ported_raise(case):
+def test_gradient_paths_not_ported_raise(case, native_routes):
+    """Without the layer cache the co-sweep no longer raises: it takes the
+    uncached layered path, which at no truncation (χ=8 is exact at n=6)
+    computes the cached path's function; grow_w on a state that is not a
+    product state still raises."""
     tl = tm.mps_basis_state(BASE, CHI, C128, "cpu")
-    with pytest.raises(NotImplementedError):
-        tg.fast_dot_gradient(case["tc"], case["tth"], tl, case["tt"])
+    tvh, tz = tm.v_dagger_mul_mps_layers(case["tc"], case["tth"], case["tt"])
+    uncached = tg.fast_dot_gradient(case["tc"], case["tth"], tl, tvh)
+    cached = tg.fast_dot_gradient(case["tc"], case["tth"], tl, tvh, z_layers=tz)
+    np.testing.assert_allclose(uncached.numpy(), cached.numpy(), atol=PARITY)
     wide = tm.mps_resize(case["tt"], CHI)
     with pytest.raises(ValueError, match="grow_w"):
         tg.fast_dot_gradient_with_state(case["tc"], case["tth"], wide, wide, wide, grow_w=True)
