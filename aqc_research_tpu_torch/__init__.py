@@ -5,11 +5,14 @@ so each module's twin is easy to find, and imports ``torch`` only (never
 ``jax``):
 
 * ``circuit``  — parametric-ansatz IR, gate builders, gate programs
-* ``ops``      — the MPS engine, its analytic co-sweep gradient, the one-sided
-                 Jacobi SVD (hand-written CUDA kernel + plain-torch twin)
-* ``optim``    — compact L-BFGS (two-loop recursion + Armijo backtracking)
-* ``targets``  — Trotter evolution of the XXZ chain in MPS form
-* ``models``   — the ASP horizon runner over the MPS objective
+* ``ops``      — the statevector and MPS engines, their analytic co-sweep
+                 gradients, the hand-written CUDA kernels and their
+                 plain-torch twins, coordinate descent
+* ``optim``    — L-BFGS (compact, and optax's with the zoom linesearch) and
+                 Adam, one lane or a fleet of lanes; the host protocol
+* ``targets``  — Trotter evolution of the XXZ chain, target generators
+* ``models``   — the ASP horizons and driver, the AQC sketching drivers
+* ``parallel`` — multi-start fleets and the job executor
 * ``interop``  — carries the JAX package's state (as numpy arrays) over
 """
 

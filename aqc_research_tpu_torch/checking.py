@@ -50,6 +50,20 @@ def is_tuple(val: Any, extra_cond: bool = True) -> bool:
     return isinstance(val, tuple) and bool(extra_cond)
 
 
+def is_dict(val: Any, extra_cond: bool = True) -> bool:
+    return isinstance(val, dict) and bool(extra_cond)
+
+
+def complex_2d(arr: Any, extra_cond: bool = True) -> bool:
+    """True for a 2D complex array."""
+    return _is_array(arr) and arr.ndim == 2 and _kind(arr) == "c" and bool(extra_cond)
+
+
+def complex_2d_square(arr: Any, extra_cond: bool = True) -> bool:
+    """True for a square 2D complex array."""
+    return complex_2d(arr) and arr.shape[0] == arr.shape[1] and bool(extra_cond)
+
+
 def float_1d(arr: Any, extra_cond: bool = True) -> bool:
     """True for a 1D real floating array."""
     return _is_array(arr) and arr.ndim == 1 and _kind(arr) == "f" and bool(extra_cond)

@@ -125,20 +125,22 @@ class Ansatz:
     # --- theta views -------------------------------------------------------
 
     def subset1q(self, vec):
-        """Front-layer angles reshaped ``(num_qubits, 3)`` (a view for numpy).
+        """Front-layer angles reshaped ``(..., num_qubits, 3)`` (a view for
+        numpy); leading axes of ``vec`` (lanes) are kept.
 
         Cf. reference parametric_circuit.py:143-164.
         """
-        assert vec.shape == (self.num_thetas,)
-        return vec[0 : 3 * self.num_qubits].reshape(-1, 3)
+        assert vec.shape[-1:] == (self.num_thetas,)
+        return vec[..., 0 : 3 * self.num_qubits].reshape(tuple(vec.shape[:-1]) + (-1, 3))
 
     def subset2q(self, vec):
-        """Block angles reshaped ``(num_blocks, tpb)`` (a view for numpy).
+        """Block angles reshaped ``(..., num_blocks, tpb)`` (a view for
+        numpy); leading axes of ``vec`` (lanes) are kept.
 
         Cf. reference parametric_circuit.py:166-187.
         """
-        assert vec.shape == (self.num_thetas,)
-        return vec[3 * self.num_qubits :].reshape(-1, self.tpb)
+        assert vec.shape[-1:] == (self.num_thetas,)
+        return vec[..., 3 * self.num_qubits :].reshape(tuple(vec.shape[:-1]) + (-1, self.tpb))
 
     # --- structural mutation (functional) ----------------------------------
 

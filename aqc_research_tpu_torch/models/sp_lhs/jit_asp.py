@@ -17,7 +17,10 @@ The ``_jit`` names keep the JAX twins findable; the loops run on the host.
   (:func:`optimize_horizon_mps_jit`, with the collapse watchdog).
 
 The ``_timed`` runners run the same loops in chunks and check the wall
-clock between them.
+clock between them.  The ``_multistart`` runners run L starts as one fleet
+(optim/lbfgs.py's lanes): the dense one through ``torch.func.vmap`` over
+the one-lane loss, the MPS one with the lanes folded into the batch of
+every pair update.
 """
 
 from __future__ import annotations
@@ -41,9 +44,18 @@ from ...ops.mps import (
     v_mul_mps_growing,
 )
 from ...ops.gradients import grad_of_dot_product
-from ...ops.mps_gradient import fast_dot_gradient, fast_dot_gradient_with_state
+from ...ops.mps_gradient import _layered_eligible, fast_dot_gradient, fast_dot_gradient_with_state
 from ...ops.statevector import as_state, as_thetas, v_dagger_mul_vec
-from ...optim.lbfgs import lbfgs_chunk_programs, minimize_lbfgs_compact, run_lbfgs_chunked, stateless
+from ...optim.lbfgs import (
+    lane_objective,
+    lbfgs_chunk_programs,
+    minimize_lbfgs,
+    minimize_lbfgs_compact,
+    minimize_lbfgs_compact_lanes,
+    minimize_lbfgs_lanes,
+    run_lbfgs_chunked,
+    stateless,
+)
 
 
 class JitHorizonResult(NamedTuple):
@@ -192,30 +204,77 @@ def optimize_horizon_jit(
     solver: str = "compact",
 ) -> JitHorizonResult:
     """Optimizes one ASP horizon over the stateless dense surrogate
-    (:func:`make_surrogate_loss`) with compact L-BFGS and the
-    ``torch.autograd`` gradient through the statevector engine, on the
-    target's device (the JAX twin's ``jax.value_and_grad``).
+    (:func:`make_surrogate_loss`) with the ``torch.autograd`` gradient
+    through the statevector engine, on the target's device (the JAX twin's
+    ``jax.value_and_grad``).
 
     ``fidelity_thr`` maps to the loss threshold ``1 - fidelity_thr`` (exact
     for ``weight == 0``, approximate otherwise).  ``solver``: "compact"
-    (two-loop L-BFGS + Armijo backtracking); "zoom" (optax's L-BFGS with a
-    zoom linesearch in the JAX package) is not ported."""
-    if solver == "zoom":
-        raise NotImplementedError(
-            "solver='zoom' (optax L-BFGS with zoom linesearch) is not ported (ROADMAP.md section 1, "
-            "item 9); use solver='compact'"
-        )
-    if solver != "compact":
-        raise ValueError(f"unknown solver {solver!r} (use 'compact')")
+    (two-loop L-BFGS + Armijo backtracking) or "zoom" (optax's L-BFGS with
+    its zoom linesearch, optim/lbfgs.minimize_lbfgs)."""
+    if solver not in ("compact", "zoom"):
+        raise ValueError(f"unknown solver {solver!r} (use 'compact' or 'zoom')")
     x0, tgt = _dense_inputs(thetas0, target)
     idx = [int(i) for i in np.asarray(state_idx)]
     loss = make_surrogate_loss(circ, idx, weight)
-    fobj_thr = None if fidelity_thr is None else (1.0 - float(fidelity_thr))
-    res = minimize_lbfgs_compact(
-        lambda th: loss(th, tgt), x0, maxiter=int(maxiter), fobj_thr=fobj_thr,
+    minimize = minimize_lbfgs_compact if solver == "compact" else minimize_lbfgs
+    res = minimize(
+        lambda th: loss(th, tgt), x0, maxiter=int(maxiter), fobj_thr=_loss_thr(fidelity_thr),
         no_improve_iters=None if no_improve_iters is None else int(no_improve_iters),
     )
     fid = _fidelity_readout(circ, idx[0], res.thetas, tgt)
+    return JitHorizonResult(res.thetas, res.fobj, fid, res.num_iters, res.converged)
+
+
+def _loss_thr(fidelity_thr: Optional[float]) -> Optional[float]:
+    return None if fidelity_thr is None else (1.0 - float(fidelity_thr))
+
+
+def optimize_horizon_multistart(
+    circ: Ansatz,
+    thetas0_batch,
+    target,
+    *,
+    state_idx: Sequence[int],
+    weight: float = 0.0,
+    fidelity_thr: Optional[float] = None,
+    maxiter: int = 100,
+    no_improve_iters: Optional[int] = None,
+    solver: str = "compact",
+    batch_linesearch: Optional[int] = 2,
+    fuse_linesearch_grad: bool = False,
+) -> JitHorizonResult:
+    """Multi-start ASP horizon optimization (BASELINE config 4): the L rows
+    of ``thetas0_batch`` run :func:`optimize_horizon_jit`'s loop in lock
+    step as one fleet (optim/lbfgs.lbfgs_fleet_programs).  Every evaluation
+    is ONE batched statevector pass over the running lanes
+    (``torch.func.vmap`` over the one-lane loss) and the gradient one
+    ``torch.autograd`` call on the sum of the lane losses.  Returns the
+    lanes' results (``num_iters`` and ``converged`` as host arrays); the
+    winner is ``argmin(res.fobj)``.
+
+    ``batch_linesearch`` (default 2) evaluates a short Armijo step grid of
+    every lane in one batch per iteration; ``None`` backtracks in lock
+    step; ``fuse_linesearch_grad`` takes the gradients in the grid's batch
+    as well.  ``solver="zoom"`` runs optax's L-BFGS on the lanes instead."""
+    if solver not in ("compact", "zoom"):
+        raise ValueError(f"unknown solver {solver!r} (use 'compact' or 'zoom')")
+    tgt = as_state(target)
+    x0 = as_thetas(thetas0_batch, tgt).detach().to(tgt.device)
+    idx = [int(i) for i in np.asarray(state_idx)]
+    loss = make_surrogate_loss(circ, idx, weight)
+    value, value_and_grad = lane_objective(lambda th: loss(th, tgt))
+    opts = dict(maxiter=int(maxiter), fobj_thr=_loss_thr(fidelity_thr),
+                no_improve_iters=None if no_improve_iters is None else int(no_improve_iters))
+    if solver == "zoom":
+        res = minimize_lbfgs_lanes(value_and_grad, x0, **opts)
+    else:
+        res = minimize_lbfgs_compact_lanes(
+            value, value_and_grad, x0, batch_linesearch=batch_linesearch,
+            fuse_linesearch_grad=bool(fuse_linesearch_grad), **opts,
+        )
+    with torch.no_grad():
+        fid = torch.func.vmap(lambda th: v_dagger_mul_vec(circ, th, tgt)[idx[0]].abs() ** 2)(res.thetas)
     return JitHorizonResult(res.thetas, res.fobj, fid, res.num_iters, res.converged)
 
 
@@ -305,7 +364,9 @@ def optimize_horizon_surrogate_timed(
 
 def _mps_value_fns(circ: Ansatz, base_bits: tuple, trunc_thr: float):
     """The MPS fidelity objective as functions of ``(thetas, target)``:
-    returns ``(value, value_and_grad)``."""
+    returns ``(value, value_and_grad)``.  ``thetas`` may be a fleet's rows
+    ``(L, P)`` (a layered Trotter ansatz): the values are then ``(L,)`` and
+    every pair group of all lanes is one batched decomposition."""
     use_cache = v_dagger_layer_cache_eligible(circ)
 
     def value(th: torch.Tensor, tgt: MPS) -> torch.Tensor:
@@ -319,7 +380,7 @@ def _mps_value_fns(circ: Ansatz, base_bits: tuple, trunc_thr: float):
             return (1.0 - mps_dot(w, tgt).abs() ** 2).to(th.dtype)
         vh = v_dagger_mul_mps(circ, th, tgt, trunc_thr=trunc_thr)
         amps = mps_flip_amplitudes(vh, base_bits)
-        return (1.0 - amps[0].abs() ** 2).to(th.dtype)
+        return (1.0 - amps[..., 0].abs() ** 2).to(th.dtype)
 
     def value_and_grad(th: torch.Tensor, tgt: MPS):
         lvec = mps_basis_state(base_bits, tgt.chi, tgt.gammas.dtype, tgt.device)
@@ -336,10 +397,10 @@ def _mps_value_fns(circ: Ansatz, base_bits: tuple, trunc_thr: float):
             # No layer cache (a one-layer horizon): the amplitude from the V†
             # sweep, the co-sweep updating w and z together.
             vh = v_dagger_mul_mps(circ, th, tgt, trunc_thr=trunc_thr)
-            hs0 = mps_flip_amplitudes(vh, base_bits)[0]
+            hs0 = mps_flip_amplitudes(vh, base_bits)[..., 0]
             grad = fast_dot_gradient(circ, th, lvec, vh, trunc_thr=trunc_thr)
         fobj = (1.0 - hs0.abs() ** 2).to(th.dtype)
-        grad = (-2.0 * hs0.conj() * grad).real.to(th.dtype)
+        grad = (-2.0 * hs0.conj()[..., None] * grad).real.to(th.dtype)
         return fobj, grad
 
     return value, value_and_grad
@@ -361,6 +422,50 @@ def _run_horizon(circ, x0, tgt, base_bits, trunc_thr, fobj_thr, maxiter, no_impr
         programs, x0, maxiter=maxiter, time_limit=time_limit, chunk_iters=chunk_iters or max(maxiter, 1)
     )
     return JitHorizonResult(res.thetas, res.fobj, 1.0 - res.fobj, res.num_iters, res.converged), timed_out
+
+
+def optimize_horizon_mps_multistart(
+    circ: Ansatz,
+    thetas0_batch,
+    target: MPS,
+    *,
+    base_bits: Sequence[int],
+    trunc_thr: float = 1e-6,
+    fidelity_thr: Optional[float] = None,
+    maxiter: int = 100,
+    no_improve_iters: Optional[int] = None,
+) -> JitHorizonResult:
+    """Multi-start MPS ASP horizon optimization: the L rows of
+    ``thetas0_batch`` run :func:`optimize_horizon_mps_jit`'s loop in lock
+    step as one fleet (optim/lbfgs.lbfgs_fleet_programs, sequential
+    backtracking as in the JAX twin).  The lanes fold into the batch of
+    every pair update: one evaluation decomposes each pair group of all
+    running lanes in ONE launch of the route's kernels.  Needs a layered
+    Trotter (cx) ansatz, whose engine paths take lanes.  Like the JAX twin,
+    the fleet has no collapse watchdog.  Returns the lanes' results
+    (``num_iters``/``converged`` host arrays); the winner is
+    ``argmin(res.fobj)``.
+
+    On the "rand" route the sketch Ω is drawn per batch shape
+    (ops/rand_svd.sketch), so a lane agrees with its one-lane run to the
+    f32 sketch noise, not bit for bit."""
+    if len(base_bits) != circ.num_qubits:
+        raise ValueError(
+            f"base_bits must give one 0/1 occupation per site: got "
+            f"{len(base_bits)} for {circ.num_qubits} qubits"
+        )
+    if not _layered_eligible(circ):
+        raise ValueError("the MPS fleet needs a layered Trotter ansatz with the cx entangler")
+    base_t = tuple(int(b) for b in base_bits)
+    x0 = thetas0_batch if isinstance(thetas0_batch, torch.Tensor) else torch.as_tensor(
+        np.asarray(thetas0_batch), dtype=target.lambdas.dtype, device=target.device)
+    value, value_and_grad = _mps_value_fns(circ, base_t, float(trunc_thr))
+    res = minimize_lbfgs_compact_lanes(
+        lambda th: value(th, target), lambda th: value_and_grad(th, target), x0.detach(),
+        maxiter=int(maxiter), fobj_thr=_loss_thr(fidelity_thr),
+        no_improve_iters=None if no_improve_iters is None else int(no_improve_iters),
+    )
+    return JitHorizonResult(res.thetas, res.fobj, 1.0 - res.fobj, res.num_iters, res.converged)
 
 
 # -----------------------------------------------------------------------------
@@ -475,7 +580,7 @@ def optimize_horizon_mps_timed(
             f"{len(base_bits)} for {circ.num_qubits} qubits"
         )
     base_t = tuple(int(b) for b in base_bits)
-    fobj_thr = None if fidelity_thr is None else (1.0 - float(fidelity_thr))
+    fobj_thr = _loss_thr(fidelity_thr)
     no_imp = None if no_improve_iters is None else int(no_improve_iters)
     res, timed_out = _run_horizon(circ, thetas0, target, base_t, float(trunc_thr), fobj_thr, int(maxiter),
                                   no_imp, time_limit, int(chunk_iters))

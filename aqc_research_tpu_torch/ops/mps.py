@@ -13,7 +13,10 @@
 Sites are qubits in little-endian order (site j = bit j).  Functions are
 pure: they return new tensors and never modify their inputs.  The tensors of
 an :class:`MPS` may carry leading batch axes (``gammas (..., n, 2, chi,
-chi)``), which the pair updates decompose as one batch.
+chi)``), which the pair updates decompose as one batch.  Gates and Θ may
+carry leading lane axes too (a fleet of L parameter vectors): an MPS
+without them is broadcast to the lanes at the first gate, and every pair
+group of all lanes is one batched decomposition.
 """
 
 from __future__ import annotations
@@ -106,6 +109,18 @@ def mps_zero(num_qubits: int, chi_max: int, dtype=None, device=None) -> MPS:
     return mps_basis_state((0,) * num_qubits, chi_max, dtype, device)
 
 
+def broadcast_mps(mps: MPS, batch: Tuple[int, ...]) -> MPS:
+    """``mps`` with its leading axes broadcast to ``batch`` (a copy when they
+    grow, so the result may be written in place)."""
+    batch = tuple(torch.broadcast_shapes(tuple(mps.gammas.shape[:-4]), tuple(batch)))
+    if batch == tuple(mps.gammas.shape[:-4]):
+        return mps
+    return MPS(
+        mps.gammas.expand(batch + tuple(mps.gammas.shape[-4:])).clone(),
+        mps.lambdas.expand(batch + tuple(mps.lambdas.shape[-2:])).clone(),
+    )
+
+
 def mps_resize(mps: MPS, chi_new: int) -> MPS:
     """Pads (grows) or slices (shrinks) the static bond dimension.  Shrinking
     is exact only when the dropped bond rows/cols are zero."""
@@ -142,21 +157,23 @@ def check_mps(mps: MPS) -> bool:
 
 
 def apply_1q_mps(mps: MPS, gate2x2: torch.Tensor, site: int) -> MPS:
-    """1-qubit gate: Γ_site <- G Γ_site."""
+    """1-qubit gate ``(..., 2, 2)``: Γ_site <- G Γ_site."""
     g = gate2x2.to(mps.gammas.dtype)
+    mps = broadcast_mps(mps, g.shape[:-2])
     gammas = mps.gammas.clone()
-    gammas[..., site, :, :, :] = torch.einsum("ij,...jab->...iab", g, mps.gammas[..., site, :, :, :])
+    gammas[..., site, :, :, :] = torch.einsum("...ij,...jab->...iab", g, mps.gammas[..., site, :, :, :])
     return MPS(gammas, mps.lambdas)
 
 
 def apply_1q_many(mps: MPS, gates: torch.Tensor, sites: Tuple[int, ...]) -> MPS:
-    """DISTINCT 1-qubit gates (P, 2, 2) at distinct sites in one batched einsum."""
+    """DISTINCT 1-qubit gates (..., P, 2, 2) at distinct sites in one batched einsum."""
     if len(set(sites)) != len(sites):
         raise ValueError("apply_1q_many needs distinct sites")
     idx = torch.as_tensor(sites, dtype=torch.long, device=mps.gammas.device)
     g = gates.to(mps.gammas.dtype)
+    mps = broadcast_mps(mps, g.shape[:-3])
     gammas = mps.gammas.clone()
-    gammas[..., idx, :, :, :] = torch.einsum("pij,...pjab->...piab", g, mps.gammas[..., idx, :, :, :])
+    gammas[..., idx, :, :, :] = torch.einsum("...pij,...pjab->...piab", g, mps.gammas[..., idx, :, :, :])
     return MPS(gammas, mps.lambdas)
 
 
@@ -347,7 +364,7 @@ def apply_2q_mps(mps: MPS, gate4: torch.Tensor, site: int, *, trunc_thr: float =
     index order."""
     if not 0 <= site < mps.num_sites - 1:
         raise ValueError(f"site {site} has no right neighbour")
-    return apply_pairs_mps(mps, gate4[None], (site,), trunc_thr=trunc_thr)
+    return apply_pairs_mps(mps, gate4.unsqueeze(-3), (site,), trunc_thr=trunc_thr)
 
 
 def apply_pairs_mps(
@@ -359,7 +376,8 @@ def apply_pairs_mps(
 ) -> MPS:
     """Applies DISJOINT adjacent-pair gates simultaneously — one batched pair
     update (one batched SVD) for a whole chessboard half-layer.  ``gates4``:
-    (P, 4, 4) in (site, site+1) order; ``lo_sites``: the P pair positions."""
+    (..., P, 4, 4) in (site, site+1) order (leading lane axes broadcast
+    with the MPS's); ``lo_sites``: the P pair positions."""
     n, chi = mps.num_sites, mps.chi
     lo_np = np.asarray(lo_sites, dtype=int)
     if not (lo_np.size > 0 and np.all(np.diff(lo_np) >= 2)):
@@ -368,6 +386,7 @@ def apply_pairs_mps(
         raise ValueError(f"pair positions out of range: {lo_sites}")
     dev = mps.gammas.device
     lo = torch.as_tensor(lo_np, dtype=torch.long, device=dev)
+    mps = broadcast_mps(mps, gates4.shape[:-3])
     lam_ext = _lam_ext(mps)
     new_g1, new_g2, new_lam = _pair_update(
         lam_ext[..., lo, :],
@@ -462,15 +481,16 @@ def _folded_tensors(mps: MPS) -> torch.Tensor:
 
 def mps_dot(mps1: MPS, mps2: MPS) -> torch.Tensor:
     """``<mps1 | mps2>`` by transfer-matrix contraction, O(n chi^3); the two
-    states may have different (padded) bond dimensions."""
+    states may have different (padded) bond dimensions and leading axes
+    that broadcast."""
     a1 = _folded_tensors(mps1)
     a2 = _folded_tensors(mps2)
     env = torch.zeros((mps1.chi, mps2.chi), dtype=a1.dtype, device=a1.device)
     env[0, 0] = 1.0
     a1c = a1.conj()
     for q in range(mps1.num_sites):
-        env = torch.einsum("sab,aA,sAB->bB", a1c[q], env, a2[q])
-    return env[0, 0]
+        env = torch.einsum("...sab,...aA,...sAB->...bB", a1c[..., q, :, :, :], env, a2[..., q, :, :, :])
+    return env[..., 0, 0]
 
 
 def mps_norm(mps: MPS) -> torch.Tensor:
@@ -479,25 +499,35 @@ def mps_norm(mps: MPS) -> torch.Tensor:
 
 def mps_flip_amplitudes(mps: MPS, base_bits: Tuple[int, ...]) -> torch.Tensor:
     """Amplitudes of the base basis state and all its single-bit flips:
-    ``amps[0] = <base|mps>``, ``amps[1 + q] = <base ^ (1 << q)|mps>`` — one
-    prefix/suffix sweep of bond vectors, O(n chi^2)."""
+    ``amps[..., 0] = <base|mps>``, ``amps[..., 1 + q] = <base ^ (1 <<
+    q)|mps>`` — one prefix/suffix sweep of bond vectors, O(n chi^2)."""
     n, chi = mps.num_sites, mps.chi
     if len(base_bits) != n:
         raise ValueError("base_bits needs one bit per site")
     a = _folded_tensors(mps)
     e0 = torch.zeros(chi, dtype=a.dtype, device=a.device)
     e0[0] = 1.0
+
+    def site(q, bit):
+        return a[..., q, bit, :, :]
+
+    def vec_mat(v, mat):
+        return torch.matmul(v.unsqueeze(-2), mat).squeeze(-2)
+
+    def mat_vec(mat, v):
+        return torch.matmul(mat, v.unsqueeze(-1)).squeeze(-1)
+
     pre = [e0]
     for q in range(n):
-        pre.append(pre[-1] @ a[q, base_bits[q]])
+        pre.append(vec_mat(pre[-1], site(q, base_bits[q])))
     suffix_from = [None] * (n + 1)
     suffix_from[n] = e0
     for q in range(n - 1, -1, -1):
-        suffix_from[q] = a[q, base_bits[q]] @ suffix_from[q + 1]
-    amps = [pre[n][0]]
+        suffix_from[q] = mat_vec(site(q, base_bits[q]), suffix_from[q + 1])
+    amps = [pre[n][..., 0]]
     for q in range(n):
-        amps.append(pre[q] @ a[q, 1 - base_bits[q]] @ suffix_from[q + 1])
-    return torch.stack(amps)
+        amps.append((vec_mat(pre[q], site(q, 1 - base_bits[q])) * suffix_from[q + 1]).sum(-1))
+    return torch.stack(amps, dim=-1)
 
 
 def mps_to_vector(mps: MPS) -> torch.Tensor:
@@ -585,12 +615,14 @@ def rand_mps_vec(
 
 
 def _gate_lo_hi(circ, g4: torch.Tensor, k: int):
-    """Block k's gate reordered into (lo, hi) site order; returns (gate, lo, hi)."""
+    """Block k's gate ``(..., 4, 4)`` reordered into (lo, hi) site order;
+    returns (gate, lo, hi)."""
     ctrl, targ = int(circ.blocks[0, k]), int(circ.blocks[1, k])
-    g = g4.reshape(2, 2, 2, 2)
+    lead = tuple(g4.shape[:-2])
+    g = g4.reshape(lead + (2, 2, 2, 2))
     if ctrl > targ:
-        g = g.permute(1, 0, 3, 2)
-    return g.reshape(4, 4), min(ctrl, targ), max(ctrl, targ)
+        g = g.transpose(-4, -3).transpose(-2, -1)
+    return g.reshape(lead + (4, 4)), min(ctrl, targ), max(ctrl, targ)
 
 
 def _plan_runs(circ, ks):
@@ -617,13 +649,19 @@ def _apply_run(circ, mps: MPS, ks, gate_of, thr: float) -> MPS:
         g, lo, _ = _gate_lo_hi(circ, gate_of(k), k)
         per_pair[lo] = g if lo not in per_pair else torch.matmul(g, per_pair[lo])
     los = tuple(sorted(per_pair))
-    return apply_pairs_mps(mps, torch.stack([per_pair[lo] for lo in los]), los, trunc_thr=thr)
+    return apply_pairs_mps(mps, torch.stack([per_pair[lo] for lo in los], dim=-3), los, trunc_thr=thr)
 
 
 def _front_layer(circ, mps: MPS, f1q: torch.Tensor) -> MPS:
     for q in range(circ.num_qubits):
-        mps = apply_1q_mps(mps, f1q[q], q)
+        mps = apply_1q_mps(mps, f1q[..., q, :, :], q)
     return mps
+
+
+def _layer_gates(circ, gates: torch.Tensor, layers: int) -> torch.Tensor:
+    """The first ``layers * bpl`` block gates as (..., layers, bpl, 4, 4)."""
+    lead = tuple(gates.shape[:-3])
+    return gates[..., : layers * circ.bpl, :, :].reshape(lead + (layers, circ.bpl, 4, 4))
 
 
 def v_dagger_layer_cache_eligible(circ) -> bool:
@@ -660,7 +698,8 @@ def v_mul_mps_growing(
     growing static bond dimension χ_p = min(chi_max, 2^p) — exact, because
     χ_p covers the attainable rank, the discarded-weight rule is
     scale-relative and the rank cap binds only at chi_max — then the layers
-    continue at full χ.  Requires :func:`v_dagger_layer_cache_eligible`."""
+    continue at full χ.  ``thetas`` may carry lane axes ``(..., P)``.
+    Requires :func:`v_dagger_layer_cache_eligible`."""
     if not v_dagger_layer_cache_eligible(circ):
         raise ValueError("v_mul_mps_growing needs a layered adjacent-pair Trotter ansatz")
     dtype = complex_dtype() if dtype is None else dtype
@@ -672,7 +711,7 @@ def v_mul_mps_growing(
     runs = _plan_runs(circ, range(bpl))
     half = circ.half_layer_num_blocks
     half_runs = _plan_runs(circ, range(half)) if half else []
-    g_layers = gates[: layers * bpl].reshape(layers, bpl, 4, 4)
+    g_layers = _layer_gates(circ, gates, layers)
 
     mps = _front_layer(circ, mps_basis_state(tuple(int(b) for b in bits), 1, dtype, thetas.device), f1q)
     # Head: grow χ by x2 before each phase until chi_max, stopping at a
@@ -685,14 +724,14 @@ def v_mul_mps_growing(
             if chi_cur < chi_max:
                 chi_cur = min(chi_max, 2 * chi_cur)
                 mps = mps_resize(mps, chi_cur)
-            mps = _apply_run(circ, mps, run, lambda k: g_layers[j][k], thr)
+            mps = _apply_run(circ, mps, run, lambda k: g_layers[..., j, k, :, :], thr)
         layer_start = j + 1
     mps = mps_resize(mps, chi_max)
     for j in range(layer_start, layers):
         for run in runs:
-            mps = _apply_run(circ, mps, run, lambda k: g_layers[j][k], thr)
+            mps = _apply_run(circ, mps, run, lambda k: g_layers[..., j, k, :, :], thr)
     for run in half_runs:
-        mps = _apply_run(circ, mps, run, lambda k: gates[k], thr)
+        mps = _apply_run(circ, mps, run, lambda k: gates[..., k, :, :], thr)
     return mps
 
 
@@ -702,7 +741,8 @@ def v_dagger_mul_mps_layers(
     """``V† @ mps`` plus the per-layer intermediate cache of the co-sweep
     gradient: ``cache[j]`` (leading axis) is the state entering gradient
     layer j (``V_{layers>j}† @ mps``), ``cache[L]`` the state entering the
-    trailing 2nd-order half-layer.  Requires
+    trailing 2nd-order half-layer.  With lane axes on ``thetas`` the cache
+    is ``(layers + 1, ..., n, 2, chi, chi)``.  Requires
     :func:`v_dagger_layer_cache_eligible`."""
     if not v_dagger_layer_cache_eligible(circ):
         raise ValueError("v_dagger_mul_mps_layers needs a layered adjacent-pair Trotter ansatz")
@@ -717,19 +757,19 @@ def v_dagger_mul_mps_layers(
     out = mps
     if half:  # trailing half-layer first (V† order), saved as cache[L]
         for run in _plan_runs(circ, range(half - 1, -1, -1)):
-            out = _apply_run(circ, out, run, lambda k: gates[k], thr)
+            out = _apply_run(circ, out, run, lambda k: gates[..., k, :, :], thr)
     c_last = out
 
-    g_layers = gates[: layers * bpl].reshape(layers, bpl, 4, 4)
+    g_layers = _layer_gates(circ, gates, layers)
     runs = _plan_runs(circ, range(bpl - 1, -1, -1))
     states = []  # states[i] = after i+1 daggered layers (from the last layer)
     for j in range(layers - 1, -1, -1):
         for run in runs:
-            out = _apply_run(circ, out, run, lambda k: g_layers[j][k], thr)
+            out = _apply_run(circ, out, run, lambda k: g_layers[..., j, k, :, :], thr)
         states.append(out)
     out = _front_layer(circ, out, f1q)
 
-    ordered = states[::-1] + [c_last]
+    ordered = [broadcast_mps(s, out.gammas.shape[:-4]) for s in states[::-1] + [c_last]]
     cache = MPS(
         torch.stack([s.gammas for s in ordered]), torch.stack([s.lambdas for s in ordered])
     )
@@ -756,11 +796,11 @@ def _v_mul_mps_impl(circ, thetas, mps: MPS, dagger: bool, trunc_thr: Optional[fl
         order = range(count - 1, -1, -1) if dagger else range(count)
         if not all_adjacent:
             for k in order:
-                g, lo, hi = _gate_lo_hi(circ, gates[k], k)
+                g, lo, hi = _gate_lo_hi(circ, gates[..., k, :, :], k)
                 mps_ = apply_2q_any_mps(mps_, g, lo, hi, trunc_thr=thr)
             return mps_
         for run in _plan_runs(circ, order):
-            mps_ = _apply_run(circ, mps_, run, lambda k: gates[k], thr)
+            mps_ = _apply_run(circ, mps_, run, lambda k: gates[..., k, :, :], thr)
         return mps_
 
     for _ in range(circ.circuit_power):

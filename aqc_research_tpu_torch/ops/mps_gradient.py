@@ -17,6 +17,10 @@
 
 Every pair update goes through ``ops/mps._pair_update``, so on the card the
 decompositions run the route's kernels.
+
+The layered Trotter paths take lane axes: ``thetas (..., P)``, states with
+the same leading axes (or none, broadcast), gradients ``(..., P)``; the
+pair groups of all lanes decompose as one batch.
 """
 
 from __future__ import annotations
@@ -48,12 +52,17 @@ def _e0(cw: int, cz: int, dtype, device) -> torch.Tensor:
 
 def _env_left_step(env, aw, az):
     """env'[b,B] = sum_s conj(aw)[s,a,b] env[a,A] az[s,A,B]."""
-    return torch.einsum("aA,sab,sAB->bB", env, aw.conj(), az)
+    return torch.einsum("...aA,...sab,...sAB->...bB", env, aw.conj(), az)
 
 
 def _env_right_step(aw, az, env):
     """env'[a,A] = sum_s conj(aw)[s,a,b] az[s,A,B] env[b,B]."""
-    return torch.einsum("sab,sAB,bB->aA", aw.conj(), az, env)
+    return torch.einsum("...sab,...sAB,...bB->...aA", aw.conj(), az, env)
+
+
+def _lead(thetas: torch.Tensor) -> tuple:
+    """The lane axes of Θ (``()`` for one lane)."""
+    return tuple(thetas.shape[:-1])
 
 
 def _site_tensor(mps: MPS, q: int) -> torch.Tensor:
@@ -236,14 +245,15 @@ def _env_stacks(w: MPS, z: MPS):
     uses L[s] · T_s · R[s+1]."""
     aw, az = _folded_tensors(w), _folded_tensors(z)
     n = w.num_sites
-    e0 = _e0(w.chi, z.chi, aw.dtype, aw.device)
+    batch = torch.broadcast_shapes(aw.shape[:-4], az.shape[:-4])
+    e0 = _e0(w.chi, z.chi, aw.dtype, aw.device).expand(batch + (w.chi, z.chi))
     left = [e0]
     for q in range(n):
-        left.append(_env_left_step(left[-1], aw[q], az[q]))
+        left.append(_env_left_step(left[-1], aw[..., q, :, :, :], az[..., q, :, :, :]))
     right = [e0]
     for q in range(n - 1, -1, -1):
-        right.append(_env_right_step(aw[q], az[q], right[-1]))
-    return aw, az, torch.stack(left), torch.stack(right[::-1])
+        right.append(_env_right_step(aw[..., q, :, :, :], az[..., q, :, :, :], right[-1]))
+    return aw, az, torch.stack(left, dim=-3), torch.stack(right[::-1], dim=-3)
 
 
 def _dots_from_stacks(w: MPS, z: MPS, l_stack, r_stack, pauli_mats, sites):
@@ -252,10 +262,10 @@ def _dots_from_stacks(w: MPS, z: MPS, l_stack, r_stack, pauli_mats, sites):
     to both states: the per-site transfer matrix is invariant)."""
     idx = torch.as_tensor(sites, dtype=torch.long, device=l_stack.device)
     aw, az = _folded_tensors(w), _folded_tensors(z)
-    paw = torch.einsum("pij,pjab->piab", pauli_mats.to(aw.dtype), aw[idx])
-    x = torch.einsum("paA,psab->pAsb", l_stack[idx], paw.conj())
-    x = torch.einsum("pAsb,psAB->pbB", x, az[idx])
-    return (x * r_stack[idx + 1]).sum((-2, -1))
+    paw = torch.einsum("...pij,...pjab->...piab", pauli_mats.to(aw.dtype), aw[..., idx, :, :, :])
+    x = torch.einsum("...paA,...psab->...pAsb", l_stack[..., idx, :, :], paw.conj())
+    x = torch.einsum("...pAsb,...psAB->...pbB", x, az[..., idx, :, :, :])
+    return (x * r_stack[..., idx + 1, :, :]).sum((-2, -1))
 
 
 def _apply_pairs_both(w: MPS, z: MPS, gates, los, trunc_thr):
@@ -312,22 +322,26 @@ def _pair_env_tensors(w: MPS, z: MPS, l_stack, r_stack, los):
     (lo, lo+1): ``<(Y w)|z> = sum(conj(Y) * N)`` for any pair-local Y."""
     idx = torch.as_tensor(los, dtype=torch.long, device=l_stack.device)
     aw, az = _folded_tensors(w), _folded_tensors(z)
-    tw = torch.einsum("psam,ptmb->pstab", aw[idx], aw[idx + 1])
-    tz = torch.einsum("puAM,pvMB->puvAB", az[idx], az[idx + 1])
-    tz = torch.einsum("puvAB,pbB->puvAb", tz, r_stack[idx + 2])
-    x = torch.einsum("paA,pstab->pstAb", l_stack[idx], tw.conj())
-    n4 = torch.einsum("pstAb,puvAb->puvst", x, tz)
-    return n4.reshape(len(los), 4, 4)  # rows = z phys (u,v), cols = w phys (s,t)
+
+    def at(a, off):
+        return a[..., idx + off, :, :, :]
+
+    tw = torch.einsum("...psam,...ptmb->...pstab", at(aw, 0), at(aw, 1))
+    tz = torch.einsum("...puAM,...pvMB->...puvAB", at(az, 0), at(az, 1))
+    tz = torch.einsum("...puvAB,...pbB->...puvAb", tz, r_stack[..., idx + 2, :, :])
+    x = torch.einsum("...paA,...pstab->...pstAb", l_stack[..., idx, :, :], tw.conj())
+    n4 = torch.einsum("...pstAb,...puvAb->...puvst", x, tz)
+    return n4.reshape(n4.shape[:-4] + (4, 4))  # rows = z phys (u,v), cols = w phys (s,t)
 
 
 def _embed_1q_batch(g, on_hi: bool):
-    """Batched 1q gates (P, 2, 2) embedded as 4x4 in lo-major ordering."""
+    """Batched 1q gates (..., 2, 2) embedded as 4x4 in lo-major ordering."""
     eye = torch.eye(2, dtype=g.dtype, device=g.device)
     if on_hi:
-        out = torch.einsum("ij,pkl->pikjl", eye, g)
+        out = torch.einsum("ij,...kl->...ikjl", eye, g)
     else:
-        out = torch.einsum("pij,kl->pikjl", g, eye)
-    return out.reshape(g.shape[0], 4, 4)
+        out = torch.einsum("...ij,kl->...ikjl", g, eye)
+    return out.reshape(g.shape[:-2] + (4, 4))
 
 
 def _embed_pauli(p, on_hi: bool):
@@ -337,14 +351,15 @@ def _embed_pauli(p, on_hi: bool):
 
 def _triplet_prefixes(group, layer_thetas, layer_masks, dtype, device):
     """Pure 4x4 algebra of one half-layer group: the composed triplet
-    prefixes F_p (P, 4, 4) and, per parameter column, the sandwiches
-    ``pre^H P pre`` at that point of the triplet.
+    prefixes F_p (..., P, 4, 4) and, per parameter column, the sandwiches
+    ``pre^H P pre`` at that point of the triplet (``layer_thetas (...,
+    bpl, tpb)``: the leading axes are lanes).
 
     Returns (prefix, [(blk, col, msk, y4), ...])."""
     y_mat, z_mat, x_mat = G.y(dtype, device), G.z(dtype, device), G.x(dtype, device)
     tidx = [t for t, _ in group]
     P = len(group)
-    prefix = torch.eye(4, dtype=dtype, device=device).expand(P, 4, 4)
+    prefix = torch.eye(4, dtype=dtype, device=device).expand(tuple(layer_thetas.shape[:-2]) + (P, 4, 4))
     sandwiches = []
     for b in range(3):
         ctrl_is_hi = b != 1  # triplet blocks 0/2 have ctrl = hi, block 1 flipped
@@ -352,10 +367,10 @@ def _triplet_prefixes(group, layer_thetas, layer_masks, dtype, device):
         if b == 0:
             # Leading triplet framing Rz(-pi/2) on ctrl (= hi) folds into E.
             ent = torch.matmul(ent, _rz_frame_lo_hi(-np.pi / 2, True, dtype, device))
-        prefix = torch.einsum("ij,pjk->pik", ent, prefix)
+        prefix = torch.matmul(ent, prefix)
 
         blk = torch.as_tensor([3 * t + b for t in tidx], dtype=torch.long, device=device)
-        th = layer_thetas[blk]  # (P, tpb)
+        th = layer_thetas[..., blk, :]  # (..., P, tpb)
         msk = layer_masks[blk].to(dtype)  # (P,)
         specs = (
             (G.ry, y_mat, ctrl_is_hi, 0),  # on ctrl
@@ -364,15 +379,15 @@ def _triplet_prefixes(group, layer_thetas, layer_masks, dtype, device):
             (G.rx, x_mat, not ctrl_is_hi, 3),  # on targ
         )
         for gate_fn, pauli, on_hi, col in specs:
-            g4 = _embed_1q_batch(gate_fn(th[:, col], dtype), on_hi)
-            prefix = torch.einsum("pij,pjk->pik", g4, prefix)
+            g4 = _embed_1q_batch(gate_fn(th[..., col], dtype), on_hi)
+            prefix = torch.matmul(g4, prefix)
             p4 = _embed_pauli(pauli, on_hi)
-            y4 = torch.einsum("pji,jk,pkl->pil", prefix.conj(), p4, prefix)
+            y4 = torch.matmul(torch.matmul(prefix.conj().transpose(-1, -2), p4), prefix)
             sandwiches.append((blk, col, msk, y4))
         if b == 2:
             # Trailing triplet framing Rz(pi/2) on targ (= lo).
             frame = G.rz(np.pi / 2, dtype, device).expand(P, 2, 2)
-            prefix = torch.einsum("pij,pjk->pik", _embed_1q_batch(frame, not ctrl_is_hi), prefix)
+            prefix = torch.matmul(_embed_1q_batch(frame, not ctrl_is_hi), prefix)
     return prefix, sandwiches
 
 
@@ -380,7 +395,7 @@ def _half_layer_cosweep(
     circ, group, layer_thetas, layer_masks, w: MPS, z: MPS, trunc_thr, dtype, skip_z: bool = False
 ):
     """One chessboard half-layer against the current z: returns (w', z',
-    dots (bpl, 4)) with rows only for this group's blocks filled.  With
+    dots (..., bpl, 4)) with rows only for this group's blocks filled.  With
     ``skip_z`` the z side is not updated (the caller substitutes the cached
     boundary)."""
     device = w.gammas.device
@@ -388,9 +403,9 @@ def _half_layer_cosweep(
     _, _, l_stack, r_stack = _env_stacks(w, z)
     n4 = _pair_env_tensors(w, z, l_stack, r_stack, los)
     prefix, sandwiches = _triplet_prefixes(group, layer_thetas, layer_masks, dtype, device)
-    dots = torch.zeros((circ.bpl, 4), dtype=dtype, device=device)
+    dots = torch.zeros(tuple(layer_thetas.shape[:-2]) + (circ.bpl, 4), dtype=dtype, device=device)
     for blk, col, msk, y4 in sandwiches:
-        dots[blk, col] += 0.5j * torch.einsum("pij,pij->p", y4.conj(), n4) * msk
+        dots[..., blk, col] += 0.5j * (y4.conj() * n4).sum((-2, -1)) * msk
     if skip_z:
         return apply_pairs_mps(w, prefix, los, trunc_thr=trunc_thr), z, dots
     w, z = _apply_pairs_both(w, z, prefix, los, trunc_thr)
@@ -413,13 +428,19 @@ def _half_layer_cosweep_znext(circ, group, layer_thetas, layer_masks, w: MPS, z_
     e0 = _e0(w.chi, z_next.chi, dtype, device)
     pair_of_lo = {lo: i for i, lo in enumerate(los)}
 
+    def site_w(q):
+        return aw[..., q, :, :, :]
+
+    def site_z(q):
+        return az[..., q, :, :, :]
+
     def fold_pair_w(lo, f4):
         """tw[s,t,a,c] = sum_{uv,b} f4[(st),(uv)] aw_lo[u,a,b] aw_hi[v,b,c]."""
-        two = torch.einsum("uab,vbc->uvac", aw[lo], aw[lo + 1])
-        return torch.einsum("stuv,uvac->stac", f4.reshape(2, 2, 2, 2), two)
+        two = torch.einsum("...uab,...vbc->...uvac", site_w(lo), site_w(lo + 1))
+        return torch.einsum("...stuv,...uvac->...stac", f4.reshape(f4.shape[:-2] + (2, 2, 2, 2)), two)
 
     def pair_z(lo):
-        return torch.einsum("uAB,vBC->uvAC", az[lo], az[lo + 1])
+        return torch.einsum("...uAB,...vBC->...uvAC", site_z(lo), site_z(lo + 1))
 
     units, q = [], 0
     while q < n:
@@ -434,31 +455,32 @@ def _half_layer_cosweep_znext(circ, group, layer_thetas, layer_masks, w: MPS, z_
     for kind, q in units:
         if kind == "pair":
             l_envs[q] = env
-            tw = fold_pair_w(q, prefix[pair_of_lo[q]])
-            env = torch.einsum("aA,stac,stAC->cC", env, tw.conj(), pair_z(q))
+            tw = fold_pair_w(q, prefix[..., pair_of_lo[q], :, :])
+            env = torch.einsum("...aA,...stac,...stAC->...cC", env, tw.conj(), pair_z(q))
         else:
-            env = _env_left_step(env, aw[q], az[q])
+            env = _env_left_step(env, site_w(q), site_z(q))
 
     r_envs, env = {}, e0
     for kind, q in reversed(units):
         if kind == "pair":
             r_envs[q] = env
-            tw = fold_pair_w(q, prefix[pair_of_lo[q]])
-            env = torch.einsum("stac,stAC,cC->aA", tw.conj(), pair_z(q), env)
+            tw = fold_pair_w(q, prefix[..., pair_of_lo[q], :, :])
+            env = torch.einsum("...stac,...stAC,...cC->...aA", tw.conj(), pair_z(q), env)
         else:
-            env = _env_right_step(aw[q], az[q], env)
+            env = _env_right_step(site_w(q), site_z(q), env)
 
     def n4_at(lo):
-        tw = torch.einsum("uab,vbc->uvac", aw[lo], aw[lo + 1])  # open w legs
-        x = torch.einsum("aA,stac->stAc", l_envs[lo], tw.conj())
-        x = torch.einsum("stAc,cC->stAC", x, r_envs[lo])
-        return torch.einsum("stAC,uvAC->uvst", x, pair_z(lo)).reshape(4, 4)
+        tw = torch.einsum("...uab,...vbc->...uvac", site_w(lo), site_w(lo + 1))  # open w legs
+        x = torch.einsum("...aA,...stac->...stAc", l_envs[lo], tw.conj())
+        x = torch.einsum("...stAc,...cC->...stAC", x, r_envs[lo])
+        n4_lo = torch.einsum("...stAC,...uvAC->...uvst", x, pair_z(lo))
+        return n4_lo.reshape(n4_lo.shape[:-4] + (4, 4))
 
-    n4 = torch.stack([n4_at(lo) for lo in los])
-    dots = torch.zeros((circ.bpl, 4), dtype=dtype, device=device)
+    n4 = torch.stack([n4_at(lo) for lo in los], dim=-3)
+    dots = torch.zeros(tuple(layer_thetas.shape[:-2]) + (circ.bpl, 4), dtype=dtype, device=device)
     for blk, col, msk, y4 in sandwiches:
-        y4f = torch.einsum("pij,pjk->pik", prefix, y4)
-        dots[blk, col] += 0.5j * torch.einsum("pij,pij->p", y4f.conj(), n4) * msk
+        y4f = torch.matmul(prefix, y4)
+        dots[..., blk, col] += 0.5j * (y4f.conj() * n4).sum((-2, -1)) * msk
     return apply_pairs_mps(w, prefix, los, trunc_thr=trunc_thr), dots
 
 
@@ -467,16 +489,16 @@ def _front_cosweep_batched(circ, thetas1q, w: MPS, z: MPS, front_layer: bool, dt
     n = circ.num_qubits
     device = w.gammas.device
     sites = tuple(range(n))
-    grads = torch.zeros((n, 3), dtype=dtype, device=device)
+    grads = torch.zeros(tuple(thetas1q.shape[:-2]) + (n, 3), dtype=dtype, device=device)
     if front_layer:  # one stack build serves all three dot rounds
         _, _, l_stack, r_stack = _env_stacks(w, z)
     for col, gate_fn, pauli in ((2, G.rz, G.z), (1, G.ry, G.y), (0, G.rz, G.z)):
-        g1q = gate_fn(thetas1q[:, col], dtype)
+        g1q = gate_fn(thetas1q[..., col], dtype)
         w = apply_1q_many(w, g1q, sites)
         z = apply_1q_many(z, g1q, sites)
         if front_layer:
             paulis = pauli(dtype, device).expand(n, 2, 2)
-            grads[:, col] = 0.5j * _dots_from_stacks(w, z, l_stack, r_stack, paulis, sites)
+            grads[..., col] = 0.5j * _dots_from_stacks(w, z, l_stack, r_stack, paulis, sites)
     return w, z, grads
 
 
@@ -503,24 +525,25 @@ def _fast_dot_gradient_layered(
     nb, bpl, tpb = circ.num_blocks, circ.bpl, circ.tpb
     layers = nb // bpl
     groups = _layered_plan(circ)
+    lead = _lead(thetas)
     thetas1q = circ.subset1q(thetas)
-    th_layers = circ.subset2q(thetas).reshape(layers, bpl, tpb)
+    th_layers = circ.subset2q(thetas).reshape(lead + (layers, bpl, tpb))
     m_layers = _masks(nb, block_range, thetas.dtype, thetas.device).reshape(layers, bpl)
 
     w, z, grad1q = _front_cosweep_batched(circ, thetas1q, lvec, vh_phi, front_layer, dtype)
     rows = []
     for j in range(layers):
-        dots = torch.zeros((bpl, 4), dtype=dtype, device=thetas.device)
+        dots = torch.zeros(lead + (bpl, 4), dtype=dtype, device=thetas.device)
         for group in groups:
-            w, z, d = _half_layer_cosweep(circ, group, th_layers[j], m_layers[j], w, z, trunc_thr, dtype)
+            w, z, d = _half_layer_cosweep(circ, group, th_layers[..., j, :, :], m_layers[j], w, z, trunc_thr, dtype)
             dots = dots + d
         rows.append(dots)
-    grad2q = torch.stack(rows).reshape(nb, tpb)
+    grad2q = torch.stack(rows, dim=-3).reshape(lead + (nb, tpb))
     if circ.half_layer_num_blocks:
         # Trailing half-layer == leading even group of layer 0; accumulate.
-        w, z, d = _half_layer_cosweep(circ, groups[0], th_layers[0], m_layers[0], w, z, trunc_thr, dtype)
-        grad2q[:bpl] += d
-    return torch.cat([grad1q.reshape(-1), grad2q.reshape(-1)])
+        w, z, d = _half_layer_cosweep(circ, groups[0], th_layers[..., 0, :, :], m_layers[0], w, z, trunc_thr, dtype)
+        grad2q[..., :bpl, :] += d
+    return torch.cat([grad1q.reshape(lead + (-1,)), grad2q.reshape(lead + (-1,))], dim=-1)
 
 
 def _fast_dot_gradient_layered_zcache(
@@ -548,8 +571,9 @@ def _fast_dot_gradient_layered_zcache(
     chessboard = len(groups) == 2
     grow_w = grow_w and chessboard
 
+    lead = _lead(thetas)
     thetas1q = circ.subset1q(thetas)
-    th_layers = circ.subset2q(thetas).reshape(layers, bpl, tpb)
+    th_layers = circ.subset2q(thetas).reshape(lead + (layers, bpl, tpb))
     m_layers = _masks(nb, block_range, thetas.dtype, device).reshape(layers, bpl)
 
     chi_z = vh_phi.chi
@@ -562,9 +586,9 @@ def _fast_dot_gradient_layered_zcache(
     rows = []
     chi_w = w.chi
     for j in range(layers):
-        th_l, m_l, znx = th_layers[j], m_layers[j], z_next[j]
+        th_l, m_l, znx = th_layers[..., j, :, :], m_layers[j], z_next[j]
         if not chessboard:
-            dots = torch.zeros((bpl, 4), dtype=dtype, device=device)
+            dots = torch.zeros(lead + (bpl, 4), dtype=dtype, device=device)
             for gi, group in enumerate(groups):
                 last = gi == len(groups) - 1
                 w, z, d = _half_layer_cosweep(circ, group, th_l, m_l, w, z, trunc_thr, dtype, skip_z=last)
@@ -589,18 +613,18 @@ def _fast_dot_gradient_layered_zcache(
         rows.append(d1 + d2)
     if grow_w:
         w = mps_resize(w, max(w.chi, chi_z))
-    grad2q = torch.stack(rows).reshape(nb, tpb)
+    grad2q = torch.stack(rows, dim=-3).reshape(lead + (nb, tpb))
 
     if circ.half_layer_num_blocks:
         # Trailing half-layer == leading even group of layer 0; z already
         # holds cache[L].
         w, _, d = _half_layer_cosweep(
-            circ, groups[0], th_layers[0], m_layers[0], w, z, trunc_thr, dtype, skip_z=True
+            circ, groups[0], th_layers[..., 0, :, :], m_layers[0], w, z, trunc_thr, dtype, skip_z=True
         )
-        grad2q[:bpl] += d
+        grad2q[..., :bpl, :] += d
 
     # The co-sweep's final w IS V @ lvec.
-    return torch.cat([grad1q.reshape(-1), grad2q.reshape(-1)]), w
+    return torch.cat([grad1q.reshape(lead + (-1,)), grad2q.reshape(lead + (-1,))], dim=-1), w
 
 
 def _layered_eligible(circ: Ansatz) -> bool:

@@ -106,27 +106,27 @@ def _entangler_gate(entangler: str, tht, dtype, dagger: bool):
 
 
 def block_gates(circ: Ansatz, thetas2q: torch.Tensor, dtype, dagger: bool = False):
-    """Fused 4x4 gates of all unit blocks, ``(num_blocks, 4, 4)`` in (ctrl,
-    targ) index order.  Forward block = (C ⊗ T) @ E with C = Rz(t1)·Ry(t0),
+    """Fused 4x4 gates of all unit blocks, ``(..., num_blocks, 4, 4)`` in
+    (ctrl, targ) index order (leading axes of ``thetas2q``, lanes, kept).  Forward block = (C ⊗ T) @ E with C = Rz(t1)·Ry(t0),
     T = Rs(t3)·Ry(t2); dagger block = E† @ (C† ⊗ T†).  For a Trotterized
     ansatz the triplet framings Rz(∓pi/2) fold into the first/last block of
     each triplet."""
     rs = _swappable_gate(circ.entangler)
     t = thetas2q
     if dagger:
-        c_mat = torch.matmul(G.ry(-t[:, 0], dtype), G.rz(-t[:, 1], dtype))
-        t_mat = torch.matmul(G.ry(-t[:, 2], dtype), rs(-t[:, 3], dtype))
+        c_mat = torch.matmul(G.ry(-t[..., 0], dtype), G.rz(-t[..., 1], dtype))
+        t_mat = torch.matmul(G.ry(-t[..., 2], dtype), rs(-t[..., 3], dtype))
         ent = _entangler_gate(circ.entangler, t, dtype, dagger=True)
         blocks4 = torch.matmul(ent, G.kron2(c_mat, t_mat))
     else:
-        c_mat = torch.matmul(G.rz(t[:, 1], dtype), G.ry(t[:, 0], dtype))
-        t_mat = torch.matmul(rs(t[:, 3], dtype), G.ry(t[:, 2], dtype))
+        c_mat = torch.matmul(G.rz(t[..., 1], dtype), G.ry(t[..., 0], dtype))
+        t_mat = torch.matmul(rs(t[..., 3], dtype), G.ry(t[..., 2], dtype))
         ent = _entangler_gate(circ.entangler, t, dtype, dagger=False)
         blocks4 = torch.matmul(G.kron2(c_mat, t_mat), ent)
 
     if circ.is_trotterized and circ.num_blocks > 0:
         dev = thetas2q.device
-        idx = np.arange(thetas2q.shape[0])
+        idx = np.arange(thetas2q.shape[-2])
         eye = G.eye2(dtype, dev)
         rz_m = G.kron2(G.rz(-np.pi / 2, dtype, dev), eye)  # on ctrl, triplet start
         rz_p = G.kron2(eye, G.rz(np.pi / 2, dtype, dev))  # on targ, triplet end
@@ -142,16 +142,16 @@ def block_gates(circ: Ansatz, thetas2q: torch.Tensor, dtype, dagger: bool = Fals
 
 
 def front_gates(circ: Ansatz, thetas1q: torch.Tensor, dtype, dagger: bool = False):
-    """Fused Rz·Ry·Rz front-layer gates, ``(num_qubits, 2, 2)``.
+    """Fused Rz·Ry·Rz front-layer gates, ``(..., num_qubits, 2, 2)``.
     Forward: Rz(t0)·Ry(t1)·Rz(t2); dagger: Rz(-t2)·Ry(-t1)·Rz(-t0)."""
     t = thetas1q
     if dagger:
         return torch.matmul(
-            torch.matmul(G.rz(-t[:, 2], dtype), G.ry(-t[:, 1], dtype)),
-            G.rz(-t[:, 0], dtype),
+            torch.matmul(G.rz(-t[..., 2], dtype), G.ry(-t[..., 1], dtype)),
+            G.rz(-t[..., 0], dtype),
         )
     return torch.matmul(
-        torch.matmul(G.rz(t[:, 0], dtype), G.ry(t[:, 1], dtype)), G.rz(t[:, 2], dtype)
+        torch.matmul(G.rz(t[..., 0], dtype), G.ry(t[..., 1], dtype)), G.rz(t[..., 2], dtype)
     )
 
 

@@ -1,1 +1,1 @@
-"""Trotter evolution targets."""
+"""Trotter evolution targets and the target state / unitary generators."""

@@ -1,7 +1,8 @@
-"""Logging, timing and entry-point helpers of the ASP driver (the parts of
-``aqc_research_tpu/utils/__init__.py`` the driver uses): a module logger,
-the graceful-exit sentinel, an accumulating timer, the script entry point,
-a file copy and an options printout."""
+"""Helpers of the drivers (twin of ``aqc_research_tpu/utils/__init__.py``):
+random circuits, angles and states drawn from numpy's global stream (the
+same seed gives the JAX package's numbers), a module logger, the
+graceful-exit sentinel, an accumulating timer, the script entry point, a
+file copy, an options printout and the results summary."""
 
 from __future__ import annotations
 
@@ -15,7 +16,63 @@ from pprint import pformat, pprint
 from time import perf_counter
 from typing import Any, Callable, Dict, List, Optional
 
+import numpy as np
+import torch
+
 from . import checking as chk
+from .config import complex_dtype
+
+
+def num_cpus() -> int:
+    """Number of CPUs available on this host (>= 1)."""
+    n = os.cpu_count()
+    return int(n) if isinstance(n, int) else 1
+
+
+def rand_circuit(num_qubits: int, depth: int) -> np.ndarray:
+    """Random unit-block structure: per column a random pair of distinct qubits."""
+    assert chk.is_int(num_qubits, num_qubits >= 2)
+    assert chk.is_int(depth, depth >= 0)
+    cols = np.tile(np.arange(num_qubits)[:, None], depth)
+    for i in range(depth):
+        np.random.shuffle(cols[:, i])
+    return cols[0:2, :].copy()
+
+
+def rand_thetas(num_thetas: int) -> np.ndarray:
+    """Uniform random angles in ``(-pi, pi)``."""
+    assert chk.is_int(num_thetas, num_thetas > 0)
+    return np.pi * (2 * np.random.rand(num_thetas) - 1)
+
+
+def rand_thetas_gen(generator: torch.Generator, num_thetas: int, dtype=torch.float64) -> torch.Tensor:
+    """:func:`rand_thetas` from an explicit ``torch.Generator`` (the JAX
+    package's ``rand_thetas_key`` draws from a JAX key, which torch cannot
+    replay), on the generator's device."""
+    assert chk.is_int(num_thetas, num_thetas > 0)
+    u = torch.rand(num_thetas, generator=generator, dtype=dtype, device=generator.device)
+    return torch.pi * (2 * u - 1)
+
+
+def _np_complex_dtype() -> np.dtype:
+    return np.dtype(np.complex128 if complex_dtype() == torch.complex128 else np.complex64)
+
+
+def rand_state(num_qubits: int) -> np.ndarray:
+    """Random normalized complex state of ``2**num_qubits`` amplitudes."""
+    assert chk.is_int(num_qubits, num_qubits >= 2)
+    dim = 2**num_qubits
+    state = np.random.rand(dim) + 1j * np.random.rand(dim)
+    state /= np.linalg.norm(state)
+    return state.astype(_np_complex_dtype())
+
+
+def zero_state(num_qubits: int) -> np.ndarray:
+    """The ``|0...0>`` basis state as a dense vector."""
+    assert chk.is_int(num_qubits, num_qubits >= 2)
+    state = np.zeros(2**num_qubits, dtype=_np_complex_dtype())
+    state[0] = 1
+    return state
 
 
 def create_logger(module_name: str) -> logging.Logger:
@@ -34,6 +91,10 @@ def create_logger(module_name: str) -> logging.Logger:
         logger.addHandler(handler)
         logger.propagate = False
     return logger
+
+
+def logi(logger: logging.Logger, message: str) -> None:
+    logger.info(str(message))
 
 
 class UserExit:
@@ -147,6 +208,24 @@ def script_entry_point(
         logger.info(msg) if logger else print(msg)
 
 
+def prepare_output_folder(result_dir: str, num_qubits: int, script_path: str, tag: str = "") -> str:
+    """Creates a timestamped results folder ``result_dir/<n>qubits/<time>``
+    (``_tag`` appended) and copies the launching script into it."""
+    import datetime
+
+    assert isinstance(result_dir, str)
+    assert chk.is_int(num_qubits, num_qubits >= 2)
+    now = str(datetime.datetime.now().replace(microsecond=0))
+    now = now.replace(":", ".").replace(" ", "_")
+    output_dir = os.path.join(result_dir, f"{num_qubits}qubits", now)
+    if isinstance(tag, str) and len(tag) > 0:
+        output_dir = output_dir + "_" + tag
+    os.makedirs(output_dir, exist_ok=True)
+    if isinstance(script_path, str) and os.path.isfile(script_path):
+        shutil.copy(script_path, os.path.join(output_dir, os.path.basename(script_path)))
+    return output_dir
+
+
 def copy_file_to_folder(directory: str, filename: str) -> None:
     if not os.path.isdir(directory):
         raise IOError("cannot copy: the target directory is missing")
@@ -171,3 +250,17 @@ def print_options(
         logger.info(txt)
     else:
         pprint(txt)
+
+
+def sort_and_print_summary(num_qubits: int, results: List[Dict]) -> List[Dict]:
+    """Sorts results by cost in place and prints a pandas summary table."""
+    import pandas as pd
+
+    assert chk.is_int(num_qubits)
+    assert chk.is_list(results) and chk.is_dict(results[0])
+    results.sort(key=lambda x: x["cost"])
+    assert chk.float_1d(np.asarray(results[0]["thetas"]))
+    pd.set_option("display.max_rows", None)
+    summary = pd.DataFrame(results, columns=["cost", "num_iters", "time"])
+    print(f"\n{'-' * 24}\nSorted valid results:\n{summary}\n")
+    return results

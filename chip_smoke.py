@@ -3,8 +3,9 @@
 kernels, holds each against its plain-torch twin, then drives ASP horizons
 of the 20-qubit χ=64 and the 28-qubit χ=128 MPS configurations on the jacobi
 route and on the default (rand) route, the ASP driver over a schedule of
-20-qubit χ=64 horizons, and the dense statevector path: bench.py's 12-qubit
-flagship and the driver's dense objective.
+20-qubit χ=64 horizons, the dense statevector path (bench.py's 12-qubit
+flagship and the driver's dense objective), approximate quantum compiling
+and the multi-start fleets (dense and MPS).
 
 Usage:  python3 chip_smoke.py        (from the root of a checkout; one card)
 
@@ -107,6 +108,51 @@ Phases, one line each:
                 at 12 qubits, horizons t = 1.2 and 2.4 of 2 and 4 layers,
                 maxiter 40, the default fidelity bar: fid_a1_vs_gt within
                 1e-5 of each result's fidelity.  The record's dense12 path.
+  5d. aqc5   — approximate quantum compiling, which launches none of the
+                hand-written kernels (checked), fast precision: (a) BASELINE
+                config 1 (benchmarks/bench_aqc_multistart.py:52-183): 5
+                qubits, spin ansatz of depth 160, cx, target
+                exact_evolution(H(5, 1), I, 1) in c64; the fused objective
+                and co-sweep gradient 1 - Re<V, U>/32 timed at one lane and
+                at 16 lanes in one call (evaluations/s, aten calls, idle
+                share); (b) the README's aqc_sketching call (5q, 40 layers,
+                32 sketching vectors = full range, "spin", target "random",
+                maxiter 300, lr 0.1) with 16 restarts, which run as one
+                lane-batched compact L-BFGS: every lane's cost below its
+                start, each lane's f32 cost within 1e-4 of the c128
+                objective at its θ on the card (the reported fidelity is
+                scored in c128 and re-read), 2 lanes against the one-lane loop
+                from the same starts at maxiter 20 (within 1e-4, the same
+                iterations); wall time, iterations, best cost; (c) the
+                sketched driver (skvecs "rand", 8 vectors, maxiter 100, 2
+                restarts through run_jobs); (d) aqc_coordinate_descent (5q,
+                40 layers, maxiter 20, 2 restarts).  The record's aqc5 path.
+  5e. fleet12 — BASELINE config 4 (bench_aqc_multistart.py:184-287): 12
+                qubits, 2-layer Trotter ansatz, 8 starts at perfect init +
+                0.2 N(0,1) (seed 3), target Trotter(1.2, 6 steps) of the Neel
+                state, maxiter 150; optimize_horizon_jit on start 0 and
+                optimize_horizon_multistart (batch_linesearch 2, unfused and
+                fused) timed in turns (single, fleet, fused, single); fleet
+                efficiency 8 t_single / t_fleet, the evaluation-batch
+                overhead t_eb / t_e1 (one obj+grad at B=1 and B=8 in turns
+                1, 8, 8, 1; medians), aten
+                calls per fleet evaluation beside one lane's, the idle share
+                of one profiled fleet iteration, the best fidelity against
+                its c128 re-evaluation (1e-5), lane 0 of a sequential-
+                backtracking fleet against the one-lane loop after 20
+                iterations (1e-4); no kernel launch.  The record's fleet12
+                path.
+  5f. fleet20 — the MPS fleet: phase 3's case with 4 lanes (perfect init +
+                0.05 rad from seeds 5..8), maxiter 10, route "rand": every
+                lane's final fobj within TOL_FINAL of its f64 re-evaluation
+                on the card, lane 0 within 1e-4 of the single-lane horizon,
+                K1-K3 launched and K4 not, K2 and K3 launched as often per
+                fleet evaluation (value, and obj+grad) as per one lane's;
+                lane-sweeps/s against one lane's sweeps/s in turns,
+                linalg_qr calls per evaluation (a spy on torch.linalg.qr), one
+                profiled fleet evaluation; K2 and K3 at the folded batch B=40 χ=64 against
+                their twins and timed device-only beside B=10, with bounds.
+                The record's fleet20 path.
   6. slice28 — phase 3 at 28 qubits, χ=128 (BASELINE config 5): the jacobi
                 route runs K4 for every pair update at χ=128 and K1 for the
                 χ-growth heads; the final objective is re-evaluated in c128
@@ -132,7 +178,9 @@ when CUDA is missing or any check fails.
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import io
 import json
 import logging
 import os
@@ -1672,6 +1720,486 @@ def phase_dense(dev):
     return counts, counts_at, homes
 
 
+# The AQC phase: BASELINE config 1 (benchmarks/bench_aqc_multistart.py:52-183)
+# and the README's aqc_sketching call, rebuilt in the port.
+AQC_QUBITS, AQC_DEPTH = 5, 160
+AQC_LANES, AQC_LAYERS, AQC_MAXITER, AQC_SEED = 16, 40, 300, 2024
+AQC_PARITY_LANES, AQC_PARITY_ITERS = 2, 20
+TOL_AQC_FID = 1e-5  # a lane's reported fidelity vs its c128 recomputation (both c128: an identity)
+# A lane's f32 cost vs the c128 objective at its θ: f32 noise over 160
+# blocks; a c64 V(Θ) put the fidelity 1.3e-5 off c128 on the H100.
+TOL_AQC_COST = 1e-4
+TOL_LANE = 1e-4  # a fleet lane vs the one-lane loop from the same start (f32)
+# The dense fleet: BASELINE config 4 (bench_aqc_multistart.py:184-287).
+FLEET_QUBITS, FLEET_LAYERS, FLEET_STARTS, FLEET_MAXITER, FLEET_SEED = 12, 2, 8, 150, 3
+FLEET_PARITY_ITERS = 20
+# The MPS fleet: phase 3's case, 4 lanes from seeds 5..8.
+MPS_FLEET_SEEDS = (5, 6, 7, 8)
+
+
+def count_qr_calls(fn) -> int:
+    """The ``torch.linalg.qr`` calls ``fn()`` makes (the range-finder's,
+    ops/rand_svd._orth), counted by a spy on the function."""
+    real, calls = torch.linalg.qr, [0]
+
+    def spy(*args, **kwargs):
+        calls[0] += 1
+        return real(*args, **kwargs)
+
+    torch.linalg.qr = spy
+    try:
+        fn()
+    finally:
+        torch.linalg.qr = real
+    return calls[0]
+
+
+def evals_per_s(fn, reps: int = 10) -> float:
+    """Calls per second of ``fn`` (host wall of ``reps`` calls ending in
+    ``synchronize()``, after a warm-up call)."""
+    fn()
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return reps / (time.perf_counter() - tic)
+
+
+def phase_aqc(dev):
+    """Full AQC and the sketching drivers on the card, fast precision; no
+    hand-written kernel may launch (checked)."""
+    import importlib
+
+    from aqc_research_tpu_torch import config
+    from aqc_research_tpu_torch.circuit.ansatz import Ansatz
+    from aqc_research_tpu_torch.circuit.structures import create_ansatz_structure
+    from aqc_research_tpu_torch.models.sketching import aqc_coordinate_descent
+    from aqc_research_tpu_torch.models.sketching import sk_core
+    from aqc_research_tpu_torch.ops.statevector import v_mul_mat
+    from aqc_research_tpu_torch.optim.lbfgs import lbfgs_fleet_programs, minimize_lbfgs_compact, stateless_lanes
+    from aqc_research_tpu_torch.targets import trotter as trotop
+    from aqc_research_tpu_torch.utils import rand_thetas
+
+    aqs = importlib.import_module("aqc_research_tpu_torch.models.sketching.aqc_sketching")
+    tic_phase = time.perf_counter()
+    config.set_precision("fast")
+    reset_counts()
+
+    # (a) The fused objective+gradient, one lane and 16 lanes in one call.
+    n, dim = AQC_QUBITS, 2**AQC_QUBITS
+    circ = Ansatz.make(n, "cx", create_ansatz_structure(n, "spin", depth=AQC_DEPTH))
+    u = trotop.exact_evolution(trotop.make_hamiltonian(n, 1.0), np.eye(dim, dtype=complex), 1.0)
+    x = torch.eye(dim, dtype=torch.complex64, device=dev)
+    y = torch.tensor(u, dtype=torch.complex64, device=dev)
+    np.random.seed(0)
+    th1 = torch.tensor(rand_thetas(circ.num_thetas), dtype=torch.float32, device=dev)
+    np.random.seed(1)
+    th16 = torch.tensor(np.stack([rand_thetas(circ.num_thetas) for _ in range(AQC_LANES)]), dtype=torch.float32,
+                        device=dev)
+    _, fused_l = aqs.fleet_objective(circ, x, y)
+    with torch.no_grad():
+        f1, g1 = sk_core.objective_and_gradient(circ, th1, x, y)
+        f16, g16 = fused_l(th16)
+        f16_0, g16_0 = sk_core.objective_and_gradient(circ, th16[0], x, y)
+    check(0.0 < float(f1) < 2.0 and bool(torch.isfinite(g1).all()), f"aqc5 (a): fobj {float(f1)}")
+    lane_gap = max(abs(float(f16[0]) - float(f16_0)), float((g16[0] - g16_0).abs().max()))
+    check(lane_gap <= TOL_LANE, f"aqc5 (a): lane 0 of the 16-lane call vs one lane: {lane_gap:.3g}")
+    with torch.no_grad():
+        rate1 = evals_per_s(lambda: sk_core.objective_and_gradient(circ, th1, x, y))
+        rate16 = AQC_LANES * evals_per_s(lambda: fused_l(th16))
+        prof1 = profile_calls(lambda: sk_core.objective_and_gradient(circ, th1, x, y))
+        prof16 = profile_calls(lambda: fused_l(th16))
+    fused_s = time.perf_counter() - tic_phase
+
+    # (b) The full-AQC fleet: the README's call with 16 restarts.
+    tic = time.perf_counter()
+    result_dir = tempfile.mkdtemp(prefix="aqc_sketch_")
+    quiet = logging.getLogger("aqc5")
+    quiet.addHandler(logging.NullHandler())
+    quiet.propagate = False
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            out = aqs.aqc_sketching(
+                num_qubits=n, num_layers=AQC_LAYERS, num_skvecs=dim, circ_layout="spin", maxiter=AQC_MAXITER,
+                learn_rate=0.1, skvecs_type="full", target_name_or_func="random", result_folder=result_dir,
+                seed=AQC_SEED, num_simulations=AQC_LANES, logger=quiet,
+            )
+        with open(os.path.join(out, "simulation_results.pkl"), "rb") as fld:
+            payload = pickle.load(fld)
+    finally:
+        shutil.rmtree(result_dir, ignore_errors=True)
+    fleet_wall = time.perf_counter() - tic
+    lanes = sorted(payload["sorted_results"], key=lambda r: r["job_index"])
+    check(len(lanes) == AQC_LANES and all(r["stats"].get("fleet") for r in lanes),
+          f"aqc5 (b): {len(lanes)} lanes, not the fleet's {AQC_LANES}")
+    target = payload["target_matrix"]
+    circ40 = aqs.sku.create_ansatz(num_qubits=n, num_layers=AQC_LAYERS, circuit_layout="spin")
+    x64, y64 = aqs.skc.sketch_tensors(np.eye(dim), aqs.sku.targen.make_su_matrix(target))
+    value40, _ = aqs.fleet_objective(circ40, x64, y64)
+    starts = torch.tensor(np.stack([r["ini_thetas"] for r in lanes]), dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        f_start = value40(starts).cpu().numpy()
+    costs = np.array([r["cost"] for r in lanes])
+    check(bool(np.all(np.isfinite(costs)) and np.all(costs < f_start)),
+          f"aqc5 (b): a lane did not lower its cost: starts {f_start.tolist()}, costs {costs.tolist()}")
+    # The drivers score V(Θ) in c128 (models/sketching/sk_utils.circuit_matrix),
+    # so the reported fidelity re-reads the lane's θ; the f32 cost that ranks
+    # the lanes is held against the c128 objective at the same θ.
+    fid_gap = 0.0
+    for r in lanes:
+        with torch.no_grad():
+            v128 = v_mul_mat(circ40, torch.tensor(r["thetas"], dtype=torch.float64, device=dev),
+                             torch.eye(dim, dtype=torch.complex128, device=dev)).cpu().numpy()
+        fid_gap = max(fid_gap, abs(aqs.sku.fidelity(v128, target) - r["fidelity"]))
+    check(fid_gap <= TOL_AQC_FID, f"aqc5 (b): reported fidelity vs c128 recomputation: {fid_gap:.3g}")
+    value128, _ = aqs.fleet_objective(
+        circ40, *(torch.as_tensor(np.asarray(a), device=dev).to(torch.complex128)
+                  for a in (np.eye(dim), aqs.sku.targen.make_su_matrix(target))))
+    with torch.no_grad():
+        cost128 = value128(torch.tensor(np.stack([r["thetas"] for r in lanes]), dtype=torch.float64,
+                                        device=dev)).cpu().numpy()
+    cost_gap = float(np.abs(cost128 - costs).max())
+    check(cost_gap <= TOL_AQC_COST, f"aqc5 (b): lanes' f32 costs {costs.tolist()} vs c128 {cost128.tolist()}")
+    iters = [r["nit"] for r in lanes]
+    outcomes = {k: sum(r["exit_status"] == k for r in lanes) for k in ("early", "normal", "timeout")}
+    best = min(lanes, key=lambda r: r["cost"])
+
+    # Two lanes against the one-lane loop from the same starts.
+    programs = lbfgs_fleet_programs(*stateless_lanes(value40, aqs.fleet_objective(circ40, x64, y64)[1]),
+                                    maxiter=AQC_PARITY_ITERS, fobj_thr=aqs._SMALL_FOBJ)
+    init, chunk, extract = programs
+    fleet20, _ = extract(chunk(init(starts), AQC_PARITY_ITERS))
+    lane_diffs = []
+    for k in range(AQC_PARITY_LANES):
+        def one(th):
+            return sk_core.objective_and_gradient(circ40, th, x64, y64)
+        single = minimize_lbfgs_compact(lambda th: one(th)[0], starts[k], maxiter=AQC_PARITY_ITERS,
+                                        fobj_thr=aqs._SMALL_FOBJ, value_and_grad_fn=one)
+        lane_diffs.append(abs(float(single.fobj) - float(fleet20.fobj[k])))
+        check(single.num_iters == int(fleet20.num_iters[k]),
+              f"aqc5 (b): lane {k}: {int(fleet20.num_iters[k])} fleet iterations vs {single.num_iters} alone")
+    check(max(lane_diffs) <= TOL_LANE, f"aqc5 (b): fleet lanes vs the one-lane loop: {lane_diffs}")
+    fleet_s = time.perf_counter() - tic
+
+    # (c) Sketched AQC through the executor; (d) coordinate descent.
+    tic = time.perf_counter()
+    result_dir = tempfile.mkdtemp(prefix="aqc_sketched_")
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            out = aqs.aqc_sketching(
+                num_qubits=n, num_layers=AQC_LAYERS, num_skvecs=8, circ_layout="spin", maxiter=100,
+                learn_rate=0.1, skvecs_type="rand", target_name_or_func="random", result_folder=result_dir,
+                seed=AQC_SEED, num_simulations=2, logger=quiet,
+            )
+        with open(os.path.join(out, "simulation_results.pkl"), "rb") as fld:
+            sketched = pickle.load(fld)["sorted_results"]
+    finally:
+        shutil.rmtree(result_dir, ignore_errors=True)
+    check(len(sketched) == 2 and all(r["status"] == "ok" and np.isfinite(r["cost"]) for r in sketched),
+          f"aqc5 (c): {[(r['status'][:40], r.get('cost')) for r in sketched]}")
+    sketched_s = time.perf_counter() - tic
+    tic = time.perf_counter()
+    result_dir = tempfile.mkdtemp(prefix="aqc_cd_")
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            out = aqc_coordinate_descent(
+                num_qubits=n, num_layers=AQC_LAYERS, circ_layout="spin", maxiter=20, target_name_or_func="random",
+                result_folder=result_dir, seed=AQC_SEED, num_simulations=2, logger=quiet,
+            )
+        with open(os.path.join(out, "simulation_results.pkl"), "rb") as fld:
+            descents = pickle.load(fld)["sorted_results"]
+    finally:
+        shutil.rmtree(result_dir, ignore_errors=True)
+    check(len(descents) == 2 and all(r["status"] == "ok" and np.isfinite(r["cost"]) for r in descents),
+          f"aqc5 (d): {[(r['status'][:40], r.get('cost')) for r in descents]}")
+    for r in descents:
+        prof = r["stats"]["convergence_profile"]
+        check(r["cost"] <= float(prof[0]) + 1e-6, f"aqc5 (d): best cost {r['cost']} above the first sweep's {prof[0]}")
+    cd_s = time.perf_counter() - tic
+
+    counts, counts_at, homes = read_counts(), read_counts_at(), read_counts_home()
+    check(not any(counts.values()), f"the AQC paths launched a hand-written kernel: {counts}")
+    print(f"[aqc5] (a) {n}q spin depth {AQC_DEPTH} cx ({circ.num_thetas} thetas), target exact_evolution(H(5, 1), "
+          f"I, 1) c64: fused obj+grad one lane {rate1:.1f} evals/s ({prof1['aten_calls']} aten calls, idle "
+          f"{prof1['idle']:.1%}), {AQC_LANES} lanes in one call {rate16:.1f} evals/s aggregate "
+          f"({rate16 / rate1:.2f}x; {prof16['aten_calls']} aten calls, idle {prof16['idle']:.1%}), lane 0 vs one "
+          f"lane {lane_gap:.1e} | (b) aqc_sketching {n}q {AQC_LAYERS} layers spin, full range ({dim} skvecs), "
+          f"target random, maxiter {AQC_MAXITER}, lr 0.1, {AQC_LANES} restarts, seed {AQC_SEED}: wall "
+          f"{fleet_wall:.2f} s (fleet {lanes[0]['time']:.2f} s), iterations {iters}, exits {outcomes}, best cost "
+          f"{best['cost']:.6g} (fidelity {best['fidelity']:.6f}), costs {min(costs):.4g}..{max(costs):.4g} from "
+          f"starts {f_start.min():.4g}..{f_start.max():.4g}, reported fidelities vs c128 {fid_gap:.1e}, f32 "
+          f"costs vs c128 {cost_gap:.1e}; "
+          f"{AQC_PARITY_LANES} lanes at maxiter {AQC_PARITY_ITERS} vs the one-lane loop: "
+          f"{', '.join(f'{d:.1e}' for d in lane_diffs)} | (c) sketched rand, 8 skvecs, maxiter 100, 2 restarts: "
+          f"costs {[round(r['cost'], 5) for r in sketched]}, {sketched_s:.2f} s | (d) coordinate descent, maxiter "
+          f"20, 2 restarts: costs {[round(r['cost'], 5) for r in descents]}, sweeps "
+          f"{[r['nit'] for r in descents]}, {cd_s:.2f} s | launches {counts} | phase wall "
+          f"{time.perf_counter() - tic_phase:.1f} s ((a) {fused_s:.1f}, (b) {fleet_s:.1f})", flush=True)
+    return counts, counts_at, homes
+
+
+def phase_fleet_dense(dev):
+    """BASELINE config 4 on the card: the dense fleet against its single
+    start, fast precision; no hand-written kernel may launch (checked)."""
+    from aqc_research_tpu_torch import config
+    from aqc_research_tpu_torch.circuit.ansatz import TrotterAnsatz
+    from aqc_research_tpu_torch.circuit.structures import make_trotter_like_circuit
+    from aqc_research_tpu_torch.models.sp_lhs import jit_asp
+    from aqc_research_tpu_torch.ops.statevector import v_dagger_mul_vec
+    from aqc_research_tpu_torch.optim.lbfgs import lane_objective, lbfgs_fleet_programs, stateless_lanes
+    from aqc_research_tpu_torch.targets import trotter as trotop
+
+    tic_phase = time.perf_counter()
+    config.set_precision("fast")
+    reset_counts()
+    n = FLEET_QUBITS
+    circ = TrotterAnsatz.make(n, make_trotter_like_circuit(n, FLEET_LAYERS), True)
+    thetas0 = trotop.init_ansatz_to_trotter(circ, np.zeros(circ.num_thetas), evol_time=1.2, delta=1.0)
+    rng = np.random.default_rng(FLEET_SEED)
+    batch0 = thetas0[None, :] + 0.2 * rng.standard_normal((FLEET_STARTS, circ.num_thetas))
+    xb = torch.tensor(batch0, dtype=torch.float32, device=dev)
+    ini = trotop.neel_init_state(n)
+    target = trotop.Trotter(num_qubits=n, evol_time=1.2, num_steps=6, delta=1.0, second_order=True).as_vector(
+        ini, dtype=torch.complex64, device=dev)
+    idx = jit_asp.flip_state_indices(n, ini)
+
+    def single():
+        return jit_asp.optimize_horizon_jit(circ, xb[0], target, state_idx=idx, maxiter=FLEET_MAXITER)
+
+    def fleet(fuse=False, batch_linesearch=2, maxiter=FLEET_MAXITER):
+        return jit_asp.optimize_horizon_multistart(circ, xb, target, state_idx=idx, maxiter=maxiter,
+                                                   batch_linesearch=batch_linesearch, fuse_linesearch_grad=fuse)
+
+    runs = {"single": single, "fleet": fleet, "fused": lambda: fleet(fuse=True)}
+    # Warm-up: a few iterations of each (torch compiles nothing; this
+    # settles the allocator and the library handles).
+    jit_asp.optimize_horizon_jit(circ, xb[0], target, state_idx=idx, maxiter=3)
+    fleet(maxiter=3), fleet(fuse=True, maxiter=3)
+    walls, results = {name: [] for name in runs}, {}
+    for name in ("single", "fleet", "fused", "single"):
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        results[name] = runs[name]()
+        torch.cuda.synchronize()
+        walls[name].append(time.perf_counter() - tic)
+    t = {name: float(np.median(w)) for name, w in walls.items()}
+    efficiency = FLEET_STARTS * t["single"] / t["fleet"]
+    efficiency_fused = FLEET_STARTS * t["single"] / t["fused"]
+
+    loss = jit_asp.make_surrogate_loss(circ, idx)
+    _, vg = lane_objective(lambda th: loss(th, target))
+    x1 = xb[:1]
+    # One obj+grad at B=1 and at B=8, in turns (1, 8, 8, 1); medians.
+    t_eval = {1: [], FLEET_STARTS: []}
+    for lanes_b in (1, FLEET_STARTS, FLEET_STARTS, 1):
+        xs_b = x1 if lanes_b == 1 else xb
+        t_eval[lanes_b].append(1.0 / evals_per_s(lambda: vg(xs_b), reps=20))
+    t_e1, t_eb = (float(np.median(t_eval[b])) for b in (1, FLEET_STARTS))
+    overhead = t_eb / t_e1
+    prof1, prof8 = profile_calls(lambda: vg(x1)), profile_calls(lambda: vg(xb))
+    value, _ = lane_objective(lambda th: loss(th, target))
+    init, chunk, _ = lbfgs_fleet_programs(*stateless_lanes(value, vg), maxiter=FLEET_MAXITER, batch_linesearch=2)
+    carry = chunk(init(xb), 1)
+    prof_iter = profile_calls(lambda: chunk(carry, 2))
+
+    res = results["fleet"]
+    best = int(torch.argmax(res.fidelity))
+    fid_best = float(res.fidelity[best])
+    with torch.no_grad():
+        fid128 = float(v_dagger_mul_vec(circ, res.thetas[best].double(), target.to(torch.complex128))[int(idx[0])]
+                       .abs() ** 2)
+    check(abs(fid128 - fid_best) <= TOL_DENSE_RECHECK,
+          f"fleet12: best fidelity {fid_best} vs its c128 re-evaluation {fid128}")
+    check(bool(torch.isfinite(res.fobj).all()), f"fleet12: non-finite fobj {res.fobj.tolist()}")
+    # Lane 0 of the lock-step fleet (sequential backtracking) follows the
+    # one-lane loop from the same start.
+    seq = fleet(batch_linesearch=None, maxiter=FLEET_PARITY_ITERS)
+    one = jit_asp.optimize_horizon_jit(circ, xb[0], target, state_idx=idx, maxiter=FLEET_PARITY_ITERS)
+    lane_gap = abs(float(seq.fobj[0]) - float(one.fobj))
+    check(lane_gap <= TOL_LANE, f"fleet12: lane 0 vs the one-lane loop after {FLEET_PARITY_ITERS} iterations: "
+                                f"{lane_gap:.3g}")
+    counts, counts_at, homes = read_counts(), read_counts_at(), read_counts_home()
+    check(not any(counts.values()), f"the dense fleet launched a hand-written kernel: {counts}")
+    fmt_w = {name: ", ".join(f"{w:.4f}" for w in ws) for name, ws in walls.items()}
+    print(f"[fleet12] {n}q {FLEET_LAYERS}-layer Trotter ansatz ({circ.num_thetas} thetas), {FLEET_STARTS} starts "
+          f"perfect init + 0.2 N(0,1) (seed {FLEET_SEED}), target Trotter(1.2, 6 steps), maxiter {FLEET_MAXITER}, "
+          f"fast: optimize_horizon_jit on start 0 {fmt_w['single']} s ({results['single'].num_iters} iters), "
+          f"fleet batch_linesearch=2 {fmt_w['fleet']} s (iters {res.num_iters.tolist()}), fused "
+          f"{fmt_w['fused']} s (iters {results['fused'].num_iters.tolist()}) | fleet efficiency "
+          f"{FLEET_STARTS} t_single / t_fleet = {efficiency:.2f} (fused {efficiency_fused:.2f}) | one obj+grad: "
+          f"B=1 {1e3 * t_e1:.3f} ms, B={FLEET_STARTS} {1e3 * t_eb:.3f} ms (medians of turns 1, {FLEET_STARTS}, "
+          f"{FLEET_STARTS}, 1: {', '.join(f'{1e3 * t:.3f}' for t in t_eval[1])} / "
+          f"{', '.join(f'{1e3 * t:.3f}' for t in t_eval[FLEET_STARTS])} ms), evaluation-batch overhead t_eb/t_e1 "
+          f"{overhead:.2f}; aten calls B=1 {prof1['aten_calls']}, B={FLEET_STARTS} {prof8['aten_calls']}, idle "
+          f"{prof1['idle']:.1%} / {prof8['idle']:.1%} | one profiled fleet iteration: {prof_iter['wall_ms']:.1f} ms "
+          f"wall, device busy {prof_iter['busy_ms']:.2f} ms (idle {prof_iter['idle']:.1%}), "
+          f"{prof_iter['aten_calls']} aten calls | best fidelity {fid_best:.7f} (lane {best}; c128 {fid128:.7f}), "
+          f"single fobj {float(results['single'].fobj):.6g}, fleet fobj {res.fobj.min().item():.6g}, fused "
+          f"{results['fused'].fobj.min().item():.6g} | lane 0 (sequential backtracking) vs the one-lane loop after "
+          f"{FLEET_PARITY_ITERS} iterations {lane_gap:.1e} | launches {counts} | phase wall "
+          f"{time.perf_counter() - tic_phase:.1f} s", flush=True)
+    return counts, counts_at, homes
+
+
+def phase_fleet_mps(dev, card_line: str):
+    """The MPS fleet: phase 3's case, 4 lanes on the default route; the
+    lanes fold into the batch of every pair update (checked: K2 and K3
+    launch as often per fleet evaluation as per one lane's)."""
+    from aqc_research_tpu_torch import config
+    from aqc_research_tpu_torch.kernel_checks import lambda_check, near_threshold, path_planes
+    from aqc_research_tpu_torch.models.sp_lhs import jit_asp
+    from aqc_research_tpu_torch.ops import rand_svd
+    from aqc_research_tpu_torch.ops import fused_rand as fr
+    from aqc_research_tpu_torch.ops.fused_pair import theta_build, theta_build_reference
+    from aqc_research_tpu_torch.ops.mps import MPS
+    from aqc_research_tpu_torch.targets import trotter as trotop
+
+    tic_phase = time.perf_counter()
+    case = make_case(dev, 20, PATH_CHI, maxiter=10, f64_device=dev)
+    config.set_svd_impl(None)
+    check(config.svd_impl(case["target"].device) == "rand", "the default route on the card is not 'rand'")
+    circ, target, base_bits, trunc_thr = (case[k] for k in ("circ", "target", "base_bits", "trunc_thr"))
+    perfect = trotop.init_ansatz_to_trotter(circ, np.zeros(circ.num_thetas), evol_time=1.2, delta=1.0)
+    xs = torch.tensor(np.stack([perfect + 0.05 * np.random.default_rng(s).standard_normal(circ.num_thetas)
+                                for s in MPS_FLEET_SEEDS]), dtype=torch.float32, device=dev)
+    check(bool(torch.equal(xs[0], case["x0"])), "fleet20: lane 0 does not start where phase 3 starts")
+    lanes = len(MPS_FLEET_SEEDS)
+    value, value_and_grad = jit_asp._mps_value_fns(circ, base_bits, trunc_thr)
+
+    reset_counts()
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    res = jit_asp.optimize_horizon_mps_multistart(circ, xs, target, base_bits=base_bits, trunc_thr=trunc_thr,
+                                                  maxiter=10)
+    torch.cuda.synchronize()
+    fleet_s = time.perf_counter() - tic
+    counts, counts_at, homes = read_counts(), read_counts_at(), read_counts_home()
+    for name in ("jacobi_rows", "theta_build", "rand_tail"):
+        check(counts[name] > 0, f"fleet20: the fleet never launched {name}: {counts}")
+    check(counts["fused_pair"] == 0, f"fleet20: the fleet launched K4: {counts}")
+    fobj = res.fobj.cpu().numpy()
+    target128 = MPS(target.gammas.to(torch.complex128), target.lambdas.to(torch.float64))
+    with torch.no_grad(), config.svd_impl_override("native"):
+        f64 = value(res.thetas.double(), target128).cpu().numpy()
+    gaps = np.abs(f64 - fobj)
+    check(bool(np.all(np.isfinite(fobj))) and float(gaps.max()) <= TOL_FINAL,
+          f"fleet20: lanes' fobj {fobj.tolist()} vs f64 re-evaluations {f64.tolist()}")
+    with torch.no_grad():
+        f_start = value(xs, target).cpu().numpy()
+    check(bool(np.all(fobj < f_start)), f"fleet20: a lane did not lower fobj: {f_start.tolist()} -> {fobj.tolist()}")
+    check_s = time.perf_counter() - tic - fleet_s
+    tic = time.perf_counter()
+    one = jit_asp.optimize_horizon_mps_jit(circ, xs[0], target, base_bits=base_bits, trunc_thr=trunc_thr, maxiter=10)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - tic
+    lane_gap = abs(float(one.fobj) - float(fobj[0]))
+    check(lane_gap <= TOL_LANE, f"fleet20: lane 0 {fobj[0]} vs the single-lane horizon {float(one.fobj)}")
+
+    # Launches per evaluation: the lanes fold into each pair group's batch.
+    tic = time.perf_counter()
+    per_eval = {}
+    for label, fn in (("fleet value", lambda: value(xs, target)), ("one value", lambda: value(xs[0], target)),
+                      ("fleet obj+grad", lambda: value_and_grad(xs, target)),
+                      ("one obj+grad", lambda: value_and_grad(xs[0], target))):
+        reset_counts()
+        with torch.no_grad():
+            fn()
+        torch.cuda.synchronize()
+        per_eval[label] = read_counts()
+    for kind in ("value", "obj+grad"):
+        fl, on = per_eval[f"fleet {kind}"], per_eval[f"one {kind}"]
+        check(fl["theta_build"] == on["theta_build"] > 0 and fl["rand_tail"] == on["rand_tail"] > 0,
+              f"fleet20: K2/K3 launches per {kind}: fleet {fl} vs one lane {on}")
+
+    # Lane-sweeps/s of the fleet against one lane's sweeps/s, in turns.
+    def sweep_wall(x):
+        torch.cuda.synchronize()
+        tic_ = time.perf_counter()
+        with torch.no_grad():
+            value_and_grad(x, target)
+        torch.cuda.synchronize()
+        return time.perf_counter() - tic_
+
+    sweep_wall(xs), sweep_wall(xs[0])
+    walls = {"fleet": [], "one": []}
+    for label in ("fleet", "one", "one", "fleet", "fleet", "one"):
+        walls[label].append(sweep_wall(xs if label == "fleet" else xs[0]))
+    lane_rate = [lanes / w for w in walls["fleet"]]
+    one_rate = [1.0 / w for w in walls["one"]]
+    with torch.no_grad():
+        qr = {label: count_qr_calls(lambda: value_and_grad(x, target)) for label, x in (("fleet", xs), ("one", xs[0]))}
+        prof_f = profile_calls(lambda: value_and_grad(xs, target))
+    prof_f.pop("events")
+    sweeps_s = time.perf_counter() - tic
+    tic = time.perf_counter()
+
+    # K2 and K3 at the folded batch: against their twins, then timed beside
+    # the one-lane batch of a half-layer (B=10).
+    rng = np.random.default_rng(977)
+    chi, n = PATH_CHI, 2 * PATH_CHI
+    ell = rand_svd.rand_ell(n, chi)
+    folded = lanes * BATCH
+    rows = {}
+    for batch in (BATCH, folded):
+        planes = path_planes(rng, batch, chi, dev)
+        k_re, k_im = theta_build(*planes)
+        p_re, p_im = theta_build_reference(*planes)
+        rel = float((torch.linalg.matrix_norm(torch.complex(k_re - p_re, k_im - p_im))
+                     / torch.linalg.matrix_norm(torch.complex(p_re, p_im))).max())
+        check(rel <= TOL_THETA, f"theta_build at B={batch}: relative error {rel:.3g}")
+        a = torch.complex(p_re, p_im).transpose(-1, -2)
+        bm = rand_svd._range_project(a, ell, rand_svd._POWER_ITERS)
+        m_re, m_im = bm.real.contiguous(), (-bm.imag).contiguous()
+        tot2 = (p_re * p_re + p_im * p_im).sum((-2, -1))
+        thr2 = TAIL_THRESHOLDS[0] ** 2
+        kv = fr.rand_tail(m_re, m_im, tot2, thr2, chi, MAX_SWEEPS)
+        pv = fr.rand_tail_reference(m_re, m_im, tot2, thr2, chi, MAX_SWEEPS)
+        lc = lambda_check(kv[2], pv[2], near_threshold(torch.linalg.svdvals(bm), tot2, thr2, chi), TOL_S)
+        check(lc.mask_ok and lc.lam_ok, f"rand_tail at B={batch}: masks {lc.mask_ok}, |dlam| {lc.d_lam:.3g}")
+        sweeps = kv[4].cpu().numpy()
+        th_ms, _ = device_ms(lambda: theta_build(*planes))
+        tail_ms, _ = device_ms(lambda: fr.rand_tail(m_re, m_im, tot2, thr2, chi, MAX_SWEEPS))
+        th_plain = median_ms(lambda: theta_build_reference(*planes), runs=5, warmup=1)
+        tail_plain = median_ms(lambda: fr.rand_tail_reference(m_re, m_im, tot2, thr2, chi, MAX_SWEEPS), runs=1,
+                               warmup=0)
+        th_bound = bound(batch * (32.0 * chi**3 + 128.0 * chi**2), 4 * batch * (4 * 2 * chi * chi + 32 + 2 * n * n))
+        tail_bound = bound(jacobi_flops(ell, n, sweeps) + batch * 2.0 * chi * n,
+                           4 * batch * (2 * ell * n + 1 + 2 * chi * n + 2 * chi + 1))
+        g_c = torch.complex(planes[0][:, :16], planes[0][:, 16:]).reshape(batch, 2, 2, 2, 2)
+        a_c, b_c = torch.complex(planes[1], planes[2]), torch.complex(planes[3], planes[4])
+        th_lib, _ = device_ms(lambda: torch.einsum("bstuv,bvcx,buxa->btcsa", g_c, b_c, a_c))
+        tail_lib, _ = device_ms(lambda: torch.linalg.svd(bm, full_matrices=False), calls=5, repeats=3)
+        rows[batch] = {
+            "theta_build": {"shape": f"B={batch} chi={chi}", "ms": th_ms, "plain_ms": th_plain, "bound_ms": th_bound[0],
+                            "bound_by": th_bound[1], "library_ms": th_lib, "max_abs_err": rel},
+            "rand_tail": {"shape": f"B={batch} chi={chi} ({ell}x{n})", "ms": tail_ms, "plain_ms": tail_plain,
+                          "bound_ms": tail_bound[0], "bound_by": tail_bound[1], "library_ms": tail_lib,
+                          "max_abs_err": lc.d_lam, "sweeps_max": int(sweeps.max())},
+        }
+    folded_line = "; ".join(
+        f"{name} B={b}: {r[name]['ms']:.4f} ms device-only ({r[name]['ms'] / b * 1e3:.2f} us per matrix), plain "
+        f"{r[name]['plain_ms']:.3f} ms, library {r[name]['library_ms']:.4f} ms, bound {r[name]['bound_ms']:.5f} ms "
+        f"({r[name]['bound_by']})" for name in ("theta_build", "rand_tail") for b, r in rows.items())
+    print(f"[fleet20] {case['about']} | {lanes} lanes (seeds {list(MPS_FLEET_SEEDS)}), maxiter 10, route "
+          f"{config.svd_impl(target.device)}: fleet {fleet_s:.2f} s ({fleet_s / max(int(res.num_iters.max()), 1):.3f} "
+          f"s/iter, iters {res.num_iters.tolist()}), fobj {', '.join(f'{f:.6g}' for f in fobj)} from "
+          f"{', '.join(f'{f:.6g}' for f in f_start)} (f64 on the card: max gap {gaps.max():.2e}) | single-lane "
+          f"horizon from lane 0's start {single_s:.2f} s ({single_s / max(one.num_iters, 1):.3f} s/iter), fobj "
+          f"{float(one.fobj):.6g} (lane 0 gap {lane_gap:.1e}) | launches per evaluation {per_eval} | obj+grad in "
+          f"turns: fleet {', '.join(f'{r:.3f}' for r in lane_rate)} lane-sweeps/s, one lane "
+          f"{', '.join(f'{r:.3f}' for r in one_rate)} sweeps/s | linalg_qr calls per evaluation: fleet {qr['fleet']}, "
+          f"one lane {qr['one']} | profiled fleet obj+grad: {prof_f['wall_ms']:.1f} ms wall, device busy "
+          f"{prof_f['busy_ms']:.1f} ms (idle {prof_f['idle']:.1%}), {prof_f['aten_calls']} aten calls (one lane's "
+          f"profiled sweep: the [routes] line) | folded batch vs one lane's half-layer, checked against the twins: "
+          f"{folded_line} | {card_line} | launches (fleet run) {counts} | phase wall "
+          f"{time.perf_counter() - tic_phase:.1f} s (fleet {fleet_s:.1f}, f64 and start checks {check_s:.1f}, "
+          f"single horizon {single_s:.1f}, launches, turns and profiles {sweeps_s:.1f}, folded kernels "
+          f"{time.perf_counter() - tic:.1f})", flush=True)
+    return (counts, counts_at, homes), rows[folded]
+
+
+
 KERNELS = (
     ("jacobi_rows", "aqc_research_tpu_torch/csrc/jacobi_rows.cu",
      "aqc_research_tpu/ops/pallas_jacobi.py:244", "jacobi20"),
@@ -1705,6 +2233,11 @@ def main() -> int:
         paths["driver20"] = phase_driver()
         paths["host20"] = phase_host(card_line, dev)
         paths["dense12"] = phase_dense(dev)
+        paths["aqc5"] = phase_aqc(dev)
+        paths["fleet12"] = phase_fleet_dense(dev)
+        paths["fleet20"], folded = phase_fleet_mps(dev, card_line)
+        for name in ("theta_build", "rand_tail"):
+            stats[name]["shapes"].append(folded[name])
         case = make_case(dev, 28, PATH28_CHI, maxiter=10, f64_device=dev)
         paths["jacobi28"] = phase_slice(case, "slice28")
         paths["rand28"] = phase_rand(case, "rand28")

@@ -213,8 +213,14 @@ def test_optimize_horizon_jit_matches_jax():
     assert float(tres.fobj) <= 1e-3
     np.testing.assert_allclose(tres.thetas.numpy(), np.asarray(jres.thetas), atol=TOL_RUN, rtol=0)
     assert abs(float(tres.fidelity) - float(jres.fidelity)) <= TOL_RUN
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tja.optimize_horizon_jit(tc, th, torch.tensor(target), solver="zoom", **kw)
+    # optax's L-BFGS with the zoom linesearch (ported in optim/lbfgs.py):
+    # the same iterations and result as the JAX package's.
+    jzoom = jja.optimize_horizon_jit(jc, jnp.asarray(th), jnp.asarray(target), solver="zoom", **kw)
+    tzoom = tja.optimize_horizon_jit(tc, th, torch.tensor(target), solver="zoom", **kw)
+    assert tzoom.num_iters == int(jzoom.num_iters) and tzoom.converged == bool(jzoom.converged)
+    assert abs(float(tzoom.fobj) - float(jzoom.fobj)) <= TOL_RUN
+    with pytest.raises(ValueError, match="unknown solver"):
+        tja.optimize_horizon_jit(tc, th, torch.tensor(target), solver="bfgs", **kw)
 
 
 def test_flagship_8q_reaches_1e3():

@@ -240,6 +240,18 @@ def test_port_import_leaves_jax_out():
         "aqc_research_tpu_torch.ops.jacobi_kernel",
         "aqc_research_tpu_torch.ops.fused_rand",
         "aqc_research_tpu_torch.kernel_checks",
+        "aqc_research_tpu_torch.utils",
+        "aqc_research_tpu_torch.targets.generator",
+        "aqc_research_tpu_torch.optim.lbfgs",
+        "aqc_research_tpu_torch.parallel",
+        "aqc_research_tpu_torch.parallel.multistart",
+        "aqc_research_tpu_torch.parallel.executor",
+        "aqc_research_tpu_torch.ops.coord_descent",
+        "aqc_research_tpu_torch.models.sketching",
+        "aqc_research_tpu_torch.models.sketching.sk_core",
+        "aqc_research_tpu_torch.models.sketching.sk_utils",
+        "aqc_research_tpu_torch.models.sketching.aqc_sketching",
+        "aqc_research_tpu_torch.models.sketching.aqc_coord_descent",
         "chip_smoke",
     ]
     code = "import sys\n" + "".join(f"import {m}\n" for m in modules) + (
