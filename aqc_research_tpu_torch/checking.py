@@ -80,3 +80,82 @@ def block_structure(num_qubits: int, blocks: Any) -> bool:
         and bool(np.all((0 <= b) & (b < num_qubits)))
         and bool(np.all(b[0, :] != b[1, :]))
     )
+
+
+def is_bool(val: Any, extra_cond: bool = True) -> bool:
+    return isinstance(val, (bool, np.bool_)) and bool(extra_cond)
+
+
+def is_complex(val: Any, extra_cond: bool = True) -> bool:
+    """True for a complex scalar."""
+    return isinstance(val, (complex, np.complex64, np.complex128)) and bool(extra_cond)
+
+
+def none_or_type(val: Any, cls: type) -> bool:
+    return val is None or isinstance(val, cls)
+
+
+def _nd_kind(arr: Any, ndim, kinds: str, extra_cond) -> bool:
+    return _is_array(arr) and (ndim is None or arr.ndim == ndim) and _kind(arr) in kinds and bool(extra_cond)
+
+
+def int_1d(arr: Any, extra_cond: bool = True) -> bool:
+    return _nd_kind(arr, 1, "i", extra_cond)
+
+
+def int_2d(arr: Any, extra_cond: bool = True) -> bool:
+    return _nd_kind(arr, 2, "i", extra_cond)
+
+
+def bool_1d(arr: Any, extra_cond: bool = True) -> bool:
+    return _nd_kind(arr, 1, "b", extra_cond)
+
+
+def float_2d(arr: Any, extra_cond: bool = True) -> bool:
+    return _nd_kind(arr, 2, "f", extra_cond)
+
+
+def complex_1d(arr: Any, extra_cond: bool = True) -> bool:
+    return _nd_kind(arr, 1, "c", extra_cond)
+
+
+def complex_3d(arr: Any, extra_cond: bool = True) -> bool:
+    return _nd_kind(arr, 3, "c", extra_cond)
+
+
+def complex_array(arr: Any, extra_cond: bool = True) -> bool:
+    return _nd_kind(arr, None, "c", extra_cond)
+
+
+def complex_or_float_1d(arr: Any, extra_cond: bool = True) -> bool:
+    return _nd_kind(arr, 1, "fc", extra_cond)
+
+
+def complex_or_float_2d(arr: Any, extra_cond: bool = True) -> bool:
+    return _nd_kind(arr, 2, "fc", extra_cond)
+
+
+def check_sim_complex_vecs4(a, b, c, d) -> bool:
+    """True when four complex vectors have the same size."""
+    vecs = (a, b, c, d)
+    return all(complex_1d(v) for v in vecs) and all(v.shape == a.shape for v in vecs)
+
+
+def check_permutation(arr: Any) -> bool:
+    """True when the array is an index permutation of 0..n-1."""
+    if not int_1d(arr):
+        return False
+    x = np.asarray(arr.cpu() if isinstance(arr, torch.Tensor) else arr)
+    return bool(np.array_equal(np.sort(x), np.arange(x.size)))
+
+
+def no_overlap(a, b) -> bool:
+    """True when two arrays (numpy or tensors) do not share memory."""
+    if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
+        if a.device != b.device or a.numel() == 0 or b.numel() == 0:
+            return True
+        sa, sb = a.untyped_storage(), b.untyped_storage()
+        return sa.data_ptr() != sb.data_ptr()
+    if isinstance(a, np.ndarray) and isinstance(b, np.ndarray):
+        return not np.shares_memory(a, b)
+    return True

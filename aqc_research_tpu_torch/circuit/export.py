@@ -2,8 +2,9 @@
 ``aqc_research_tpu/circuit/export.py``).
 
 An ansatz and its angles expand into an explicit :class:`GateProgram`, which
-the statevector appliers and the MPS engine both consume.  The Qiskit route
-(``ansatz_to_numpy_by_qiskit``) is not here: it goes with ``compat.py``.
+the statevector appliers and the MPS engine both consume.  The reference's
+Qiskit route (``ansatz_to_numpy_by_qiskit``) goes through the gate program
+here, as in the JAX package: no Qiskit is involved.
 """
 
 from __future__ import annotations
@@ -76,6 +77,9 @@ def ansatz_to_program(circ: Ansatz, thetas, *, tol: float = 0.0) -> GateProgram:
     return qb.build()
 
 
+ansatz_to_qcircuit = ansatz_to_program
+
+
 def ansatz_to_numpy_fast(circ: Ansatz, thetas) -> np.ndarray:
     """Dense ansatz matrix from the statevector engine, as numpy."""
     from ..ops.statevector import ansatz_to_matrix
@@ -87,3 +91,13 @@ def ansatz_to_numpy_trotter(circ: Ansatz, thetas) -> np.ndarray:
     """Dense matrix of a (possibly Trotterized) ansatz: the same engine,
     which handles the Trotter structure."""
     return ansatz_to_numpy_fast(circ, thetas)
+
+
+def ansatz_to_numpy_by_qiskit(circ: Ansatz, thetas, tol: float = 0.0) -> np.ndarray:
+    """Dense matrix through the gate program (the reference's Qiskit route):
+    a cross-check of :func:`ansatz_to_numpy_fast`, in the precision in
+    effect, as numpy."""
+    from .program import program_to_matrix
+
+    dev = thetas.device if isinstance(thetas, torch.Tensor) else None
+    return program_to_matrix(ansatz_to_program(circ, thetas, tol=tol), circ.num_qubits, device=dev).cpu().numpy()

@@ -103,7 +103,7 @@ def device() -> torch.device:
     return torch.device("cuda")
 
 
-_SVD_IMPLS = ("native", "jacobi", "rand")
+_SVD_IMPLS = ("native", "gram", "jacobi", "rand")
 _SVD_IMPL: str | None = os.environ.get("AQC_TORCH_SVD_IMPL") or None
 if _SVD_IMPL is not None and _SVD_IMPL not in _SVD_IMPLS:
     raise ValueError(f"AQC_TORCH_SVD_IMPL must be one of {_SVD_IMPLS}")
@@ -113,6 +113,9 @@ def set_svd_impl(impl: str | None) -> None:
     """Selects the MPS truncated-SVD route.
 
     * ``"native"`` — ``torch.linalg.svd``.
+    * ``"gram"`` — the Hermitian eigendecomposition of the Gram matrix and
+      products (ops/svd_gram.py); the squared condition number touches only
+      directions the update truncates.
     * ``"jacobi"`` — batched one-sided Jacobi (ops/jacobi_kernel.py): the
       hand-written CUDA kernel on CUDA tensors, its plain-torch twin on CPU
       tensors.  f32 arithmetic regardless of the precision mode.

@@ -21,6 +21,7 @@ import torch
 from ... import checking as chk
 from ...circuit.ansatz import Ansatz
 from ...circuit.export import ansatz_to_program
+from ...circuit.qasm import save_qasm3
 from ...circuit.structures import create_ansatz_structure, num_blocks_per_layer
 from ...config import device
 from ...ops.statevector import v_mul_mat
@@ -229,9 +230,8 @@ def postprocess_and_save_results(
 ) -> dict:
     """Sorts results, rebuilds the best circuit, computes accuracy metrics and
     pickles everything: ``simulation_results.pkl`` and ``qcircuit.pkl``
-    (the JAX package's payloads and keys).  The OpenQASM 3 copy of the
-    circuit that the JAX package also writes is not ported yet (ROADMAP.md
-    section 1, item 15, interop)."""
+    (the JAX package's payloads and keys), and the circuit as OpenQASM 3
+    text, ``qcircuit.qasm`` (the JAX package's text)."""
     import pandas as pd
 
     results.sort(key=lambda x: x["cost"])
@@ -263,6 +263,7 @@ def postprocess_and_save_results(
         pickle.dump(payload, fld, protocol=4)
     with open(os.path.join(output_dir, "qcircuit.pkl"), "wb") as fld:
         pickle.dump({"program": program, "global_phase": global_phase}, fld, protocol=4)
+    save_qasm3(program, num_qubits, os.path.join(output_dir, "qcircuit.qasm"))
     logi(logger, f"simulation results have been stored in the folder: {output_dir}")
     return payload
 

@@ -44,6 +44,7 @@ from .fused_rand import fused_rand_pair_update
 from .jacobi_kernel import jacobi_svd_kernel_top_k, truncation_supported
 from .jacobi_svd import DEFAULT_SWEEPS, jacobi_svd_top_k
 from .statevector import block_gates, front_gates
+from .svd_gram import svd_gram_top_k
 
 _NO_TRUNCATION_THR = 1e-16
 
@@ -51,6 +52,28 @@ _NO_TRUNCATION_THR = 1e-16
 def no_truncation_threshold() -> float:
     """Threshold value that effectively disables truncation."""
     return _NO_TRUNCATION_THR
+
+
+# -----------------------------------------------------------------------------
+# Pair-sharding policy: when set, every batched half-layer pair update of the
+# engine (the V† objective sweep, the co-sweep gradients, the χ-growth value
+# sweeps, Trotter target evolution) goes through parallel/mps_sharded.py,
+# each rank decomposing its run of the pairs.
+# -----------------------------------------------------------------------------
+
+_PAIR_SHARDING = None  # None or (DeviceMesh, axis name)
+
+
+def set_pair_sharding(mesh, axis: str = "tp") -> None:
+    """Enables (``mesh`` a DeviceMesh) or disables (None) sharded batched
+    pair updates over ``mesh``'s ``axis``.  Every rank of the axis must set
+    the same policy: the sharded update is a collective."""
+    global _PAIR_SHARDING
+    _PAIR_SHARDING = None if mesh is None else (mesh, str(axis))
+
+
+def pair_sharding():
+    return _PAIR_SHARDING
 
 
 @dataclasses.dataclass
@@ -219,6 +242,7 @@ def _truncation_mask_topk(s: torch.Tensor, total: torch.Tensor, chi: int, trunc_
 def _truncated_svd(m: torch.Tensor, chi: int, trunc_thr: float, impl: str):
     """Top-chi SVD + discarded-weight keep mask of ``m`` (..., 2chi, 2chi)
     (leading axes are batch) by ``impl``: "native" (``torch.linalg.svd``),
+    "gram" (``svd_gram.svd_gram_top_k``),
     "jacobi" (the Jacobi-rows kernel on CUDA, its plain twin on CPU;
     matrices below 8 columns, the χ-growth heads, take the spec) or
     "unfused" (``rand_svd.rand_svd_top_k``).
@@ -229,6 +253,10 @@ def _truncated_svd(m: torch.Tensor, chi: int, trunc_thr: float, impl: str):
         u, s, vh = torch.linalg.svd(m, full_matrices=False)
         mask, total = _truncation_mask(s, chi, trunc_thr)
         return u[..., :, :chi], s[..., :chi], vh[..., :chi, :], mask[..., :chi], total
+    if impl == "gram":
+        u, s, vh = svd_gram_top_k(m, chi)
+        total = torch.linalg.matrix_norm(m).to(s.dtype)
+        return u, s, vh, _truncation_mask_topk(s, total, chi, trunc_thr), total
     if m.dtype == torch.complex64 and not truncation_supported(trunc_thr):
         warnings.warn(
             f"trunc_thr={trunc_thr:g} is finer than the f32 Jacobi convergence "
@@ -377,13 +405,20 @@ def apply_pairs_mps(
     """Applies DISJOINT adjacent-pair gates simultaneously — one batched pair
     update (one batched SVD) for a whole chessboard half-layer.  ``gates4``:
     (..., P, 4, 4) in (site, site+1) order (leading lane axes broadcast
-    with the MPS's); ``lo_sites``: the P pair positions."""
+    with the MPS's); ``lo_sites``: the P pair positions.  Under
+    :func:`set_pair_sharding` a group of more than one pair goes through
+    ``parallel/mps_sharded.apply_pairs_mps_sharded``."""
     n, chi = mps.num_sites, mps.chi
     lo_np = np.asarray(lo_sites, dtype=int)
     if not (lo_np.size > 0 and np.all(np.diff(lo_np) >= 2)):
         raise ValueError(f"pairs must be disjoint and ascending: {lo_sites}")
     if lo_np.min() < 0 or lo_np.max() + 1 >= n:
         raise ValueError(f"pair positions out of range: {lo_sites}")
+    if _PAIR_SHARDING is not None and lo_np.size > 1:
+        from ..parallel.mps_sharded import apply_pairs_mps_sharded
+
+        mesh, axis = _PAIR_SHARDING
+        return apply_pairs_mps_sharded(mps, gates4, lo_sites, mesh, axis=axis, trunc_thr=trunc_thr)
     dev = mps.gammas.device
     lo = torch.as_tensor(lo_np, dtype=torch.long, device=dev)
     mps = broadcast_mps(mps, gates4.shape[:-3])

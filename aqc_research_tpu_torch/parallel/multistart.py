@@ -2,7 +2,8 @@
 ``aqc_research_tpu/parallel/multistart.py``): the B rows of a batch of
 initial Θ run one loop in lock step as a fleet (optim/lbfgs.py's lanes),
 every evaluation one batched pass over the running lanes — the twin of the
-JAX package's ``vmap`` over the one-start loop.
+JAX package's ``vmap`` over the one-start loop.  Over a mesh the rows are
+sharded over the ``dp`` ranks, each rank one fleet.
 
 Per-start randomness comes from an explicit ``torch.Generator`` (the JAX
 package splits a JAX key, which torch cannot replay)."""
@@ -42,24 +43,40 @@ def multistart_minimize(
     fobj_thr: Optional[float] = None,
     no_improve_iters: Optional[int] = None,
     mesh=None,
+    batch_axis: str = "dp",
 ) -> MultistartResult:
     """Minimizes the scalar ``fun`` from every row of ``thetas_batch (B,
     P)`` at once: "lbfgs" (optax's L-BFGS with its zoom linesearch) or
     "adam", on the lanes of ``torch.func.vmap(fun)`` with the gradient from
     one ``torch.autograd`` call.  A numpy batch goes to the default device.
-    ``mesh`` (sharding the starts over several cards) is not ported: it is
-    ROADMAP.md section 1, item 16 (multi-GPU)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "multistart_minimize(mesh=...) is not ported: sharding the starts over several GPUs is "
-            "ROADMAP.md section 1, item 16 (multi-GPU)"
-        )
+
+    With ``mesh`` (a DeviceMesh) the starts are sharded over its
+    ``batch_axis``: every rank passes the whole batch, runs its own rows
+    (B must divide over the axis) as its own lane fleet, and gets the whole
+    :class:`MultistartResult` back (the rows all-gathered, ``best_index``
+    the global argmin)."""
     if method not in ("lbfgs", "adam"):
         raise ValueError(f"unknown method: {method}")
     if not isinstance(thetas_batch, torch.Tensor):
         from ..config import device
 
         thetas_batch = torch.as_tensor(np.asarray(thetas_batch), device=device())
+    if mesh is not None:
+        from .comm import all_gather, axis_of
+        from .mesh import shard_batch
+
+        if not hasattr(mesh, "get_group"):
+            raise TypeError(f"mesh must be a torch DeviceMesh, got {type(mesh).__name__}")
+        ax = axis_of(mesh, batch_axis)
+        res = multistart_minimize(
+            fun, shard_batch(thetas_batch, mesh, batch_axis), method=method, maxiter=maxiter,
+            learn_rate=learn_rate, fobj_thr=fobj_thr, no_improve_iters=no_improve_iters,
+        )
+        thetas = all_gather(res.thetas, ax).flatten(0, 1)
+        fobj = all_gather(res.fobj, ax).flatten(0, 1)
+        iters = torch.as_tensor(np.asarray(res.num_iters), dtype=torch.int64, device=fobj.device)
+        iters = all_gather(iters, ax).flatten(0, 1).cpu().numpy()
+        return MultistartResult(thetas, fobj, iters, int(torch.argmin(fobj)))
     _, value_and_grad = lane_objective(fun)
     opts = dict(maxiter=int(maxiter), fobj_thr=fobj_thr, no_improve_iters=no_improve_iters)
     if method == "lbfgs":

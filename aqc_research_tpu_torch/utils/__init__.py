@@ -2,7 +2,8 @@
 random circuits, angles and states drawn from numpy's global stream (the
 same seed gives the JAX package's numbers), a module logger, the
 graceful-exit sentinel, an accumulating timer, the script entry point, a
-file copy, an options printout and the results summary."""
+file copy, an options printout and the results summary.  The profiling
+helpers are in ``utils/profiling.py``."""
 
 from __future__ import annotations
 
@@ -19,8 +20,18 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from . import checking as chk
-from .config import complex_dtype
+from .. import checking as chk
+from ..config import complex_dtype
+
+
+def num_qubits_from_size(size: int) -> int:
+    """Number of qubits for a state of ``size`` amplitudes (must be 2**n)."""
+    if not chk.is_int(size, size >= 0):
+        raise ValueError(f"'size' must be a non-negative int, got {size!r}")
+    n = int(round(np.log2(float(max(size, 1)))))
+    if size != 2**n:
+        raise ValueError("'size' argument is not a power of 2 value")
+    return n
 
 
 def num_cpus() -> int:
@@ -91,6 +102,11 @@ def create_logger(module_name: str) -> logging.Logger:
         logger.addHandler(handler)
         logger.propagate = False
     return logger
+
+
+def print_dot() -> None:
+    """Progress indicator for long computations."""
+    print(".", end="", flush=True)
 
 
 def logi(logger: logging.Logger, message: str) -> None:
@@ -264,3 +280,20 @@ def sort_and_print_summary(num_qubits: int, results: List[Dict]) -> List[Dict]:
     summary = pd.DataFrame(results, columns=["cost", "num_iters", "time"])
     print(f"\n{'-' * 24}\nSorted valid results:\n{summary}\n")
     return results
+
+
+def temporary_code(func):
+    """Marks temporary or scaffolding code (the reference's decorator): logs
+    a warning on the first call and passes through."""
+    import functools
+
+    warned = []
+
+    @functools.wraps(func)
+    def wrapper(*args, **kwargs):
+        if not warned:
+            warned.append(True)
+            logging.getLogger(__name__).warning("temporary code path: %s", getattr(func, "__name__", func))
+        return func(*args, **kwargs)
+
+    return wrapper

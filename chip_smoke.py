@@ -5,7 +5,8 @@ of the 20-qubit χ=64 and the 28-qubit χ=128 MPS configurations on the jacobi
 route and on the default (rand) route, the ASP driver over a schedule of
 20-qubit χ=64 horizons, the dense statevector path (bench.py's 12-qubit
 flagship and the driver's dense objective), approximate quantum compiling
-and the multi-start fleets (dense and MPS).
+and the multi-start fleets (dense and MPS), and the multi-GPU engines on
+torch.distributed (one process per card).
 
 Usage:  python3 chip_smoke.py        (from the root of a checkout; one card)
 
@@ -162,8 +163,28 @@ Phases, one line each:
                 watchdog's "jacobi" re-check.
   8. routes28 — phase 5 at 28 qubits: rand, jacobi (K4) and jacobi with K4
                 off (K1 at 256x256) in turns (rand, jacobi, unfused,
-                unfused, jacobi, rand, twice; 3 sweeps each), then one
+                unfused, jacobi, rand; 3 sweeps each), then one
                 profiled sweep each.
+  9. mesh28   — the multi-GPU engines on torch.distributed: one process per
+                card (at most four; one on a one-card machine, where every
+                check runs the sharded code on a group of one), NCCL, the
+                kernel library phase 1 built: (a) phase 7's horizon with
+                every half-layer pair-sharded over tp (fobj within 1e-4 of
+                phase 7's, within TOL_FINAL of its c128 re-evaluation, K2
+                and K3 launched, the all_gathers of one obj+grad and their
+                elements, θ and fobj bitwise equal on every rank); (b) the
+                chain-sharded obj+grad at 28q χ=128 over sp against the
+                replicated value_and_grad (1e-4, gradient 1e-3 relative),
+                the state bytes per rank, and a 20q χ=64 chain horizon
+                (maxiter 10) against the replicated one (1e-4); (c) the
+                tp-sharded statevector on bench.py's 12q flagship (1e-5);
+                (d) fleet12's 8 starts through multistart_minimize over dp
+                (maxiter 40), each lane within 1e-4 of the unsharded
+                fleet's.  A rank that fails or hangs fails the phase.  Its
+                launches (from (a)) are the record's mesh28 path.  Alone:
+                ``mesh28_alone()`` (phases 1, 7 and 9).
+Phases 5 and 8 time the routes over one round of turns (two before this
+phase was added, to keep the script near half its time limit).
 The λ checks of K3 and K4 (kernel_checks.lambda_check) hold λ on the values
 both sides keep, allowing for the rescale change of the keep flips that
 kernel_checks.near_threshold allows, and fail on any flip outside that set.
@@ -955,6 +976,7 @@ def run_horizon(case, route: str):
     launches, launches_at, launches_home = read_counts(), read_counts_at(), read_counts_home()
 
     check(np.isfinite(fobj) and fobj < f_start, f"{route} horizon did not lower fobj: {f_start} -> {fobj}")
+    case[f"fobj_{route}"] = fobj
     check(not jit_asp.watchdog_events, f"watchdog fired: {jit_asp.watchdog_events}")
     check(res.thetas.shape == x0.shape and bool(torch.isfinite(res.thetas).all()),
           "non-finite or misshapen thetas")
@@ -2200,6 +2222,327 @@ def phase_fleet_mps(dev, card_line: str):
 
 
 
+MESH_WORLD_MAX = 4  # ranks of the mesh28 phase: one per card, at most four
+MESH_TIMEOUT_S = 420.0  # a collective that waits this long fails; the phase's deadline
+MESH_CHAIN20_MAXITER = 10
+MESH_FLEET_MAXITER = 40  # fleet12's 8 starts, cut from 150 iterations
+TOL_MESH_F = 1e-4  # a sharded fobj vs the replicated one (f32 sketch noise)
+TOL_MESH_G = 1e-3  # relative l2 of the chain gradient vs the replicated one
+TOL_MESH_TP = 1e-5  # the sharded statevector vs the replicated one (c64)
+
+
+@contextmanager
+def gather_spy():
+    """Counts ``torch.distributed.all_gather`` calls and the elements each
+    rank contributes to each."""
+    import torch.distributed as dist
+
+    original, seen = dist.all_gather, []
+
+    def spy(outputs, tensor, *args, **kwargs):
+        seen.append(int(tensor.numel()))
+        return original(outputs, tensor, *args, **kwargs)
+
+    dist.all_gather = spy
+    try:
+        yield seen
+    finally:
+        dist.all_gather = original
+
+
+def _mps_payload(case) -> dict:
+    t = case["target"]
+    return {"x0": case["x0"].cpu().numpy(), "gammas": t.gammas.cpu().numpy(), "lambdas": t.lambdas.cpu().numpy(),
+            "base_bits": case["base_bits"], "trunc_thr": case["trunc_thr"], "layers": case["layers"],
+            "chi": case["chi"], "maxiter": case["maxiter"], "f_rand": case.get("fobj_rand")}
+
+
+def _mesh_case(payload: dict, dev):
+    from aqc_research_tpu_torch.circuit.ansatz import TrotterAnsatz
+    from aqc_research_tpu_torch.circuit.structures import make_trotter_like_circuit
+    from aqc_research_tpu_torch.ops.mps import MPS
+
+    n = payload["gammas"].shape[0]
+    circ = TrotterAnsatz.make(n, make_trotter_like_circuit(n, payload["layers"]), True)
+    target = MPS(torch.as_tensor(payload["gammas"], device=dev), torch.as_tensor(payload["lambdas"], device=dev))
+    return circ, torch.as_tensor(payload["x0"], device=dev), target
+
+
+def _mesh_pair_sharded(payload, mesh_tp, ax_tp, dev):
+    """(a) phase 7's 28q χ=128 horizon with every half-layer sharded over tp."""
+    from aqc_research_tpu_torch.models.sp_lhs import jit_asp
+    from aqc_research_tpu_torch.ops import mps as mpsop
+    from aqc_research_tpu_torch.parallel.comm import all_gather
+
+    circ, x0, target = _mesh_case(payload, dev)
+    bits, thr, chi = tuple(payload["base_bits"]), payload["trunc_thr"], payload["chi"]
+    _, value_and_grad = jit_asp._mps_value_fns(circ, bits, thr)
+    mpsop.set_pair_sharding(mesh_tp, "tp")
+    try:
+        value_and_grad(x0, target)  # warm-up
+        torch.cuda.synchronize()
+        with gather_spy() as gathers:
+            tic = time.perf_counter()
+            value_and_grad(x0, target)
+            torch.cuda.synchronize()
+            sweep_s = time.perf_counter() - tic
+        jit_asp.watchdog_events.clear()
+        reset_counts()
+        tic = time.perf_counter()
+        res = jit_asp.optimize_horizon_mps_jit(circ, x0, target, base_bits=bits, trunc_thr=thr,
+                                               maxiter=payload["maxiter"])
+        fobj = float(res.fobj)
+        torch.cuda.synchronize()
+        horizon_s = time.perf_counter() - tic
+        counts = (read_counts(), read_counts_at(), read_counts_home())
+        rows = all_gather(torch.cat([res.thetas.reshape(-1), res.fobj.reshape(1).to(res.thetas.dtype)]), ax_tp)
+    finally:
+        mpsop.set_pair_sharding(None)
+    tic = time.perf_counter()
+    f_check = f64_objective(circ, res.thetas, target, bits, thr, dev)
+    check_s = time.perf_counter() - tic
+    whole_gamma = circ.num_qubits * 2 * chi * chi * 2  # the whole Γ as reals
+    per_pair = 8 * chi * chi + chi  # Γ_lo, Γ_hi (reals) and λ' of one pair
+    check(all(bool(torch.equal(rows[0], r)) for r in rows), "pair-sharded θ/fobj differ across ranks")
+    check(abs(fobj - payload["f_rand"]) <= TOL_MESH_F,
+          f"pair-sharded fobj {fobj} vs phase 7's unsharded {payload['f_rand']}")
+    check(abs(f_check - fobj) <= TOL_FINAL, f"pair-sharded fobj {fobj} vs its c128 re-evaluation {f_check}")
+    check(counts[0]["theta_build"] > 0 and counts[0]["rand_tail"] > 0, f"K2/K3 not launched: {counts[0]}")
+    check(not jit_asp.watchdog_events, f"watchdog fired: {jit_asp.watchdog_events}")
+    most = -(-(circ.num_qubits // 2) // ax_tp.size) * per_pair  # a rank's share of a full half-layer
+    check(gathers and max(gathers) <= most, f"an all_gather moved more than the updated slices: {gathers}")
+    return {"fobj": fobj, "f_unsharded": payload["f_rand"], "diff": abs(fobj - payload["f_rand"]),
+            "f_check": f_check, "check_s": check_s, "iters": int(res.num_iters), "horizon_s": horizon_s,
+            "s_per_iter": horizon_s / max(int(res.num_iters), 1), "sweep_s": sweep_s, "gathers": len(gathers),
+            "gather_elements_max": max(gathers), "gather_elements_sum": sum(gathers), "whole_gamma": whole_gamma,
+            "counts": counts}
+
+
+def _mesh_chain(payload28, payload20, mesh_sp, dev):
+    """(b) the chain-sharded obj+grad at 28q χ=128 against the replicated
+    value_and_grad, then a 20q χ=64 chain horizon against the replicated
+    one (the same compact L-BFGS)."""
+    from aqc_research_tpu_torch.models.sp_lhs import jit_asp
+    from aqc_research_tpu_torch.ops import mps as mpsop
+    from aqc_research_tpu_torch.ops.mps_gradient import fast_dot_gradient
+    from aqc_research_tpu_torch.optim.lbfgs import minimize_lbfgs_compact
+    from aqc_research_tpu_torch.parallel import mps_chain as mc
+
+    out = {}
+    circ, x0, target = _mesh_case(payload28, dev)
+    bits, thr = tuple(payload28["base_bits"]), payload28["trunc_thr"]
+    _, value_and_grad = jit_asp._mps_value_fns(circ, bits, thr)
+    f_r, g_r = value_and_grad(x0, target)
+    lvec = mpsop.mps_basis_state(bits, target.chi, target.gammas.dtype, dev)
+    cl, cphi = mc.chain_from_mps(lvec, mesh_sp, axis="sp"), mc.chain_from_mps(target, mesh_sp, axis="sp")
+    mc.chain_asp_objective_and_gradient(circ, x0, cl, cphi, mesh_sp, axis="sp", trunc_thr=thr)  # warm-up
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    f_c, g_c = mc.chain_asp_objective_and_gradient(circ, x0, cl, cphi, mesh_sp, axis="sp", trunc_thr=thr)
+    torch.cuda.synchronize()
+    out["sweep_s"] = time.perf_counter() - tic
+    out["bytes"] = mc.chain_bytes_per_device(cphi, mesh_sp, axis="sp")
+    out["f_diff"] = abs(float(f_c) - float(f_r))
+    out["g_rel"] = rel_err(g_c, g_r)
+    check(out["f_diff"] <= TOL_MESH_F and out["g_rel"] <= TOL_MESH_G,
+          f"chain obj+grad vs replicated: fobj {float(f_c)} vs {float(f_r)}, gradient rel {out['g_rel']:.3g}")
+
+    circ, x0, phi = _mesh_case(payload20, dev)
+    bits, thr = tuple(payload20["base_bits"]), payload20["trunc_thr"]
+    lvec = mpsop.mps_basis_state(bits, phi.chi, phi.gammas.dtype, dev)
+
+    def value(x):
+        vh = mpsop.v_dagger_mul_mps_layers(circ, x, phi, trunc_thr=thr)[0]
+        return (1.0 - mpsop.mps_dot(lvec, vh).abs() ** 2).to(x.dtype)
+
+    def vgrad(x):
+        vh = mpsop.v_dagger_mul_mps_layers(circ, x, phi, trunc_thr=thr)[0]
+        dot = mpsop.mps_dot(lvec, vh)
+        g = fast_dot_gradient(circ, x, lvec, vh, trunc_thr=thr)
+        return (1.0 - dot.abs() ** 2).to(x.dtype), (-2.0 * dot.conj() * g).real.to(x.dtype)
+
+    tic = time.perf_counter()
+    res_c = mc.chain_optimize_horizon(circ, x0, mc.chain_from_mps(lvec, mesh_sp, axis="sp"),
+                                      mc.chain_from_mps(phi, mesh_sp, axis="sp"), mesh_sp, axis="sp",
+                                      trunc_thr=thr, maxiter=MESH_CHAIN20_MAXITER)
+    torch.cuda.synchronize()
+    out["chain20_s"] = time.perf_counter() - tic
+    tic = time.perf_counter()
+    res_r = minimize_lbfgs_compact(value, x0, maxiter=MESH_CHAIN20_MAXITER, value_and_grad_fn=vgrad)
+    torch.cuda.synchronize()
+    out["repl20_s"] = time.perf_counter() - tic
+    out.update(f20_start=float(value(x0)), f20_chain=float(res_c.fobj), f20_repl=float(res_r.fobj),
+               iters20=(int(res_c.num_iters), int(res_r.num_iters)))
+    check(abs(out["f20_chain"] - out["f20_repl"]) <= TOL_MESH_F and out["f20_chain"] < out["f20_start"],
+          f"20q chain horizon {out['f20_chain']} vs replicated {out['f20_repl']} (start {out['f20_start']})")
+    return out
+
+
+def _mesh_tp_and_fleet(mesh_tp, mesh_dp, ax_tp, dev):
+    """(c) bench.py's 12q flagship V† on the tp-sharded state; (d) fleet12's
+    8 starts sharded over dp against the unsharded fleet."""
+    from aqc_research_tpu_torch.circuit.ansatz import TrotterAnsatz
+    from aqc_research_tpu_torch.circuit.structures import make_trotter_like_circuit
+    from aqc_research_tpu_torch.models.sp_lhs import jit_asp
+    from aqc_research_tpu_torch.ops.statevector import v_dagger_mul_vec
+    from aqc_research_tpu_torch.parallel.comm import all_gather
+    from aqc_research_tpu_torch.parallel.mesh import shard_state
+    from aqc_research_tpu_torch.parallel.multistart import multistart_minimize
+    from aqc_research_tpu_torch.parallel.statevector_tp import v_dagger_mul_vec_tp
+    from aqc_research_tpu_torch.targets import trotter as trotop
+
+    out = {}
+    circ, thetas, target, _ = dense_flagship(dev, torch.complex64)
+    th = torch.tensor(thetas, dtype=torch.float32, device=dev)
+    tic = time.perf_counter()
+    local = v_dagger_mul_vec_tp(circ, th, shard_state(target, mesh_tp, "tp"), mesh_tp, "tp")
+    full = all_gather(local, ax_tp).reshape(-1)
+    torch.cuda.synchronize()
+    out["tp_s"] = time.perf_counter() - tic
+    out["tp_err"] = float((full - v_dagger_mul_vec(circ, th, target)).abs().max())
+    check(out["tp_err"] <= TOL_MESH_TP, f"tp statevector vs replicated: {out['tp_err']:.3g}")
+
+    n = FLEET_QUBITS
+    circ = TrotterAnsatz.make(n, make_trotter_like_circuit(n, FLEET_LAYERS), True)
+    thetas0 = trotop.init_ansatz_to_trotter(circ, np.zeros(circ.num_thetas), evol_time=1.2, delta=1.0)
+    batch = thetas0[None, :] + 0.2 * np.random.default_rng(FLEET_SEED).standard_normal((FLEET_STARTS, circ.num_thetas))
+    xb = torch.tensor(batch, dtype=torch.float32, device=dev)
+    ini = trotop.neel_init_state(n)
+    tgt = trotop.Trotter(num_qubits=n, evol_time=1.2, num_steps=6, delta=1.0, second_order=True).as_vector(
+        ini, dtype=torch.complex64, device=dev)
+    loss = jit_asp.make_surrogate_loss(circ, jit_asp.flip_state_indices(n, ini))
+    tic = time.perf_counter()
+    sharded = multistart_minimize(lambda x: loss(x, tgt), xb, maxiter=MESH_FLEET_MAXITER, mesh=mesh_dp)
+    torch.cuda.synchronize()
+    out["fleet_s"] = time.perf_counter() - tic
+    alone = multistart_minimize(lambda x: loss(x, tgt), xb, maxiter=MESH_FLEET_MAXITER)
+    out["fleet_lane_diff"] = float((sharded.fobj - alone.fobj).abs().max())
+    out["fleet_best"] = (sharded.best_index, float(sharded.fobj.min()))
+    check(out["fleet_lane_diff"] <= TOL_MESH_F and sharded.best_index == alone.best_index,
+          f"sharded fleet vs unsharded: lanes differ by {out['fleet_lane_diff']:.3g}")
+    return out
+
+
+def _mesh_rank(rank: int, world: int, port: int, payload28: dict, payload20: dict, results) -> None:
+    """One rank of the mesh28 phase: joins the NCCL group, loads the kernel
+    library phase 1 built, runs checks (a)-(d) and sends its numbers back."""
+    import traceback
+
+    os.environ["LOCAL_RANK"] = str(rank)
+    try:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        import torch.distributed as dist
+
+        from aqc_research_tpu_torch import config
+        from aqc_research_tpu_torch.parallel import distributed as td
+        from aqc_research_tpu_torch.parallel.comm import axis_of
+
+        config.set_precision("fast")
+        config.set_svd_impl(None)
+        config.require_full_f32_matmul()
+        check(td.initialize_distributed(f"127.0.0.1:{port}", world, rank, timeout_s=MESH_TIMEOUT_S),
+              "the process group did not start")
+        dev = torch.device("cuda", torch.cuda.current_device())
+        td.build_kernels_once()
+        mesh_tp = td.global_mesh((world,), ("tp",))
+        mesh_sp = td.global_mesh((world,), ("sp",))
+        mesh_dp = td.global_mesh((world,), ("dp",))
+        walls, out = {}, {"backend": dist.get_backend(), "device": str(dev)}
+        tic = time.perf_counter()
+        out["a"] = _mesh_pair_sharded(payload28, mesh_tp, axis_of(mesh_tp, "tp"), dev)
+        walls["a"] = time.perf_counter() - tic
+        tic = time.perf_counter()
+        out["b"] = _mesh_chain(payload28, payload20, mesh_sp, dev)
+        walls["b"] = time.perf_counter() - tic
+        tic = time.perf_counter()
+        out["cd"] = _mesh_tp_and_fleet(mesh_tp, mesh_dp, axis_of(mesh_tp, "tp"), dev)
+        walls["cd"] = time.perf_counter() - tic
+        out["walls"] = walls
+        results.put((rank, True, out))
+        dist.destroy_process_group()
+    except BaseException:
+        results.put((rank, False, traceback.format_exc()))
+        raise
+
+
+def phase_mesh28(case28, case20):
+    """The multi-GPU engines on one NCCL process per card (at most four):
+    (a) phase 7's horizon pair-sharded, (b) the chain-sharded obj+grad at
+    28q and a 20q chain horizon, (c) the tp-sharded statevector, (d) the
+    dp-sharded fleet.  A rank that fails or hangs fails the phase."""
+    import multiprocessing
+    import queue
+    import socket
+
+    tic = time.perf_counter()
+    world = min(torch.cuda.device_count(), MESH_WORLD_MAX)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    payload28, payload20 = _mps_payload(case28), _mps_payload(case20)
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_mesh_rank, args=(r, world, port, payload28, payload20, results))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    got, deadline = {}, time.monotonic() + MESH_TIMEOUT_S
+    try:
+        while len(got) < world:
+            try:
+                rank, ok, val = results.get(timeout=max(deadline - time.monotonic(), 0.1))
+            except queue.Empty:
+                raise SmokeFailure(f"mesh28: ranks {sorted(set(range(world)) - set(got))} sent nothing within "
+                                   f"{MESH_TIMEOUT_S:.0f} s") from None
+            check(ok, f"mesh28 rank {rank} failed:\n{val}")
+            got[rank] = val
+        for p in procs:
+            p.join(timeout=60)
+            check(p.exitcode == 0, f"mesh28: a rank exited with {p.exitcode}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+    r0 = got[0]
+    a, b, cd = r0["a"], r0["b"], r0["cd"]
+    check(r0["backend"] == "nccl", f"mesh28 ran on {r0['backend']}, not NCCL")
+    one = ("one rank: every check runs the sharded code on a group of one — the pair axis unsplit (one "
+           "all_gather of each whole half-layer), the chain in one block (m = 28), no qubit sharded (no "
+           "exchange), one dp rank with all 8 lanes" if world == 1 else f"{world} ranks")
+    print(f"[mesh28] world {world}, backend {r0['backend']} ({one}) | (a) pair-sharded 28q chi=128 rand "
+          f"horizon: fobj {a['fobj']:.7g} vs phase 7's unsharded {a['f_unsharded']:.7g} (diff {a['diff']:.3g}), "
+          f"c128 re-eval {a['f_check']:.7g} ({a['check_s']:.1f} s), {a['iters']} iters, {a['horizon_s']:.2f} s = "
+          f"{a['s_per_iter']:.3f} s/iter, one sharded obj+grad {a['sweep_s']:.3f} s with {a['gathers']} all_gathers "
+          f"(max {a['gather_elements_max']} elements per rank, {a['gather_elements_sum']} in all; the whole Γ is "
+          f"{a['whole_gamma']}), θ and fobj bitwise equal on every rank, launches {a['counts'][0]} | (b) chain "
+          f"obj+grad 28q chi=128 over sp={world}: {b['sweep_s']:.3f} s, fobj diff {b['f_diff']:.3g}, gradient rel "
+          f"{b['g_rel']:.3g}, state bytes per rank {b['bytes'][0]} of {b['bytes'][1]}; 20q chi=64 chain horizon "
+          f"(maxiter {MESH_CHAIN20_MAXITER}) {b['f20_start']:.6g} -> {b['f20_chain']:.7g} vs replicated "
+          f"{b['f20_repl']:.7g}, iters {b['iters20']}, {b['chain20_s']:.1f} / {b['repl20_s']:.1f} s | (c) tp "
+          f"statevector 12q V†: max err {cd['tp_err']:.3g}, {cd['tp_s']:.3f} s | (d) fleet12 over dp={world} "
+          f"(maxiter {MESH_FLEET_MAXITER}): lanes within {cd['fleet_lane_diff']:.3g} of the unsharded fleet, best "
+          f"{cd['fleet_best']}, {cd['fleet_s']:.1f} s | rank 0 walls (a) {r0['walls']['a']:.1f} s, (b) "
+          f"{r0['walls']['b']:.1f} s, (c+d) {r0['walls']['cd']:.1f} s, phase {time.perf_counter() - tic:.1f} s",
+          flush=True)
+    return a["counts"]
+
+
+def mesh28_alone():
+    """Phases 1, 7 and 9 alone (the kernel build, phase 7's horizon, the
+    mesh28 phase): ``python3 -c "import sys; sys.path.insert(0, '.');
+    import chip_smoke as cs; cs.mesh28_alone()"``."""
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    phase_device()
+    case20 = make_case(dev, 20, PATH_CHI, maxiter=10, f64_device="cpu")
+    case28 = make_case(dev, 28, PATH28_CHI, maxiter=10, f64_device=dev)
+    phase_rand(case28, "rand28")
+    return phase_mesh28(case28, case20)
+
+
 KERNELS = (
     ("jacobi_rows", "aqc_research_tpu_torch/csrc/jacobi_rows.cu",
      "aqc_research_tpu/ops/pallas_jacobi.py:244", "jacobi20"),
@@ -2226,10 +2569,10 @@ def main() -> int:
         stats["theta_build"], stats["rand_tail"] = phase_rand_kernels(dev)
         stats["fused_pair"] = phase_fused(dev)
         paths = {}
-        case = make_case(dev, 20, PATH_CHI, maxiter=10, f64_device="cpu")
-        paths["jacobi20"] = phase_slice(case, "slice")
-        paths["rand20"] = phase_rand(case, "rand")
-        phase_routes(case, "routes", ("rand", "jacobi"), repeats=2, calls=5)
+        case20 = make_case(dev, 20, PATH_CHI, maxiter=10, f64_device="cpu")
+        paths["jacobi20"] = phase_slice(case20, "slice")
+        paths["rand20"] = phase_rand(case20, "rand")
+        phase_routes(case20, "routes", ("rand", "jacobi"), repeats=1, calls=5)
         paths["driver20"] = phase_driver()
         paths["host20"] = phase_host(card_line, dev)
         paths["dense12"] = phase_dense(dev)
@@ -2241,7 +2584,8 @@ def main() -> int:
         case = make_case(dev, 28, PATH28_CHI, maxiter=10, f64_device=dev)
         paths["jacobi28"] = phase_slice(case, "slice28")
         paths["rand28"] = phase_rand(case, "rand28")
-        phase_routes(case, "routes28", ("rand", "jacobi", "unfused"), repeats=2, calls=3)
+        phase_routes(case, "routes28", ("rand", "jacobi", "unfused"), repeats=1, calls=3)
+        paths["mesh28"] = phase_mesh28(case, case20)
     except (SmokeFailure, ImportError, RuntimeError, ValueError) as exc:
         print(f"chip_smoke: FAILED: {type(exc).__name__}: {exc}", file=sys.stderr)
         return 1

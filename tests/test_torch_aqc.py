@@ -13,7 +13,8 @@ inputs:
   rejection (the JAX package's tests/test_parallel.py cases, on the port);
 * the three drivers at the sizes of tests/test_sketching_drivers.py:
   per-lane and per-restart costs within 1e-8 of JAX, the same payload
-  keys, the time-limit contract and the resume.
+  keys, ``qcircuit.qasm`` (the JAX text of the best circuit, gate for gate
+  the JAX driver's), the time-limit contract and the resume.
 """
 
 import importlib
@@ -25,6 +26,7 @@ import pytest
 import torch
 
 from aqc_research_tpu import utils as jutils
+from aqc_research_tpu.circuit import qasm as jqasm
 from aqc_research_tpu.circuit.ansatz import Ansatz as JAnsatz
 from aqc_research_tpu.models.sketching import aqc_coordinate_descent as j_coord
 from aqc_research_tpu.models.sketching import sk_core as jsk
@@ -263,11 +265,22 @@ DRIVER_CASES = {
 @pytest.mark.parametrize("case", sorted(DRIVER_CASES))
 def test_drivers_match_jax(case, tmp_path):
     fn_j, fn_t, kw = DRIVER_CASES[case]
-    pj = _payload(fn_j(result_folder=str(tmp_path / "jax"), **kw))
+    out_j = fn_j(result_folder=str(tmp_path / "jax"), **kw)
+    pj = _payload(out_j)
     out = fn_t(result_folder=str(tmp_path / "torch"), **kw)
     pt = _payload(out)
     _same_results(pj, pt)
     assert os.path.isfile(os.path.join(out, "qcircuit.pkl"))
+    # qcircuit.qasm: the JAX package's text of the port's best circuit, and
+    # the JAX driver's circuit gate for gate (angles to the runs' agreement).
+    with open(os.path.join(out, "qcircuit.qasm")) as fh:
+        text = fh.read()
+    assert text == jqasm.program_to_qasm3(pt["best_result"]["program"], kw["num_qubits"])
+    with open(os.path.join(out_j, "qcircuit.qasm")) as fh:
+        want, _ = jqasm.program_from_qasm3(fh.read())
+    got, _ = jqasm.program_from_qasm3(text)
+    assert [(g.name, g.qubits) for g in got] == [(g.name, g.qubits) for g in want]
+    np.testing.assert_allclose([g.param or 0.0 for g in got], [g.param or 0.0 for g in want], rtol=0, atol=1e-5)
     if case == "full":
         assert all(r["stats"]["fleet"] for r in pt["sorted_results"])
         assert pt["best_result"]["accuracy_metrics"]["fidelity"] > 0.9

@@ -13,8 +13,8 @@ float64 / complex128: the same numpy-seeded starts go through
   ``minimize_lbfgs`` (optax's L-BFGS and zoom linesearch) against optax's
   own iterates on Rosenbrock, the first 25 within 1e-8;
   ``optimize_horizon_jit(solver="zoom")`` within 1e-8 at 4 qubits;
-* ``multistart_minimize`` (lbfgs and adam) against JAX, and its
-  ``mesh=`` refusal;
+* ``multistart_minimize`` (lbfgs and adam) against JAX, and its refusal
+  of a ``mesh`` that is not a DeviceMesh;
 * ``optimize_horizon_multistart`` at the sizes of tests/test_jit_asp.py and
   ``optimize_horizon_mps_multistart`` at n = 3 χ = 8 and n = 6 χ = 16 on
   the "native" route: per-lane fobj within 1e-8, the same ``num_iters``;
@@ -230,7 +230,7 @@ def test_multistart_minimize_matches_jax(method):
 
 
 def test_multistart_refuses_a_mesh_and_draws_from_a_generator():
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tms.multistart_minimize(rosen_t, torch.zeros((2, 3), dtype=torch.float64), mesh=object())
     with pytest.raises(ValueError):
         tms.multistart_minimize(rosen_t, torch.zeros((2, 3), dtype=torch.float64), method="sgd")

@@ -215,8 +215,10 @@ def test_config_routes_and_precision():
         assert config.svd_impl(torch.device("cuda")) == "rand"
     finally:
         config.set_svd_impl(None)
+    with config.svd_impl_override("gram"):  # ported with ops/svd_gram.py
+        assert config.svd_impl(torch.zeros(1)) == "gram"
     with pytest.raises(ValueError):
-        config.set_svd_impl("gram")
+        config.set_svd_impl("embed")  # the JAX package's TPU workaround, not ported
     with pytest.raises(ValueError):
         config.set_precision("medium")
     assert config.real_of(torch.complex64) == torch.float32
@@ -252,6 +254,17 @@ def test_port_import_leaves_jax_out():
         "aqc_research_tpu_torch.models.sketching.sk_utils",
         "aqc_research_tpu_torch.models.sketching.aqc_sketching",
         "aqc_research_tpu_torch.models.sketching.aqc_coord_descent",
+        "aqc_research_tpu_torch.parallel.distributed",
+        "aqc_research_tpu_torch.parallel.mesh",
+        "aqc_research_tpu_torch.parallel.mps_sharded",
+        "aqc_research_tpu_torch.parallel.mps_chain",
+        "aqc_research_tpu_torch.parallel.statevector_tp",
+        "aqc_research_tpu_torch.parallel.dryrun",
+        "aqc_research_tpu_torch.circuit.qasm",
+        "aqc_research_tpu_torch.compat",
+        "aqc_research_tpu_torch.io.native",
+        "aqc_research_tpu_torch.utils.profiling",
+        "aqc_research_tpu_torch.ops.svd_gram",
         "chip_smoke",
     ]
     code = "import sys\n" + "".join(f"import {m}\n" for m in modules) + (
