@@ -124,7 +124,8 @@ def set_svd_impl(impl: str | None) -> None:
       reduced-Jacobi tail kernel.  Taken for complex64 pair updates with
       χ % 8 == 0 and 2χ >= ``rand_svd.RAND_MIN_N`` where
       :func:`fused_rand_enabled` says so.  Every other pair update takes the
-      "jacobi" route on CUDA tensors; on other tensors those from
+      "jacobi" route on CUDA tensors (unless :func:`allow_unfused_rand`
+      opts in to the unfused one); on other tensors those from
       ``RAND_MIN_N`` on take the unfused ``rand_svd.rand_svd_top_k``, as the
       JAX package's do off its accelerator.
     * ``None`` — auto, per tensor: "rand" on CUDA, "native" on CPU.
@@ -205,14 +206,27 @@ def fused_rand_enabled(chi: int | None = None, dev=None) -> bool:
     override wins; auto means on for CUDA tensors at chi >= 8.  Where it is
     off, ops/mps.py runs K1 on the square θ on CUDA tensors (the JAX
     package's fallback on its accelerator, where the unfused rand SVD has a
-    known mid-optimization failure) and the unfused ``rand_svd_top_k``
-    elsewhere."""
+    known mid-optimization failure; :func:`allow_unfused_rand` opts in to
+    the unfused ``rand_svd_top_k`` there) and the unfused
+    ``rand_svd_top_k`` elsewhere."""
     if _FUSED_PAIR is not None:
         return _FUSED_PAIR
     if isinstance(dev, torch.Tensor):
         dev = dev.device
     dev = device() if dev is None else torch.device(dev)
     return dev.type == "cuda" and chi is not None and chi >= 8
+
+
+def allow_unfused_rand() -> bool:
+    """Whether a CUDA pair update that the rand route's fused update does
+    not take (its shape guards, ``set_fused_pair(False)``) runs the unfused
+    ``rand_svd.rand_svd_top_k`` from ``RAND_MIN_N`` on instead of K1: only
+    with ``AQC_TORCH_ALLOW_UNFUSED_RAND=1`` (read at call time), for probes
+    that study that route.  The JAX package's opt-in
+    ``AQC_TPU_ALLOW_UNFUSED_RAND`` guards a known mid-optimization failure
+    of the unfused rand SVD on its chip (a 16-qubit horizon collapsing to
+    fobj = 1.0), so the default stays K1."""
+    return os.environ.get("AQC_TORCH_ALLOW_UNFUSED_RAND", "") == "1"
 
 
 def mps_watchdog_enabled() -> bool:

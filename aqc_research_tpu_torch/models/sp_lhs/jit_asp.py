@@ -424,6 +424,23 @@ def _run_horizon(circ, x0, tgt, base_bits, trunc_thr, fobj_thr, maxiter, no_impr
     return JitHorizonResult(res.thetas, res.fobj, 1.0 - res.fobj, res.num_iters, res.converged), timed_out
 
 
+def _lane_by_lane(value, value_and_grad):
+    """A lane objective from the one-lane MPS objective: the running lanes
+    evaluated one after another and stacked into ``(L,)`` / ``(L, P)``, so
+    each lane follows its one-lane trajectory (the JAX fleet's ``vmap`` of
+    the one-lane program) on circuits whose engine paths take no lane
+    axis."""
+
+    def lanes_value(xs: torch.Tensor, tgt) -> torch.Tensor:
+        return torch.stack([value(x, tgt) for x in xs])
+
+    def lanes_value_and_grad(xs: torch.Tensor, tgt):
+        outs = [value_and_grad(x, tgt) for x in xs]
+        return torch.stack([f for f, _ in outs]), torch.stack([g for _, g in outs])
+
+    return lanes_value, lanes_value_and_grad
+
+
 def optimize_horizon_mps_multistart(
     circ: Ansatz,
     thetas0_batch,
@@ -438,28 +455,30 @@ def optimize_horizon_mps_multistart(
     """Multi-start MPS ASP horizon optimization: the L rows of
     ``thetas0_batch`` run :func:`optimize_horizon_mps_jit`'s loop in lock
     step as one fleet (optim/lbfgs.lbfgs_fleet_programs, sequential
-    backtracking as in the JAX twin).  The lanes fold into the batch of
-    every pair update: one evaluation decomposes each pair group of all
-    running lanes in ONE launch of the route's kernels.  Needs a layered
-    Trotter (cx) ansatz, whose engine paths take lanes.  Like the JAX twin,
-    the fleet has no collapse watchdog.  Returns the lanes' results
-    (``num_iters``/``converged`` host arrays); the winner is
-    ``argmin(res.fobj)``.
+    backtracking as in the JAX twin).  On a layered Trotter (cx) ansatz,
+    whose engine paths take lanes, the lanes fold into the batch of every
+    pair update: one evaluation decomposes each pair group of all running
+    lanes in ONE launch of the route's kernels.  Any other ansatz (cz and
+    cp entanglers, plain layered, the per-gate path) evaluates the running
+    lanes one after another through the one-lane objective inside the same
+    loop.  Like the JAX twin, the fleet has no collapse watchdog.  Returns
+    the lanes' results (``num_iters``/``converged`` host arrays); the
+    winner is ``argmin(res.fobj)``.
 
     On the "rand" route the sketch Ω is drawn per batch shape
-    (ops/rand_svd.sketch), so a lane agrees with its one-lane run to the
-    f32 sketch noise, not bit for bit."""
+    (ops/rand_svd.sketch), so a folded lane agrees with its one-lane run to
+    the f32 sketch noise, not bit for bit."""
     if len(base_bits) != circ.num_qubits:
         raise ValueError(
             f"base_bits must give one 0/1 occupation per site: got "
             f"{len(base_bits)} for {circ.num_qubits} qubits"
         )
-    if not _layered_eligible(circ):
-        raise ValueError("the MPS fleet needs a layered Trotter ansatz with the cx entangler")
     base_t = tuple(int(b) for b in base_bits)
     x0 = thetas0_batch if isinstance(thetas0_batch, torch.Tensor) else torch.as_tensor(
         np.asarray(thetas0_batch), dtype=target.lambdas.dtype, device=target.device)
     value, value_and_grad = _mps_value_fns(circ, base_t, float(trunc_thr))
+    if not _layered_eligible(circ):
+        value, value_and_grad = _lane_by_lane(value, value_and_grad)
     res = minimize_lbfgs_compact_lanes(
         lambda th: value(th, target), lambda th: value_and_grad(th, target), x0.detach(),
         maxiter=int(maxiter), fobj_thr=_loss_thr(fidelity_thr),

@@ -9,8 +9,9 @@ at first use, never at import: machines without ``nvcc`` import the port
 and run the plain twins on CPU tensors.
 
 The kernel wrappers (ops/jacobi_kernel.py, ops/fused_pair.py,
-ops/fused_rand.py) call :func:`launch`, which runs one C entry point on the
-current stream of the tensors' device and raises on a refused launch.
+ops/fused_rand.py, ops/tile_probes.py) call :func:`launch`, which runs one
+C entry point on the current stream of the tensors' device and raises on a
+refused launch.
 """
 
 from __future__ import annotations
@@ -52,6 +53,8 @@ _SIGNATURES = {
     "fused_pair_launch": ([_VP] * 15 + [_CI] * 4 + [_CF, _CI, _CI, _VP], _CI),
     # chi, cluster
     "fused_pair_cluster_occupancy": ([_CI, _CI], _CI),
+    # a, b, scale, o_dot, o_dgt, o_tr, batch, n, a_stride, b_stride, stream
+    "tile_probe_launch": ([_VP] * 6 + [_CI] * 2 + [ctypes.c_longlong] * 2 + [_VP], _CI),
     "aqc_max_smem_optin": ([_CI], _CI),
     "aqc_error_string": ([_CI], ctypes.c_char_p),
 }

@@ -181,7 +181,7 @@ def fused_rand_pair_update(
     # ---- middle: range-finder + projection on θ = W0ᵀ ----
     a = torch.complex(w0_re, w0_im).transpose(-1, -2)
     total2 = (w0_re * w0_re + w0_im * w0_im).sum((-2, -1))
-    bm = rand_svd._range_project(a, ell, rand_svd._POWER_ITERS)
+    bm = rand_svd._range_project(a, ell, rand_svd._POWER_ITERS, intermediate=rand_svd._INTERMEDIATE)
     m_re = bm.real.contiguous()
     m_im = (-bm.imag).contiguous()
 

@@ -88,10 +88,11 @@ def _rotate_seats(l, r):
 
 
 def jacobi_svd(
-    m: torch.Tensor, sweeps: int = DEFAULT_SWEEPS
+    m: torch.Tensor, sweeps: int = DEFAULT_SWEEPS, sort: bool = True
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Full SVD of square (..., n, n) matrices, n even; returns (u, s, vh)
-    with m = u diag(s) vh, singular values sorted descending."""
+    with m = u diag(s) vh, singular values sorted descending (with ``sort``
+    False: in the order the rotations leave the columns)."""
     n = m.shape[-1]
     if m.shape[-2] != n or n % 2:
         raise ValueError(f"square even-sized input expected, got {tuple(m.shape)}")
@@ -124,10 +125,11 @@ def jacobi_svd(
     a = torch.cat([al, ar], dim=-1)
     v = torch.cat([vl, vr], dim=-1)
     s = torch.linalg.vector_norm(a, dim=-2).to(rdtype)
-    order = torch.argsort(-s, dim=-1, stable=True)
-    s = torch.take_along_dim(s, order, dim=-1)
-    a = torch.take_along_dim(a, order[..., None, :], dim=-1)
-    v = torch.take_along_dim(v, order[..., None, :], dim=-1)
+    if sort:
+        order = torch.argsort(-s, dim=-1, stable=True)
+        s = torch.take_along_dim(s, order, dim=-1)
+        a = torch.take_along_dim(a, order[..., None, :], dim=-1)
+        v = torch.take_along_dim(v, order[..., None, :], dim=-1)
     pos = s > 0
     inv = torch.where(pos, 1.0 / torch.where(pos, s, torch.ones_like(s)), torch.zeros_like(s))
     u = a * inv[..., None, :].to(dtype)

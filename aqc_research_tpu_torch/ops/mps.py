@@ -30,6 +30,7 @@ import torch
 
 from ..circuit.program import GateProgram, gate_matrix
 from ..config import (
+    allow_unfused_rand,
     complex_dtype,
     device as default_device,
     fused_pair_enabled,
@@ -308,16 +309,17 @@ def _rand_route_update(chi: int, dtype, dev) -> str:
     """What the "rand" route runs for a pair update at bond dimension
     ``chi`` on ``dev`` (the JAX package's ops/mps.py:327-347, 446-471):
     "fused" (ops/fused_rand.py) where :func:`config.fused_rand_enabled` says
-    so and the shape guards hold; otherwise "jacobi" on CUDA (K1 on the
-    square θ: on its accelerator the JAX package falls back to its Jacobi
-    kernel, never to the unfused rand SVD with its known on-chip failure);
-    otherwise "unfused" (``rand_svd.rand_svd_top_k``) from
-    ``rand_svd.RAND_MIN_N`` on and "jacobi" below, as the JAX package
-    decides off its accelerator."""
+    so and the shape guards hold; otherwise "unfused"
+    (``rand_svd.rand_svd_top_k``) from ``rand_svd.RAND_MIN_N`` on, off the
+    card always and on CUDA only where :func:`config.allow_unfused_rand`
+    opts in (on its accelerator the JAX package falls back to its Jacobi
+    kernel, never to the unfused rand SVD with its known on-chip failure,
+    unless a probe opts in); otherwise "jacobi" (K1 on the square θ on
+    CUDA)."""
     dev = torch.device(dev)
     if fused_rand_enabled(chi, dev) and _fused_rand_eligible(chi, dtype):
         return "fused"
-    if dev.type != "cuda" and 2 * chi >= rand_svd.RAND_MIN_N:
+    if 2 * chi >= rand_svd.RAND_MIN_N and (dev.type != "cuda" or allow_unfused_rand()):
         return "unfused"
     return "jacobi"
 

@@ -6,7 +6,8 @@ its (2chi, 2chi) matrix.  The Halko-Martinsson-Tropp range-finder shrinks
 the Jacobi problem to l = chi + 8 columns first:
 
     1. sample       Y = A @ Omega                (n x l)
-    2. power iter   Y <- A (A^H Y), QR between   [sharpens the subspace]
+    2. power iter   Y <- A (A^H Y), QR or LU     [sharpens the subspace]
+                    between the legs
     3. orthobasis   Q = QR(Y).Q                  (n x l isometry)
     4. project      B = Q^H A                    (l x n)
 
@@ -22,10 +23,17 @@ from a CPU ``torch.Generator`` seeded with the JAX package's constant
 as the JAX package's fixed key does.  torch cannot redraw JAX's bits, so
 parity tests hand the JAX sketch in (``omega=`` or by replacing
 :func:`sketch`).
+
+Knobs (environment, read once at import; the JAX package's
+``AQC_TPU_RAND_*``): ``AQC_TORCH_RAND_OVERSAMPLE`` (8),
+``AQC_TORCH_RAND_POWER_ITERS`` (1), ``AQC_TORCH_RAND_MIN_N`` (128) and
+``AQC_TORCH_RAND_INTERMEDIATE`` ("qr"; "lu" is the only other mode, the one
+the JAX package measured safe).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Tuple
 
 import torch
@@ -33,15 +41,25 @@ import torch
 from .jacobi_kernel import _sort_guard_top_k, jacobi_rows
 from .jacobi_svd import DEFAULT_SWEEPS
 
+# The range-finder's knobs, read from the environment once at import into
+# module attributes that the code reads at call time (tests set them).
 # l = k + _OVERSAMPLE sampled columns, rounded up to even (the Jacobi seats
 # pair the columns); 8 keeps l a multiple of 8 at chi % 8 == 0.
-_OVERSAMPLE = 8
-# Subspace-sharpening power iterations (Y <- A A^H Y, re-orthonormalized).
-_POWER_ITERS = 1
+_OVERSAMPLE = int(os.environ.get("AQC_TORCH_RAND_OVERSAMPLE", "8"))
+# Subspace-sharpening power iterations (Y <- A A^H Y, stabilized between).
+_POWER_ITERS = int(os.environ.get("AQC_TORCH_RAND_POWER_ITERS", "1"))
+# The stabilization between the power legs: "qr" (Householder
+# re-orthonormalization, the default) or "lu" (P L of the partial-pivot
+# LU, :func:`_lu_stab`: a bounded basis of the same span, without the
+# orthogonal factor).  The last leg always goes into the final basis.  The
+# JAX package's other modes (qrlite, colnorm, cholqr) and its final-basis
+# cholqrK were measured unsafe on its chip: they raise here.
+_INTERMEDIATE = os.environ.get("AQC_TORCH_RAND_INTERMEDIATE", "qr")
+_INTERMEDIATES = ("qr", "lu")
+_FINALS = ("qr",)
 # Below this matrix size the projection cannot pay; the pair update takes
-# the jacobi route there (the chi-growth heads).  Module attributes, read at
-# call time, so tests can lower them.
-RAND_MIN_N = 128
+# the jacobi route there (the chi-growth heads).
+RAND_MIN_N = int(os.environ.get("AQC_TORCH_RAND_MIN_N", "128"))
 
 _SKETCHES: dict = {}
 
@@ -92,25 +110,78 @@ def sketch(b: int, n: int, ell: int, dtype: torch.dtype, device) -> torch.Tensor
     return omega
 
 
+def _lu_stab(y: torch.Tensor) -> torch.Tensor:
+    """P L of the partial-pivot LU of each ``y`` (b, n, l), n >= l: a
+    unit-lower-trapezoidal basis, row-permuted, with bounded entries
+    (|l| <= sqrt(2): complex pivoting compares |re| + |im|) and
+    span(P L) = span(y) where y has full column rank (the JAX package's
+    ``_lu_stab``, scikit-learn's "LU" power-iteration normalizer).  A
+    rank-deficient y (the zero-padded pair samples) keeps its span inside
+    span(P L): a zero pivot leaves its column of L a unit vector, as
+    LAPACK's getrf does, so P L never loses rank.  No orthogonal factor is
+    formed, so it costs less than Householder QR; only the final basis
+    needs the real QR."""
+    p, l_fac, _ = torch.linalg.lu(y)
+    # Row i of P L is row j of L where P[i, j] = 1: a gather, exact.
+    rows = p.abs().argmax(-1)
+    return torch.take_along_dim(l_fac, rows[..., None], dim=-2)
+
+
+def _intermediate(intermediate: str | None, final: str | None) -> str:
+    """The intermediate stabilization in effect, after checking both modes;
+    the modes the JAX package measured unsafe raise."""
+    im = _INTERMEDIATE if intermediate is None else intermediate
+    fm = "qr" if final is None else final
+    for kind, mode, allowed in (("intermediate", im, _INTERMEDIATES), ("final", fm, _FINALS)):
+        if mode in allowed:
+            continue
+        if mode in ("qrlite", "colnorm") or mode.startswith("cholqr"):
+            raise ValueError(
+                f"rand {kind} {mode!r} is not ported: measured unsafe on the JAX package's chip "
+                f"(ROADMAP.md, \"Not to port\": the rand knobs qrlite, colnorm, cholqr and cholqr2/3); "
+                f"use one of {allowed}")
+        raise ValueError(f"unknown rand {kind} {mode!r} (use one of {allowed})")
+    return im
+
+
 def _range_project(
-    a: torch.Tensor, ell: int, q_iters: int, omega: torch.Tensor | None = None
+    a: torch.Tensor,
+    ell: int,
+    q_iters: int,
+    omega: torch.Tensor | None = None,
+    intermediate: str | None = None,
+    final: str | None = None,
 ) -> torch.Tensor:
     """HMT range-finder + projection: B = Q^H A of shape (b, l, n) for ``a``
     (b, n, n) complex, Q an orthonormal basis of the sketched, power-iterated
-    range of A (Householder QR between the legs and for the final basis)."""
+    range of A (the JAX package's ops/rand_svd.py:365-429).  The power legs
+    are stabilized by ``intermediate`` ("qr" or "lu"; None reads the
+    module's ``_INTERMEDIATE``), except the last, which goes into the final
+    basis (``final``: "qr", Householder); with ``q_iters == 0`` the sample
+    goes into the final basis at once."""
+    stab = _lu_stab if _intermediate(intermediate, final) == "lu" else _orth
     b, n = a.shape[0], a.shape[-1]
     if omega is None:
         omega = sketch(b, n, ell, a.dtype, a.device)
-    y = _orth(torch.matmul(a, omega))
+    y = torch.matmul(a, omega)
+    y = _orth(y) if q_iters == 0 else stab(y)
     ah = a.conj().transpose(-1, -2)
-    for _ in range(q_iters):
-        z = _orth(torch.matmul(ah, y))
-        y = _orth(torch.matmul(a, z))
+    for i in range(q_iters):
+        z = stab(torch.matmul(ah, y))
+        y = torch.matmul(a, z)
+        y = stab(y) if i < q_iters - 1 else _orth(y)
     return torch.matmul(y.conj().transpose(-1, -2), a)
 
 
 def rand_svd_top_k(
-    m: torch.Tensor, k: int, sweeps: int = DEFAULT_SWEEPS, omega: torch.Tensor | None = None
+    m: torch.Tensor,
+    k: int,
+    sweeps: int = DEFAULT_SWEEPS,
+    oversample: int | None = None,
+    power_iters: int | None = None,
+    intermediate: str | None = None,
+    final: str | None = None,
+    omega: torch.Tensor | None = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Top-k truncated SVD by randomized projection and the reduced Jacobi
     rows (twin of the JAX package's ``rand_svd_top_k``, its
@@ -123,15 +194,18 @@ def rand_svd_top_k(
     zeroed factor columns.
 
     ``m``: (..., n, n) complex64 (complex128 is projected in complex64, as
-    in the JAX package), n even.  ``omega``: the (b, n, l) sketch, for
-    parity tests (default :func:`sketch`)."""
+    in the JAX package), n even.  ``oversample``, ``power_iters``,
+    ``intermediate`` and ``final`` override the module's knobs (None reads
+    them; see :func:`_range_project`).  ``omega``: the (b, n, l) sketch,
+    for parity tests (default :func:`sketch`)."""
     n = m.shape[-1]
     if m.shape[-2] != n or n % 2:
         raise ValueError(f"square even-sized input expected, got {tuple(m.shape)}")
     batch_shape = m.shape[:-2]
     cdtype = m.dtype if m.is_complex() else torch.complex64
     a = m.reshape((-1, n, n)).to(torch.complex64)
-    bm = _range_project(a, rand_ell(n, k), _POWER_ITERS, omega)  # (b, l, n)
+    q_iters = _POWER_ITERS if power_iters is None else power_iters
+    bm = _range_project(a, rand_ell(n, k, oversample), q_iters, omega, intermediate, final)  # (b, l, n)
     w_re, w_im, _ = jacobi_rows(bm.real.contiguous(), (-bm.imag).contiguous(), sweeps)
     w, s, inv = _sort_guard_top_k(w_re, w_im, k, cdtype)
     vh = w.conj() * inv[..., :, None].to(cdtype)  # (b, k, n)

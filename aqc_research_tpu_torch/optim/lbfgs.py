@@ -69,17 +69,32 @@ def autograd_value_and_grad(fun: Callable[[torch.Tensor], torch.Tensor]):
     return value_and_grad
 
 
+class _TrialStates(tuple):
+    """The objective states of a one-lane objective evaluated at the K
+    points of a linesearch step grid, one per point, each from the same
+    incoming state; the grid keeps the accepted point's (the JAX loop's
+    per-trial states under ``vmap``)."""
+
+
 def _one_lane(value_fn: Callable, value_and_grad_fn: Callable):
     """A one-lane objective (``x (P,)``, scalar ``f``) as a lane objective
-    over a fleet of one lane."""
+    over a fleet of one lane.  Several rows (a step grid) are evaluated one
+    after another from the same state; a stateful objective then returns
+    their states as :class:`_TrialStates`."""
+
+    def rows(fn, xs, st):
+        outs = [fn(x, st) for x in xs]
+        states = [o[-1] for o in outs]
+        stateless = all(isinstance(t, tuple) and len(t) == 0 for t in states)
+        return outs, (states[0] if len(outs) == 1 or stateless else _TrialStates(states))
 
     def value(xs, st):
-        f, st = value_fn(xs[0], st)
-        return f.reshape(1), st
+        outs, st = rows(value_fn, xs, st)
+        return torch.stack([f.reshape(()) for f, _ in outs]), st
 
     def value_and_grad(xs, st):
-        f, g, st = value_and_grad_fn(xs[0], st)
-        return f.reshape(1), g[None], st
+        outs, st = rows(value_and_grad_fn, xs, st)
+        return torch.stack([f.reshape(()) for f, _, _ in outs]), torch.stack([g for _, g, _ in outs]), st
 
     return value, value_and_grad
 
@@ -95,6 +110,8 @@ def lbfgs_chunk_programs(
     max_backtracks: int = 20,
     c1: float = 1e-4,
     stop_fn: Optional[Callable] = None,
+    batch_linesearch: Optional[int] = None,
+    fuse_linesearch_grad: bool = False,
 ):
     """The compact L-BFGS loop on one lane as ``(init, chunk, extract)``:
     :func:`lbfgs_fleet_programs` over a fleet of one lane.
@@ -110,11 +127,15 @@ def lbfgs_chunk_programs(
     every accepted point.  The loop stops on ``f < fobj_thr``, after more
     than ``no_improve_iters`` non-improving iterations, on a failed
     linesearch, on ``stop_fn(st)`` (checked after each accepted step and at
-    the start point), or at the limit."""
+    the start point), or at the limit.  ``batch_linesearch`` /
+    ``fuse_linesearch_grad``: the step grid of :func:`lbfgs_fleet_programs`
+    (one evaluation of K trial points per linesearch, the gradients too
+    when fused)."""
     init, chunk, extract = lbfgs_fleet_programs(
         *_one_lane(value_fn, value_and_grad_fn), maxiter=maxiter, fobj_thr=fobj_thr,
         no_improve_iters=no_improve_iters, memory_size=memory_size,
-        max_backtracks=max_backtracks, c1=c1, stop_fn=stop_fn,
+        max_backtracks=max_backtracks, c1=c1, batch_linesearch=batch_linesearch,
+        fuse_linesearch_grad=fuse_linesearch_grad, stop_fn=stop_fn,
     )
 
     def extract_lane(c: FleetCarry) -> Tuple[JitMinimizeResult, Any]:
@@ -138,18 +159,25 @@ def minimize_lbfgs_compact_stateful(
     max_backtracks: int = 20,
     c1: float = 1e-4,
     stop_fn: Optional[Callable] = None,
+    batch_linesearch: Optional[int] = None,
+    fuse_linesearch_grad: bool = False,
 ) -> Tuple[JitMinimizeResult, Any]:
     """Compact L-BFGS threading an objective state through every evaluation
     — the functional form of the reference's stateful objectives
     (hysteresis / EMA bookkeeping).  ``value_fn(x, st) -> (f, st')`` runs at
     the linesearch trials, ``value_and_grad_fn(x, st) -> (f, g, st')`` at
     the accepted points; ``stop_fn(st) -> bool`` is an extra stop condition
-    checked after each accepted step.  Returns ``(JitMinimizeResult, final
-    objective state)``."""
+    checked after each accepted step.  ``batch_linesearch=K`` evaluates the
+    whole step grid (1, 1/2, ..., 2^-(K-1)) in one ``value_fn`` call and
+    takes the largest passing step (the state then ticks once per
+    linesearch); ``fuse_linesearch_grad`` evaluates value_and_grad on the
+    grid and reuses the chosen point's gradient.  Returns
+    ``(JitMinimizeResult, final objective state)``."""
     init, chunk, extract = lbfgs_chunk_programs(
         value_fn, value_and_grad_fn, maxiter=maxiter, fobj_thr=fobj_thr,
         no_improve_iters=no_improve_iters, memory_size=memory_size,
         max_backtracks=max_backtracks, c1=c1, stop_fn=stop_fn,
+        batch_linesearch=batch_linesearch, fuse_linesearch_grad=fuse_linesearch_grad,
     )
     return extract(chunk(init(x0, obj_state0), maxiter))
 
@@ -173,16 +201,21 @@ def minimize_lbfgs_compact(
     max_backtracks: int = 20,
     c1: float = 1e-4,
     value_and_grad_fn: Optional[Callable] = None,
+    batch_linesearch: Optional[int] = None,
+    fuse_linesearch_grad: bool = False,
 ) -> JitMinimizeResult:
     """Minimizes ``fun`` from ``x0`` with compact L-BFGS in one run of at
     most ``maxiter`` iterations.  ``value_and_grad_fn(x) -> (f, g)``
     supplies the gradient (e.g. the analytic MPS co-sweep); without it the
-    gradient is ``torch.autograd``'s on ``fun``."""
+    gradient is ``torch.autograd``'s on ``fun``.  ``batch_linesearch`` and
+    ``fuse_linesearch_grad`` as in :func:`minimize_lbfgs_compact_stateful`
+    (``fun`` then takes a batch of K points: (K, P) -> (K,))."""
     value_fn, vgrad = stateless(fun, value_and_grad_fn)
     res, _ = minimize_lbfgs_compact_stateful(
         value_fn, vgrad, x0, (), maxiter=maxiter, fobj_thr=fobj_thr,
         no_improve_iters=no_improve_iters, memory_size=memory_size,
-        max_backtracks=max_backtracks, c1=c1,
+        max_backtracks=max_backtracks, c1=c1, batch_linesearch=batch_linesearch,
+        fuse_linesearch_grad=fuse_linesearch_grad,
     )
     return res
 
@@ -426,6 +459,8 @@ def lbfgs_fleet_programs(
         idx = torch.where(any_ok, ok_vec.to(torch.uint8).argmax(-1), torch.full_like(any_ok, k_grid - 1, dtype=torch.long))
         rows = torch.arange(la, device=x.device)
         g_new = g_k.reshape(la, k_grid, p)[rows, idx] if with_grad else None
+        if isinstance(ost, _TrialStates):  # one lane's grid: the accepted trial's state
+            ost = ost[int(idx[0])]
         return steps[idx], f_k[rows, idx], g_new, any_ok, ost
 
     def init(x0: torch.Tensor, obj_state0=()) -> FleetCarry:

@@ -8,6 +8,9 @@ flagship and the driver's dense objective), approximate quantum compiling
 and the multi-start fleets (dense and MPS), and the multi-GPU engines on
 torch.distributed (one process per card).
 
+Five kernel sources are built: jacobi_rows.cu (K1), theta_build.cu (K2),
+rand_tail.cu (K3), fused_pair.cu (K4) and tile_probe.cu (the probe).
+
 Usage:  python3 chip_smoke.py        (from the root of a checkout; one card)
 
 Phases, one line each:
@@ -53,6 +56,15 @@ Phases, one line each:
                 B=14 χ=128 beside its twin, torch.linalg.svd and its own
                 device-memory home (the one-block design that preceded the
                 cluster path) on the same inputs.
+  2d. probes  — the tile-precision probe (ops/tile_probes.py, the Hopper
+                counterpart of the Pallas probes P1 and P2): its entry point
+                tile_probes.main holds csrc/tile_probe.cu (s·(A·B), A·Bᵀ, Aᵀ in
+                the tile scheme of theta_tiles.cuh) and torch.matmul against f64
+                at 1e-5 relative on the probes' inputs (P1: (128, 128), s = 1;
+                P2: a chunk of two pairs read in place, s = 2.5) with TF32
+                asserted off; its two launches are the record's probes path;
+                then the kernel against its twin at both shapes, timed beside
+                the twin and one torch.matmul of both products, with bounds.
   3. slice    — 20 qubits, χ=64, 4-layer Trotter ansatz, trunc 1e-6, Neel
                 prep, target Trotter(1.2, 3 steps, delta 1, 2nd order);
                 perfect init + 0.05 rad perturbation (seed 5); one L-BFGS
@@ -65,6 +77,17 @@ Phases, one line each:
                 point, timed in turns in this process (rand, jacobi, jacobi,
                 rand, twice), then one profiled sweep each: device busy
                 time, idle share, launches, host aten calls.
+  5a. lu20   — the range-finder's LU intermediate (rand_svd._lu_stab) at
+                the 20q case: _lu_stab on the zero-padded pair samples of 128
+                rows on the card (finite; the sample's numerical range inside
+                span(P L) and span(QR) within 1e-4); rand-lu's start objective
+                within 1e-4 of rand-qr's; obj+grad sweeps/s of rand-qr, rand-lu
+                and jacobi in turns (the three, then back; two rounds) with
+                linalg_qr calls per sweep; one profiled sweep of rand-qr and
+                rand-lu (device busy, idle share, heaviest device kernels);
+                one 10-iteration rand-lu horizon
+                held as phase 4's (f64 within TOL_FINAL, no watchdog event).
+                Its launches are the record's lu20 path.
   5b. driver  — the ASP driver users start, time_evol.run_simulation, at
                 20 qubits χ=64 under the default options (route "rand",
                 use_jit_lbfgs resolving to True): horizons at t = 1.2 and
@@ -154,6 +177,16 @@ Phases, one line each:
                 profiled fleet evaluation; K2 and K3 at the folded batch B=40 χ=64 against
                 their twins and timed device-only beside B=10, with bounds.
                 The record's fleet20 path.
+  5g. fleet20cz — the MPS fleet on an ansatz outside the folded-lane
+                family: the 20q case's Trotter layout, cut to 2 layers, with
+                the cz entangler; its target V(θ*)|Neel> planted on the χ=64
+                engine; 4 lanes (θ* + 0.05 N(0,1) from seeds 5..8), maxiter
+                5, route "rand"; the lanes run the one-lane objective one after
+                another; every lane within 1e-4 of its one-lane
+                optimize_horizon_mps_jit run from the same start with equal
+                iterations, and within TOL_FINAL of its f64 re-evaluation on
+                the card; K1-K3 launches and wall times.  The record's
+                fleet20cz path.
   6. slice28 — phase 3 at 28 qubits, χ=128 (BASELINE config 5): the jacobi
                 route runs K4 for every pair update at χ=128 and K1 for the
                 χ-growth heads; the final objective is re-evaluated in c128
@@ -165,6 +198,8 @@ Phases, one line each:
                 off (K1 at 256x256) in turns (rand, jacobi, unfused,
                 unfused, jacobi, rand; 3 sweeps each), then one
                 profiled sweep each.
+  8b. lu28   — phase 5a at 28 qubits (padded samples of 256 rows), without
+                the horizon.
   9. mesh28   — the multi-GPU engines on torch.distributed: one process per
                 card (at most four; one on a one-card machine, where every
                 check runs the sharded code on a group of one), NCCL, the
@@ -407,15 +442,17 @@ def kernel_counters():
     from aqc_research_tpu_torch.ops.fused_pair import fused_pair, theta_build
     from aqc_research_tpu_torch.ops.fused_rand import rand_tail
     from aqc_research_tpu_torch.ops.jacobi_kernel import jacobi_rows
+    from aqc_research_tpu_torch.ops.tile_probes import tile_probe
 
     return {"jacobi_rows": jacobi_rows, "theta_build": theta_build, "rand_tail": rand_tail,
-            "fused_pair": fused_pair}
+            "fused_pair": fused_pair, "tile_probe": tile_probe}
 
 
 def reset_counts() -> None:
     for fn in kernel_counters().values():
         fn.launches = 0
-        fn.launches_at = {}
+        if hasattr(fn, "launches_at"):
+            fn.launches_at = {}
         if hasattr(fn, "launches_home"):
             fn.launches_home = {}
 
@@ -425,8 +462,10 @@ def read_counts() -> dict:
 
 
 def read_counts_at() -> dict:
-    """Launches by pair-matrix size n = 2χ (K1: its row count)."""
-    return {name: dict(sorted(fn.launches_at.items())) for name, fn in kernel_counters().items()}
+    """Launches by pair-matrix size n = 2χ (K1: its row count); the tile
+    probe keeps no such count."""
+    return {name: dict(sorted(fn.launches_at.items())) for name, fn in kernel_counters().items()
+            if hasattr(fn, "launches_at")}
 
 
 def read_counts_home() -> dict:
@@ -1090,17 +1129,22 @@ def phase_rand(case, tag: str):
 @contextmanager
 def route_override(route: str):
     """A route of the timing turns: "rand", "jacobi" (K4 by the auto rule
-    at χ >= 96) or "unfused" (the jacobi route with K4 off: K1 everywhere)."""
+    at χ >= 96), "unfused" (the jacobi route with K4 off: K1 everywhere),
+    or "rand-qr" / "rand-lu" (rand with that range-finder intermediate)."""
     from aqc_research_tpu_torch import config
+    from aqc_research_tpu_torch.ops import rand_svd
 
-    fused = config._FUSED_PAIR
+    fused, intermediate = config._FUSED_PAIR, rand_svd._INTERMEDIATE
     if route == "unfused":
         config.set_fused_pair(False)
+    if route.startswith("rand-"):
+        rand_svd._INTERMEDIATE = route[len("rand-"):]
     try:
-        with config.svd_impl_override("jacobi" if route == "unfused" else route):
+        with config.svd_impl_override({"unfused": "jacobi"}.get(route, route.split("-")[0])):
             yield
     finally:
         config.set_fused_pair(fused)
+        rand_svd._INTERMEDIATE = intermediate
 
 
 def sweep_ms(value_and_grad, case, route: str, calls: int) -> float:
@@ -2222,6 +2266,215 @@ def phase_fleet_mps(dev, card_line: str):
 
 
 
+# The tile-precision probe (ops/tile_probes.py): P1's and P2's shapes.
+TOL_PROBE = 1e-5  # the probes' bar, relative to f64 (TF32 misses it by ~1e-3)
+# [fleet20cz]: the MPS fleet on an ansatz outside the folded-lane family.
+# The Trotter target is out of the cz ansatz's reach from any start the
+# smoke can name (fobj stays near 1 at 20 qubits), so the phase plants its
+# solution: the target is V(θ*)|Neel> of the cz circuit (θ* = 0.3 N(0, 1),
+# seed 4) on the route's χ=64 engine, the lanes start at θ* + 0.05 N(0, 1)
+# (seeds 5..8).  Depth cut from the cell's 4 layers to 2 to keep the
+# phase's four lanes and four one-lane horizons near 40 s.
+CZ_FLEET_MAXITER = 5
+CZ_FLEET_LAYERS = 2
+CZ_FLEET_PLANT, CZ_FLEET_START = 0.3, 0.05
+# [lu20]/[lu28]: the range-finder's intermediates against jacobi, in turns.
+LU_ROUTES = ("rand-qr", "rand-lu", "jacobi")
+TOL_LU_SPAN = 1e-4  # a padded sample's numerical range outside span(P L)
+
+
+def phase_probes(dev, card_line: str):
+    """The tile-precision probe, the Hopper counterpart of the Pallas probes
+    P1 and P2: its entry point (``tile_probes.main``: the kernel and
+    torch.matmul against f64 on the probes' inputs, the precision settings
+    asserted) is the path; then the kernel against its twin and f64 at both
+    shapes, timed beside the twin and one torch.matmul of both products."""
+    from aqc_research_tpu_torch.ops import tile_probes as tp
+
+    reset_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = tp.main([])
+    torch.cuda.synchronize()
+    counts, counts_at, homes = read_counts(), read_counts_at(), read_counts_home()
+    check(rc == 0, f"tile probe: {buf.getvalue()}")
+    check(counts["tile_probe"] == 2, f"tile probe: launches {counts} (one per probe expected)")
+    check(all(v == 0 for k, v in counts.items() if k != "tile_probe"), f"tile probe launched others: {counts}")
+    rows = tp.run_probes(dev)
+    check(all(r["ok"] for r in rows) and max(max(r["rel_err"], r["twin_rel_err"]) for r in rows) < TOL_PROBE,
+          f"tile probe vs f64 / twin: {rows}")
+    stats = []
+    for probe, (a, b, s) in tp.probe_cases(dev).items():
+        c, n = a.shape[0], a.shape[-1]
+        got, twin = tp.tile_probe(a, b, s), tp.tile_probe_reference(a, b, s)
+        err = max(float((g - t).abs().max()) for g, t in zip(got, twin))
+        kern = timings(lambda: tp.tile_probe(a, b, s))
+        plain = median_ms(lambda: tp.tile_probe_reference(a, b, s))
+        right = torch.stack((b, b.transpose(-1, -2)), 1)
+        left = a[:, None]
+        lib = timings(lambda: torch.matmul(left, right))
+        flops, nbytes = c * (4.0 * n**3 + n * n), 4.0 * (2 * c * n * n + 1 + 3 * c * n * n)
+        b_ms, b_by = bound(flops, nbytes)
+        stats.append({"shape": f"{probe}: c={c} n={n}", "max_abs_err": err, **record_times(kern, lib),
+                      "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+                      "library": "one torch.matmul of A against [B, B^T] (both products; no scale, no transpose)",
+                      "rel_err_f64": max(r["rel_err"] for r in rows if r["probe"] == probe),
+                      "matmul_rel_err_f64": max(r["matmul_rel_err"] for r in rows if r["probe"] == probe)})
+    usage = {k: v for k, v in PTXAS.items() if k.startswith("tile_probe")}
+    print(f"[probes] tile_probe (csrc/tile_probe.cu) on P1 (c=1, s=1) and P2 (c=2, s=2.5), n=128 f32: "
+          f"{'; '.join(ln.strip() for ln in buf.getvalue().splitlines())} | path launches {counts} | "
+          + " | ".join(f"{st['shape']}: {fmt(st)}, max |kernel - twin| {st['max_abs_err']:.3g}, plain "
+                       f"{st['plain_ms']:.4f} ms, torch.matmul of both products {st['library_ms']:.4f} ms "
+                       f"device-only ({st['library_call_ms']:.4f} per call), bound {st['bound_ms']:.6f} ms "
+                       f"({st['bound_by']}), rel err vs f64 {st['rel_err_f64']:.2e} (torch.matmul "
+                       f"{st['matmul_rel_err_f64']:.2e})" for st in stats)
+          + f" | ptxas {usage} | {card_line}", flush=True)
+    return (counts, counts_at, homes), {**stats[1], "shapes": [stats[0]]}
+
+
+def phase_fleet_cz(case, card_line: str):
+    """The MPS fleet on a circuit outside the folded-lane family: the
+    20q χ=64 case's Trotter layout with the cz entangler (a plain layered
+    ansatz; CZ_FLEET_* say how it is cut and where its target comes from),
+    4 lanes on the default route; each lane runs the one-lane objective,
+    so it must match its own one-lane horizon."""
+    from aqc_research_tpu_torch import config
+    from aqc_research_tpu_torch.circuit.ansatz import Ansatz
+    from aqc_research_tpu_torch.circuit.structures import make_trotter_like_circuit
+    from aqc_research_tpu_torch.models.sp_lhs import jit_asp
+    from aqc_research_tpu_torch.ops.mps import mps_basis_state, v_mul_mps
+
+    tic_phase = time.perf_counter()
+    config.set_svd_impl(None)
+    base_bits, trunc_thr, chi = (case[k] for k in ("base_bits", "trunc_thr", "chi"))
+    dev = case["target"].device
+    check(config.svd_impl(dev) == "rand", "fleet20cz: the default route on the card is not 'rand'")
+    n = len(base_bits)
+    circ = Ansatz.make(n, "cz", make_trotter_like_circuit(n, CZ_FLEET_LAYERS))
+    check(not jit_asp._layered_eligible(circ), "fleet20cz: the cz ansatz took the folded-lane path")
+    plant = CZ_FLEET_PLANT * np.random.default_rng(4).standard_normal(circ.num_thetas)
+    with torch.no_grad():
+        target = v_mul_mps(circ, torch.tensor(plant, dtype=torch.float32, device=dev),
+                           mps_basis_state(base_bits, chi, torch.complex64, dev), trunc_thr=trunc_thr)
+    xs = torch.tensor(np.stack([plant + CZ_FLEET_START * np.random.default_rng(s).standard_normal(circ.num_thetas)
+                                for s in MPS_FLEET_SEEDS]), dtype=torch.float32, device=dev)
+    reset_counts()
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    res = jit_asp.optimize_horizon_mps_multistart(circ, xs, target, base_bits=base_bits, trunc_thr=trunc_thr,
+                                                  maxiter=CZ_FLEET_MAXITER)
+    torch.cuda.synchronize()
+    fleet_s = time.perf_counter() - tic
+    counts, counts_at, homes = read_counts(), read_counts_at(), read_counts_home()
+    for name in ("theta_build", "rand_tail"):
+        check(counts[name] > 0, f"fleet20cz: the fleet never launched {name}: {counts}")
+    fobj = res.fobj.cpu().numpy()
+    value, _ = jit_asp._mps_value_fns(circ, base_bits, trunc_thr)
+    with torch.no_grad():
+        f_start = np.array([float(value(x, target)) for x in xs])
+    check(bool(np.all(np.isfinite(fobj) & (fobj < f_start))),
+          f"fleet20cz: a lane did not lower fobj: {f_start.tolist()} -> {fobj.tolist()}")
+    tic = time.perf_counter()
+    f64 = np.array([f64_objective(circ, th, target, base_bits, trunc_thr, dev) for th in res.thetas])
+    check_s = time.perf_counter() - tic
+    gaps = np.abs(f64 - fobj)
+    check(float(gaps.max()) <= TOL_FINAL, f"fleet20cz: lanes' fobj {fobj.tolist()} vs f64 {f64.tolist()}")
+    tic = time.perf_counter()
+    ones = [jit_asp.optimize_horizon_mps_jit(circ, x, target, base_bits=base_bits, trunc_thr=trunc_thr,
+                                             maxiter=CZ_FLEET_MAXITER) for x in xs]
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - tic
+    lane_gaps = [abs(float(o.fobj) - float(f)) for o, f in zip(ones, fobj)]
+    check(max(lane_gaps) <= TOL_LANE and [o.num_iters for o in ones] == res.num_iters.tolist(),
+          f"fleet20cz: lanes {fobj.tolist()} ({res.num_iters.tolist()} iters) vs one-lane horizons "
+          f"{[float(o.fobj) for o in ones]} ({[o.num_iters for o in ones]} iters)")
+    print(f"[fleet20cz] {n}q chi={chi} {CZ_FLEET_LAYERS}-layer Trotter layout with the cz entangler "
+          f"({circ.num_thetas} thetas, lanes evaluated one after another), target V(theta*)|Neel> (theta* "
+          f"{CZ_FLEET_PLANT} N(0,1), seed 4), {len(MPS_FLEET_SEEDS)} lanes (theta* + {CZ_FLEET_START} N(0,1), "
+          f"seeds {list(MPS_FLEET_SEEDS)}), maxiter {CZ_FLEET_MAXITER}, route "
+          f"{config.svd_impl(dev)}: fleet {fleet_s:.2f} s ({fleet_s / max(int(res.num_iters.max()), 1):.3f} s/iter, "
+          f"iters {res.num_iters.tolist()}), fobj {', '.join(f'{f:.6g}' for f in fobj)} from "
+          f"{', '.join(f'{f:.6g}' for f in f_start)}; f64 on the card max gap {gaps.max():.2e} ({check_s:.1f} s) | "
+          f"one-lane horizons {single_s:.2f} s, max lane gap {max(lane_gaps):.1e}, iters equal | launches (fleet "
+          f"run) {counts} (by n: {counts_at}) | phase wall {time.perf_counter() - tic_phase:.1f} s | {card_line}",
+          flush=True)
+    return counts, counts_at, homes
+
+
+def lu_padded_check(dev, n: int, batch: int, rank: int) -> str:
+    """_lu_stab on zero-padded pair samples on the card: finite, and the
+    sample's numerical range inside span(P L) and span(QR) alike."""
+    from aqc_research_tpu_torch.kernel_checks import padded_pair_batch
+    from aqc_research_tpu_torch.ops import rand_svd
+
+    ell = rand_svd.rand_ell(n, n // 2)
+    pad = padded_pair_batch(np.random.default_rng(n + rank), batch, n, rank).to(dev)
+    y = torch.matmul(pad, rand_svd.sketch(batch, n, ell, pad.dtype, dev))
+    pl, q = rand_svd._lu_stab(y), rand_svd._orth(y)
+    check(bool(torch.isfinite(torch.view_as_real(pl)).all()), f"_lu_stab: non-finite on padded pairs of {n} rows")
+    u, s, _ = torch.linalg.svd(y.to(torch.complex128), full_matrices=False)
+    ur = u[..., : int((s > 1e-5 * s[..., :1]).sum(-1).max())]
+    resid = {}
+    for label, basis in (("lu", pl), ("qr", q)):
+        qb = torch.linalg.qr(basis.to(torch.complex128))[0]
+        resid[label] = float((ur - qb @ (qb.conj().transpose(-1, -2) @ ur)).abs().max())
+    check(max(resid.values()) <= TOL_LU_SPAN, f"_lu_stab on padded pairs of {n} rows: range outside the basis {resid}")
+    return (f"_lu_stab on {batch}x{n}x{ell} padded samples (rank {2 * rank}): finite, max |l| "
+            f"{float(pl.abs().max()):.3f}, range residual lu {resid['lu']:.1e} / qr {resid['qr']:.1e}")
+
+
+def phase_lu(case, tag: str, calls: int, horizon: bool):
+    """The range-finder's LU intermediate at one path configuration:
+    _lu_stab on padded pair samples; the start objective of rand-lu against
+    rand-qr; obj+grad sweeps/s of rand-qr, rand-lu and jacobi in turns over
+    two rounds, with linalg_qr calls per sweep, and one profiled sweep of
+    each rand intermediate; with ``horizon`` one
+    10-iteration rand-lu horizon held against f64.  Returns the horizon's
+    launches (None without it)."""
+    from aqc_research_tpu_torch.models.sp_lhs import jit_asp
+
+    tic_phase = time.perf_counter()
+    dev = case["target"].device
+    chi = case["chi"]
+    pad = lu_padded_check(dev, 2 * chi, BATCH if chi == PATH_CHI else PATH28_BATCH, 4 if chi == PATH_CHI else PAD_RANK)
+    value, value_and_grad = jit_asp._mps_value_fns(case["circ"], case["base_bits"], case["trunc_thr"])
+    start = {}
+    for route in ("rand-qr", "rand-lu"):
+        with route_override(route), torch.no_grad():
+            start[route] = float(value(case["x0"], case["target"]))
+    check(abs(start["rand-lu"] - start["rand-qr"]) <= TOL_ROUTES, f"{tag}: start objective {start}")
+    walls = {route: [] for route in LU_ROUTES}
+    order = 2 * (LU_ROUTES + LU_ROUTES[::-1])
+    for k, route in enumerate(LU_ROUTES + order):  # a warm-up sweep each, then the turns
+        ms = sweep_ms(value_and_grad, case, route, 1 if k < len(LU_ROUTES) else calls)
+        if k >= len(LU_ROUTES):
+            walls[route].append(ms)
+    qr_calls = {}
+    for route in LU_ROUTES:
+        with route_override(route), torch.no_grad():
+            qr_calls[route] = count_qr_calls(lambda: value_and_grad(case["x0"], case["target"]))
+    check(qr_calls["jacobi"] == 0 and 0 < qr_calls["rand-lu"] < qr_calls["rand-qr"], f"{tag}: linalg_qr {qr_calls}")
+    profiles = {route: profile_sweep(value_and_grad, case, route) for route in LU_ROUTES[:2]}
+    launches = None
+    hline = ""
+    if horizon:
+        with route_override("rand-lu"):
+            line, launches, launches_at, launches_home = run_horizon(case, "rand-lu")
+        launches = (launches, launches_at, launches_home)
+        hline = f" | rand-lu horizon: {line}"
+    rates = " || ".join(f"{route}: {' / '.join(f'{1e3 / w:.3f}' for w in walls[route])} sweeps/s, "
+                        f"{qr_calls[route]} linalg_qr per sweep" for route in LU_ROUTES)
+    profs = " || ".join(
+        f"{route}: {p['wall_ms']:.1f} ms wall, device busy {p['busy_ms']:.1f} ms (idle {p['idle']:.1%}), "
+        f"{p['aten_calls']} aten calls; top device: {', '.join(f'{k} {ms:.1f} ms x{n}' for k, ms, n in p['top'][:4])}"
+        for route, p in profiles.items())
+    print(f"[{tag}] {case['about']} | {pad} | start fobj rand-qr {start['rand-qr']:.7g} rand-lu "
+          f"{start['rand-lu']:.7g} | obj+grad in turns ({', '.join(order[:3])}, then back; two rounds), {calls} "
+          f"sweeps each: {rates} | one profiled sweep each: {profs}{hline} | phase wall "
+          f"{time.perf_counter() - tic_phase:.1f} s", flush=True)
+    return launches
+
+
 MESH_WORLD_MAX = 4  # ranks of the mesh28 phase: one per card, at most four
 MESH_TIMEOUT_S = 420.0  # a collective that waits this long fails; the phase's deadline
 MESH_CHAIN20_MAXITER = 10
@@ -2552,6 +2805,8 @@ KERNELS = (
      "aqc_research_tpu/ops/fused_rand.py:164", "rand20"),
     ("fused_pair", "aqc_research_tpu_torch/csrc/fused_pair.cu",
      "aqc_research_tpu/ops/fused_pair.py:238", "jacobi28"),
+    ("tile_probe", "aqc_research_tpu_torch/csrc/tile_probe.cu",
+     "benchmarks/probe_mosaic_precision.py:40; benchmarks/probe_mosaic_ops.py:47", "probes"),
 )
 
 
@@ -2569,22 +2824,26 @@ def main() -> int:
         stats["theta_build"], stats["rand_tail"] = phase_rand_kernels(dev)
         stats["fused_pair"] = phase_fused(dev)
         paths = {}
+        paths["probes"], stats["tile_probe"] = phase_probes(dev, card_line)
         case20 = make_case(dev, 20, PATH_CHI, maxiter=10, f64_device="cpu")
         paths["jacobi20"] = phase_slice(case20, "slice")
         paths["rand20"] = phase_rand(case20, "rand")
         phase_routes(case20, "routes", ("rand", "jacobi"), repeats=1, calls=5)
+        paths["lu20"] = phase_lu(case20, "lu20", calls=3, horizon=True)
         paths["driver20"] = phase_driver()
         paths["host20"] = phase_host(card_line, dev)
         paths["dense12"] = phase_dense(dev)
         paths["aqc5"] = phase_aqc(dev)
         paths["fleet12"] = phase_fleet_dense(dev)
         paths["fleet20"], folded = phase_fleet_mps(dev, card_line)
+        paths["fleet20cz"] = phase_fleet_cz(case20, card_line)
         for name in ("theta_build", "rand_tail"):
             stats[name]["shapes"].append(folded[name])
         case = make_case(dev, 28, PATH28_CHI, maxiter=10, f64_device=dev)
         paths["jacobi28"] = phase_slice(case, "slice28")
         paths["rand28"] = phase_rand(case, "rand28")
         phase_routes(case, "routes28", ("rand", "jacobi", "unfused"), repeats=1, calls=3)
+        phase_lu(case, "lu28", calls=2, horizon=False)
         paths["mesh28"] = phase_mesh28(case, case20)
     except (SmokeFailure, ImportError, RuntimeError, ValueError) as exc:
         print(f"chip_smoke: FAILED: {type(exc).__name__}: {exc}", file=sys.stderr)
@@ -2592,12 +2851,13 @@ def main() -> int:
     print(f"[wall] {time.perf_counter() - tic:.1f} s from the device phase to the last check", flush=True)
     # Each kernel's launches come from the path it belongs to (K1 the 20q
     # jacobi horizon, K2 and K3 the 20q rand horizon, K4 the 28q jacobi
-    # horizon); every path's counts, in total, by pair size n = 2χ and (K1,
-    # K3) by plane home, are in launches_per_path.
+    # horizon, the tile probe its entry point); every path's counts, in
+    # total, by pair size n = 2χ and (K1, K3) by plane home, are in
+    # launches_per_path.
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": paths[own][0][name],
-         "launches_per_path": {path: {"total": counts[name], "by_n": counts_at[name],
+         "launches_per_path": {path: {"total": counts[name], "by_n": counts_at.get(name, {}),
                                       **({"by_home": homes[name]} if name in homes else {})}
                                for path, (counts, counts_at, homes) in paths.items()},
          **stats[name]}

@@ -18,7 +18,12 @@ float64 / complex128: the same numpy-seeded starts go through
 * ``optimize_horizon_multistart`` at the sizes of tests/test_jit_asp.py and
   ``optimize_horizon_mps_multistart`` at n = 3 χ = 8 and n = 6 χ = 16 on
   the "native" route: per-lane fobj within 1e-8, the same ``num_iters``;
-  a wrong ``base_bits`` raises ValueError.
+  a wrong ``base_bits`` raises ValueError;
+* the MPS fleet on the ansatze whose engine paths take no lane axis (the
+  lanes evaluated one after another): a cz entangler on the Trotter
+  layout, a plain layered cp ansatz and a per-gate cz layout, at n = 5
+  χ = 8 on "native": every lane's θ and fobj within 1e-8 of the JAX
+  fleet's, the same ``num_iters``.
 """
 
 import jax
@@ -29,13 +34,15 @@ import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from aqc_research_tpu.circuit.ansatz import Ansatz as JAnsatz
 from aqc_research_tpu.circuit.ansatz import TrotterAnsatz as JTrotterAnsatz
-from aqc_research_tpu.circuit.structures import make_trotter_like_circuit
+from aqc_research_tpu.circuit.structures import create_ansatz_structure, make_trotter_like_circuit
 from aqc_research_tpu.models.sp_lhs import jit_asp as jja
 from aqc_research_tpu.optim import lbfgs as jlbfgs
 from aqc_research_tpu.parallel import multistart as jms
 from aqc_research_tpu.targets import trotter as jtrot
-from aqc_research_tpu_torch import config
+from aqc_research_tpu.utils import rand_circuit
+from aqc_research_tpu_torch import config, interop
 from aqc_research_tpu_torch.circuit.ansatz import TrotterAnsatz
 from aqc_research_tpu_torch.models.sp_lhs import jit_asp as tja
 from aqc_research_tpu_torch.ops.mps import MPS
@@ -274,3 +281,35 @@ def test_optimize_horizon_mps_multistart_matches_jax(n, chi, layers):
     np.testing.assert_array_equal(tres.num_iters, np.asarray(jres.num_iters))
     with pytest.raises(ValueError, match="base_bits"):
         tja.optimize_horizon_mps_multistart(tc, batch, tt, base_bits=(1, 0), maxiter=1)
+
+
+def _other_ansatz(kind: str, n: int):
+    if kind == "cz-trotter":
+        return JAnsatz.make(n, "cz", make_trotter_like_circuit(n, 2))
+    if kind == "cp-plain":
+        return JAnsatz.make(n, "cp", np.concatenate([create_ansatz_structure(n, "spin", "full", 2)] * 2, axis=1))
+    np.random.seed(3)
+    return JAnsatz.make(n, "cz", rand_circuit(n, 4))
+
+
+@pytest.mark.parametrize("kind", ["cz-trotter", "cp-plain", "cz-pergate"])
+def test_optimize_horizon_mps_multistart_on_every_ansatz(kind):
+    """The fleet on circuits outside the layered cx family: each lane runs
+    the one-lane objective, so it follows the JAX fleet's vmapped lane."""
+    n, chi = 5, 8
+    ini = jtrot.neel_init_state(n)
+    jt = jtrot.Trotter(num_qubits=n, evol_time=0.6, num_steps=20, delta=1.0, second_order=True).as_mps(
+        ini, trunc_thr=1e-12, chi_max=chi)
+    tt = MPS(torch.tensor(np.array(jt.gammas)), torch.tensor(np.array(jt.lambdas)))
+    jc = _other_ansatz(kind, n)
+    tc = interop.ansatz_from_args(interop.ansatz_args(jc))
+    assert not tja._layered_eligible(tc)
+    batch = 0.3 * np.random.default_rng(7).standard_normal((3, jc.num_thetas))
+    bits = tuple(1 if k % 2 == 0 else 0 for k in range(n))
+    jres = jja.optimize_horizon_mps_multistart(jc, batch, jt, base_bits=bits, trunc_thr=1e-10, maxiter=8)
+    with config.svd_impl_override("native"):
+        tres = tja.optimize_horizon_mps_multistart(tc, batch, tt, base_bits=bits, trunc_thr=1e-10, maxiter=8)
+    np.testing.assert_allclose(tres.thetas.numpy(), np.asarray(jres.thetas), rtol=0, atol=TOL_RUN)
+    np.testing.assert_allclose(tres.fobj.numpy(), np.asarray(jres.fobj), rtol=0, atol=TOL_RUN)
+    np.testing.assert_array_equal(tres.num_iters, np.asarray(jres.num_iters))
+    assert np.all(tres.fobj.numpy() < 1.0)

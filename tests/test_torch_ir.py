@@ -265,6 +265,7 @@ def test_port_import_leaves_jax_out():
         "aqc_research_tpu_torch.io.native",
         "aqc_research_tpu_torch.utils.profiling",
         "aqc_research_tpu_torch.ops.svd_gram",
+        "aqc_research_tpu_torch.ops.tile_probes",
         "chip_smoke",
     ]
     code = "import sys\n" + "".join(f"import {m}\n" for m in modules) + (

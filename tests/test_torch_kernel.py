@@ -450,3 +450,25 @@ def test_fused_route_pair_update_agrees_with_native_on_card(cuda_device):
                 before[0] + (route == "jacobi"), before[1])
     np.testing.assert_allclose(out["jacobi"], out["native"], atol=1e-4)
     assert abs(np.vdot(out["jacobi"], out["native"])) >= 1 - 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, batch, rank", [(128, 10, 4), (256, 14, 20)])
+def test_lu_stab_handles_padded_pair_samples_on_card(cuda_device, n, batch, rank):
+    """The range-finder's LU intermediate on the zero-padded pair samples
+    where torch's batched CUDA QR returns NaN: P L is finite, keeps the
+    sample's numerical range, and the projection with LU between the power
+    legs gives B's singular values as LAPACK's QR route on the host does."""
+    a = padded_pair_batch(np.random.default_rng(n + rank), batch, n, rank)
+    ell = trs.rand_ell(n, n // 2)
+    y = torch.matmul(a.to(cuda_device), trs.sketch(batch, n, ell, a.dtype, cuda_device))
+    pl = trs._lu_stab(y)
+    assert bool(torch.isfinite(torch.view_as_real(pl)).all())
+    u, s, _ = torch.linalg.svd(y.cpu().to(torch.complex128), full_matrices=False)
+    ur = u[..., : int((s > 1e-5 * s[..., :1]).sum(-1).max())]
+    q = torch.linalg.qr(pl.cpu().to(torch.complex128))[0]
+    assert float((ur - q @ (q.conj().transpose(-1, -2) @ ur)).abs().max()) <= 1e-4
+    got = trs._range_project(a.to(cuda_device), ell, trs._POWER_ITERS, intermediate="lu").cpu()
+    want = trs._range_project(a, ell, trs._POWER_ITERS, intermediate="qr")
+    s_got, s_want = torch.linalg.svdvals(got), torch.linalg.svdvals(want)
+    assert float((s_got - s_want).abs().max()) <= 1e-5 * float(s_want.max())
