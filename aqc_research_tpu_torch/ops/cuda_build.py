@@ -55,6 +55,8 @@ _SIGNATURES = {
     "fused_pair_cluster_occupancy": ([_CI, _CI], _CI),
     # a, b, scale, o_dot, o_dgt, o_tr, batch, n, a_stride, b_stride, stream
     "tile_probe_launch": ([_VP] * 6 + [_CI] * 2 + [ctypes.c_longlong] * 2 + [_VP], _CI),
+    # the same, then passes (3: split 3xTF32, 1: one TF32 pass), stream
+    "tile_probe_tc_launch": ([_VP] * 6 + [_CI] * 2 + [ctypes.c_longlong] * 2 + [_CI, _VP], _CI),
     "aqc_max_smem_optin": ([_CI], _CI),
     "aqc_error_string": ([_CI], ctypes.c_char_p),
 }

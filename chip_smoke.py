@@ -58,13 +58,21 @@ Phases, one line each:
                 cluster path) on the same inputs.
   2d. probes  — the tile-precision probe (ops/tile_probes.py, the Hopper
                 counterpart of the Pallas probes P1 and P2): its entry point
-                tile_probes.main holds csrc/tile_probe.cu (s·(A·B), A·Bᵀ, Aᵀ in
-                the tile scheme of theta_tiles.cuh) and torch.matmul against f64
-                at 1e-5 relative on the probes' inputs (P1: (128, 128), s = 1;
-                P2: a chunk of two pairs read in place, s = 2.5) with TF32
-                asserted off; its two launches are the record's probes path;
-                then the kernel against its twin at both shapes, timed beside
-                the twin and one torch.matmul of both products, with bounds.
+                tile_probes.main runs csrc/tile_probe.cu (s·(A·B), A·Bᵀ, Aᵀ)
+                in three modes on the probes' inputs (P1: (128, 128), s = 1;
+                P2: a chunk of two pairs read in place, s = 2.5), TF32
+                asserted off for torch.matmul: "fma" (the tile scheme of
+                theta_tiles.cuh) and "highest" (wgmma in split 3xTF32) within
+                1e-5 of f64, "default" (one TF32 pass) outside 1e-5 and under
+                1e-2; its six launches are the record's probes path.  Then
+                every mode against its twin and f64 at P1, P2 and the path's
+                θ planes (c, n) = (10, 128) and (14, 256): device-only and
+                per-call ms, the twin's ms, bounds on the f32 CUDA cores and
+                on the tensor cores (495 TFLOP/s × passes, and the function's
+                own 4n³ flop), torch.matmul with TF32 off and on; HGMMA per
+                kernel in the SASS (cuobjdump), ptxas.  The record's
+                tile_probe entry is the CUDA-core kernel ("fma") at P2 and
+                tile_probe_tc the tensor-core one ("highest") at P2.
   3. slice    — 20 qubits, χ=64, 4-layer Trotter ansatz, trunc 1e-6, Neel
                 prep, target Trotter(1.2, 3 steps, delta 1, 2nd order);
                 perfect init + 0.05 rad perturbation (seed 5); one L-BFGS
@@ -317,6 +325,7 @@ TOL_HOST_G = 1e-3  # relative l2
 # HBM3 bandwidth (NVIDIA's data sheet, at the 700 W limit).
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+PEAK_TF32_FLOPS = 495e12  # tensor cores, dense TF32 (the same data sheet)
 EPS32 = float(np.finfo(np.float32).eps)
 
 
@@ -329,9 +338,10 @@ def check(cond: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
-def bound(flops: float, nbytes: float):
-    """(bound_ms, bound_by): the least time of the work on the card."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+def bound(flops: float, nbytes: float, peak_flops: float = PEAK_F32_FLOPS):
+    """(bound_ms, bound_by): the least time of the work on the card, its
+    operations at ``peak_flops`` (f32 on the CUDA cores by default)."""
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -451,6 +461,8 @@ def kernel_counters():
 def reset_counts() -> None:
     for fn in kernel_counters().values():
         fn.launches = 0
+        if hasattr(fn, "launches_by_kernel"):
+            fn.launches_by_kernel = dict.fromkeys(fn.launches_by_kernel, 0)
         if hasattr(fn, "launches_at"):
             fn.launches_at = {}
         if hasattr(fn, "launches_home"):
@@ -458,7 +470,12 @@ def reset_counts() -> None:
 
 
 def read_counts() -> dict:
-    return {name: fn.launches for name, fn in kernel_counters().items()}
+    """Launches per kernel: a wrapper of two kernels (the tile probe's) by
+    its per-kernel counts."""
+    counts = {}
+    for name, fn in kernel_counters().items():
+        counts.update(getattr(fn, "launches_by_kernel", {name: fn.launches}))
+    return counts
 
 
 def read_counts_at() -> dict:
@@ -474,6 +491,17 @@ def read_counts_home() -> dict:
             if hasattr(fn, "launches_home")}
 
 
+def kernel_label(mangled: str):
+    """A kernel's name with its integer and bool template arguments, from
+    its mangled name: "tile_probe_tc_kernel<3>"; None if it is no
+    ``*_kernel``."""
+    m = re.search(r"([a-z_]+_kernel)(?:I((?:L[a-z]\d+E)+)E)?", mangled)
+    if m is None:
+        return None
+    args = re.findall(r"L[a-z](\d+)E", m.group(2) or "")
+    return m.group(1) + (f"<{','.join(args)}>" if args else "")
+
+
 def ptxas_usage(report: str) -> dict:
     """Registers and spill bytes per kernel from the build's ``-Xptxas -v``
     report: {"theta_build_kernel<32>": "40 regs, spill 0/0 B", ...}."""
@@ -481,8 +509,7 @@ def ptxas_usage(report: str) -> dict:
     for ln in report.splitlines():
         named = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", ln)
         if named:
-            m = re.search(r"([a-z_]+_kernel)(?:IL[a-z](\d+)E)?", named.group(1))
-            current = None if m is None else m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+            current = kernel_label(named.group(1))
             continue
         if current is None:
             continue
@@ -496,6 +523,46 @@ def ptxas_usage(report: str) -> dict:
 
 
 PTXAS: dict = {}
+
+
+def ptxas_remarks(report: str) -> dict:
+    """ptxas's numbered remarks per kernel label, e.g. {"tile_probe_tc_kernel<3>":
+    ["C7518"]} (C751x: wgmma serialized or waits injected)."""
+    out: dict = {}
+    for ln in report.splitlines():
+        code = re.search(r"\((C\d+)\)", ln)
+        named = re.search(r"function '?(\w+)", ln)
+        label = kernel_label(named.group(1)) if code and named else None
+        if label is not None:
+            out.setdefault(label, set()).add(code.group(1))
+    return {k: sorted(v) for k, v in out.items()}
+
+
+def sass_op_counts(sass: str, opcode: str) -> dict:
+    """Instructions of ``opcode`` (e.g. HGMMA) per kernel label in
+    ``cuobjdump -sass`` output."""
+    counts, current = {}, None
+    for ln in sass.splitlines():
+        named = re.search(r"Function : (\S+)", ln)
+        if named:
+            current = kernel_label(named.group(1))
+            if current is not None:
+                counts.setdefault(current, 0)
+            continue
+        if current is not None and re.search(rf"\b{opcode}\b", ln):
+            counts[current] += 1
+    return counts
+
+
+def library_sass_counts(lib, opcode: str):
+    """:func:`sass_op_counts` of the built kernel library, or None where the
+    toolkit has no ``cuobjdump``."""
+    tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
+                                                     "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, timeout=300, check=True)
+    return sass_op_counts(out.stdout, opcode)
 
 
 def phase_device():
@@ -2266,8 +2333,12 @@ def phase_fleet_mps(dev, card_line: str):
 
 
 
-# The tile-precision probe (ops/tile_probes.py): P1's and P2's shapes.
+# The tile-precision probe (ops/tile_probes.py): P1's and P2's shapes, and
+# the θ planes that K2 (and K4) multiply on the path, (c, n) = (B, 2χ):
+# 10 pairs at 20q χ=64 and 14 at 28q χ=128 (PERF.md §6).
 TOL_PROBE = 1e-5  # the probes' bar, relative to f64 (TF32 misses it by ~1e-3)
+PROBE_PATH_SHAPES = (("K2 20q chi=64", 10, 128), ("K2/K4 28q chi=128", 14, 256))
+PROBE_PATH_SEED = 12
 # [fleet20cz]: the MPS fleet on an ansatz outside the folded-lane family.
 # The Trotter target is out of the cz ansatz's reach from any start the
 # smoke can name (fobj stays near 1 at 20 qubits), so the phase plants its
@@ -2283,14 +2354,92 @@ LU_ROUTES = ("rand-qr", "rand-lu", "jacobi")
 TOL_LU_SPAN = 1e-4  # a padded sample's numerical range outside span(P L)
 
 
+@contextmanager
+def tf32_matmul():
+    """cuBLAS's TF32 for float32 products inside the scope (the "default"
+    mode's yardstick); the port's full-f32 setting restored and asserted
+    after it."""
+    from aqc_research_tpu_torch import config
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        config.require_full_f32_matmul()
+
+
+def probe_shape_stats(tp, label: str, a, b, s) -> list:
+    """Every mode of the tile probe at one shape: the kernel against its
+    twin and f64 (checked), device-only and per-call ms, the twin's ms, the
+    CUDA-core and tensor-core bounds (the latter with the passes' flop and
+    with the function's own), both torch.matmul yardsticks."""
+    c, n = a.shape[0], a.shape[-1]
+    refs = tp.f64_results(a, b, s)
+    right, left = torch.stack((b, b.transpose(-1, -2)), 1), a[:, None]
+    matmul = timings(lambda: torch.matmul(left, right))
+    with tf32_matmul():
+        matmul_tf32 = timings(lambda: torch.matmul(left, right))
+    flops, nbytes = c * (4.0 * n**3 + n * n), 4.0 * (2 * c * n * n + 1 + 3 * c * n * n)
+    f32_ms, f32_by = bound(flops, nbytes)
+    work_ms, work_by = bound(flops, nbytes, PEAK_TF32_FLOPS)  # the function's flop on the tensor cores
+    stats = []
+    for precision in tp.PRECISIONS:
+        passes = tp.TC_PASSES.get(precision)
+        tc_ms, tc_by = bound((passes or 3) * c * 4.0 * n**3, nbytes, PEAK_TF32_FLOPS)
+        got = tp.tile_probe(a, b, s, precision)
+        twin = tp.tile_probe_reference(a, b, s, precision)
+        errs = {
+            "rel_err_f64": max(tp.rel_err(g, r) for g, r in zip(got[:2], refs[:2])),
+            "twin_rel_err": max(tp.rel_err(g, t.double().cpu().numpy()) for g, t in zip(got[:2], twin[:2])),
+            "max_abs_err": max(float((g - t).abs().max()) for g, t in zip(got, twin)),
+            "transpose_exact": bool(torch.equal(got[2], twin[2])),
+        }
+        err = errs["rel_err_f64"]
+        meets = (TOL_PROBE < err < tp.TF32_CEILING) if precision == "default" else err <= TOL_PROBE
+        check(meets and errs["twin_rel_err"] <= tp.TWIN_TOL and errs["transpose_exact"],
+              f"tile probe {label} [{precision}]: {errs}")
+        kern = timings(lambda: tp.tile_probe(a, b, s, precision))
+        plain = median_ms(lambda: tp.tile_probe_reference(a, b, s, precision))
+        own_ms, own_by = (tc_ms, tc_by) if passes else (f32_ms, f32_by)
+        entry = {"shape": f"{label}: c={c} n={n}", "precision": precision, **errs,
+                 **record_times(kern, matmul_tf32 if precision == "default" else matmul),
+                 "plain_ms": plain, "bound_ms": own_ms, "bound_by": own_by, "x_bound": kern["ms"] / own_ms,
+                 "bound_f32_ms": f32_ms, "bound_f32_by": f32_by,
+                 "bound_tc_ms": tc_ms, "bound_tc_by": tc_by, "tc_passes": passes or 3,
+                 "bound_work_ms": work_ms, "bound_work_by": work_by, "x_bound_work": kern["ms"] / work_ms,
+                 "matmul_ms": matmul["ms"], "matmul_call_ms": matmul["call_ms"],
+                 "matmul_tf32_ms": matmul_tf32["ms"], "matmul_tf32_call_ms": matmul_tf32["call_ms"],
+                 "library": "one torch.matmul of A against [B, B^T] (both products; no scale, no transpose), "
+                            + ("TF32 on" if precision == "default" else "TF32 off")}
+        stats.append(entry)
+    return stats
+
+
+def fmt_probe(st: dict) -> str:
+    line = (f"{st['shape']} [{st['precision']}]: {fmt(st)}, rel err vs f64 {st['rel_err_f64']:.2e}, vs twin "
+            f"{st['twin_rel_err']:.2e}, plain {st['plain_ms']:.4f} ms, bounds {st['bound_f32_ms']:.6f} ms f32 "
+            f"CUDA cores ({st['bound_f32_by']}) / {st['bound_tc_ms']:.6f} ms tensor cores x{st['tc_passes']} "
+            f"({st['bound_tc_by']}), x{st['x_bound']:.1f} its own; the function's 4n^3 flop on the tensor "
+            f"cores {st['bound_work_ms']:.6f} ms ({st['bound_work_by']}), x{st['x_bound_work']:.1f}; "
+            f"torch.matmul {st['matmul_ms']:.4f} ms TF32 off / {st['matmul_tf32_ms']:.4f} ms TF32 on")
+    return line
+
+
 def phase_probes(dev, card_line: str):
     """The tile-precision probe, the Hopper counterpart of the Pallas probes
-    P1 and P2: its entry point (``tile_probes.main``: the kernel and
-    torch.matmul against f64 on the probes' inputs, the precision settings
-    asserted) is the path; then the kernel against its twin and f64 at both
-    shapes, timed beside the twin and one torch.matmul of both products."""
+    P1 and P2: its entry point (``tile_probes.main``: every mode's kernel
+    and torch.matmul against f64 on the probes' inputs, the precision
+    settings asserted) is the path; then every mode's kernel against its
+    twin and f64 at the probes' shapes and at the θ planes of the path,
+    timed beside the twin and both torch.matmul yardsticks, with both
+    bounds; the tensor-core kernel's HGMMA count in its SASS.  Returns the
+    path's counts and the record's ``tile_probe`` ("fma" at P2) and
+    ``tile_probe_tc`` ("highest" at P2) entries, every other shape and mode
+    of each kernel under ``shapes``."""
+    from aqc_research_tpu_torch.ops import cuda_build
     from aqc_research_tpu_torch.ops import tile_probes as tp
 
+    tic = time.perf_counter()
     reset_counts()
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -2298,38 +2447,43 @@ def phase_probes(dev, card_line: str):
     torch.cuda.synchronize()
     counts, counts_at, homes = read_counts(), read_counts_at(), read_counts_home()
     check(rc == 0, f"tile probe: {buf.getvalue()}")
-    check(counts["tile_probe"] == 2, f"tile probe: launches {counts} (one per probe expected)")
-    check(all(v == 0 for k, v in counts.items() if k != "tile_probe"), f"tile probe launched others: {counts}")
+    want = {"tile_probe": 2, "tile_probe_tc": 4}  # P1 and P2: "fma"; "highest" and "default"
+    check(all(counts[k] == v for k, v in want.items()),
+          f"tile probe: launches {counts} ({want} expected: every mode, P1 and P2)")
+    check(all(v == 0 for k, v in counts.items() if k not in want), f"tile probe launched others: {counts}")
     rows = tp.run_probes(dev)
-    check(all(r["ok"] for r in rows) and max(max(r["rel_err"], r["twin_rel_err"]) for r in rows) < TOL_PROBE,
-          f"tile probe vs f64 / twin: {rows}")
-    stats = []
-    for probe, (a, b, s) in tp.probe_cases(dev).items():
-        c, n = a.shape[0], a.shape[-1]
-        got, twin = tp.tile_probe(a, b, s), tp.tile_probe_reference(a, b, s)
-        err = max(float((g - t).abs().max()) for g, t in zip(got, twin))
-        kern = timings(lambda: tp.tile_probe(a, b, s))
-        plain = median_ms(lambda: tp.tile_probe_reference(a, b, s))
-        right = torch.stack((b, b.transpose(-1, -2)), 1)
-        left = a[:, None]
-        lib = timings(lambda: torch.matmul(left, right))
-        flops, nbytes = c * (4.0 * n**3 + n * n), 4.0 * (2 * c * n * n + 1 + 3 * c * n * n)
-        b_ms, b_by = bound(flops, nbytes)
-        stats.append({"shape": f"{probe}: c={c} n={n}", "max_abs_err": err, **record_times(kern, lib),
-                      "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-                      "library": "one torch.matmul of A against [B, B^T] (both products; no scale, no transpose)",
-                      "rel_err_f64": max(r["rel_err"] for r in rows if r["probe"] == probe),
-                      "matmul_rel_err_f64": max(r["matmul_rel_err"] for r in rows if r["probe"] == probe)})
+    check(all(r["ok"] for r in rows), f"tile probe vs f64 / twin: {rows}")
+    cases = dict(tp.probe_cases(dev))
+    rng = np.random.default_rng(PROBE_PATH_SEED)
+    for label, c, n in PROBE_PATH_SHAPES:
+        a, b = (torch.tensor(rng.standard_normal((c, n, n)).astype(np.float32), device=dev) for _ in range(2))
+        cases[label] = (a, b, torch.full((1,), tp.PROBE_SCALE, dtype=torch.float32, device=dev))
+    stats = [st for label, (a, b, s) in cases.items() for st in probe_shape_stats(tp, label, a, b, s)]
+    lib = cuda_build.build_kernel_library()
+    hgmma = library_sass_counts(lib, "HGMMA")
+    remarks = {k: v for k, v in ptxas_remarks(lib.with_suffix(".ptxas.txt").read_text()).items()
+               if k.startswith("tile_probe")}
+    if hgmma is not None:
+        tc = {k: v for k, v in hgmma.items() if k.startswith("tile_probe")}
+        check(tc.get("tile_probe_kernel") == 0 and all(tc.get(f"tile_probe_tc_kernel<{p}>", 0) > 0
+                                                      for p in (1, 3)),
+              f"tile probe: HGMMA per kernel in the SASS {tc}")
     usage = {k: v for k, v in PTXAS.items() if k.startswith("tile_probe")}
-    print(f"[probes] tile_probe (csrc/tile_probe.cu) on P1 (c=1, s=1) and P2 (c=2, s=2.5), n=128 f32: "
+    print(f"[probes] tile_probe (csrc/tile_probe.cu) modes fma / highest (3xTF32 wgmma) / default (1xTF32 "
+          f"wgmma) on P1 (c=1, s=1), P2 (c=2, s=2.5) and the path's theta planes, f32: "
           f"{'; '.join(ln.strip() for ln in buf.getvalue().splitlines())} | path launches {counts} | "
-          + " | ".join(f"{st['shape']}: {fmt(st)}, max |kernel - twin| {st['max_abs_err']:.3g}, plain "
-                       f"{st['plain_ms']:.4f} ms, torch.matmul of both products {st['library_ms']:.4f} ms "
-                       f"device-only ({st['library_call_ms']:.4f} per call), bound {st['bound_ms']:.6f} ms "
-                       f"({st['bound_by']}), rel err vs f64 {st['rel_err_f64']:.2e} (torch.matmul "
-                       f"{st['matmul_rel_err_f64']:.2e})" for st in stats)
-          + f" | ptxas {usage} | {card_line}", flush=True)
-    return (counts, counts_at, homes), {**stats[1], "shapes": [stats[0]]}
+          f"HGMMA in the SASS {'(no cuobjdump)' if hgmma is None else tc} | ptxas {usage}, remarks "
+          f"{remarks or 'none'} | {card_line}",
+          flush=True)
+    for st in stats:
+        print(f"[probes] {fmt_probe(st)}", flush=True)
+    print(f"[probes] phase {time.perf_counter() - tic:.1f} s", flush=True)
+    record = {}
+    for name, primary_mode in (("tile_probe", "fma"), ("tile_probe_tc", "highest")):
+        own = [st for st in stats if tp.KERNEL_OF[st["precision"]] == name]
+        primary = next(st for st in own if st["shape"].startswith("P2") and st["precision"] == primary_mode)
+        record[name] = {**primary, "shapes": [st for st in own if st is not primary]}
+    return (counts, counts_at, homes), record
 
 
 def phase_fleet_cz(case, card_line: str):
@@ -2807,6 +2961,8 @@ KERNELS = (
      "aqc_research_tpu/ops/fused_pair.py:238", "jacobi28"),
     ("tile_probe", "aqc_research_tpu_torch/csrc/tile_probe.cu",
      "benchmarks/probe_mosaic_precision.py:40; benchmarks/probe_mosaic_ops.py:47", "probes"),
+    ("tile_probe_tc", "aqc_research_tpu_torch/csrc/tile_probe.cu",
+     "benchmarks/probe_mosaic_precision.py:40; benchmarks/probe_mosaic_ops.py:47", "probes"),
 )
 
 
@@ -2824,7 +2980,8 @@ def main() -> int:
         stats["theta_build"], stats["rand_tail"] = phase_rand_kernels(dev)
         stats["fused_pair"] = phase_fused(dev)
         paths = {}
-        paths["probes"], stats["tile_probe"] = phase_probes(dev, card_line)
+        paths["probes"], probe_stats = phase_probes(dev, card_line)
+        stats.update(probe_stats)
         case20 = make_case(dev, 20, PATH_CHI, maxiter=10, f64_device="cpu")
         paths["jacobi20"] = phase_slice(case20, "slice")
         paths["rand20"] = phase_rand(case20, "rand")
