@@ -9,9 +9,9 @@ at first use, never at import: machines without ``nvcc`` import the port
 and run the plain twins on CPU tensors.
 
 The kernel wrappers (ops/jacobi_kernel.py, ops/fused_pair.py,
-ops/fused_rand.py, ops/tile_probes.py) call :func:`launch`, which runs one
-C entry point on the current stream of the tensors' device and raises on a
-refused launch.
+ops/fused_rand.py, ops/tile_probes.py, ops/roofline.py) call
+:func:`launch`, which runs one C entry point on the current stream of the
+tensors' device and raises on a refused launch.
 """
 
 from __future__ import annotations
@@ -57,6 +57,10 @@ _SIGNATURES = {
     "tile_probe_launch": ([_VP] * 6 + [_CI] * 2 + [ctypes.c_longlong] * 2 + [_VP], _CI),
     # the same, then passes (3: split 3xTF32, 1: one TF32 pass), stream
     "tile_probe_tc_launch": ([_VP] * 6 + [_CI] * 2 + [ctypes.c_longlong] * 2 + [_CI, _VP], _CI),
+    # in, out, n, iters, a, b, stream
+    "fma_chain_launch": ([_VP, _VP, ctypes.c_longlong, _CI, _CF, _CF, _VP], _CI),
+    # in, out, n, passes, a, b, blocks, stream
+    "stream_launch": ([_VP, _VP, ctypes.c_longlong, _CI, _CF, _CF, _CI, _VP], _CI),
     "aqc_max_smem_optin": ([_CI], _CI),
     "aqc_error_string": ([_CI], ctypes.c_char_p),
 }

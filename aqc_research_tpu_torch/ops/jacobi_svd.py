@@ -49,9 +49,9 @@ def _pair_rotation(a, b, c, eps):
 
 def _phase_update(al, ar, vl, vr, eps, criterion="relative"):
     """One Brent-Luk phase on column blocks ``al, ar`` (..., n, p) and the
-    matching blocks of the accumulated V; returns the updated blocks and the
-    largest pre-rotation residual (criteria as in the JAX spec: "relative",
-    "entry" or "hybrid")."""
+    matching blocks of the accumulated V; returns the updated blocks and
+    each matrix's largest pre-rotation residual (criteria as in the JAX
+    spec: "relative", "entry" or "hybrid")."""
     a = (al.abs() ** 2).sum(-2)
     b = (ar.abs() ** 2).sum(-2)
     c = (al.conj() * ar).sum(-2)
@@ -64,12 +64,14 @@ def _phase_update(al, ar, vl, vr, eps, criterion="relative"):
             denom2 = smax2 * torch.maximum(torch.minimum(a, b), floor2)
     else:
         denom2 = a * b
-    resid = (c.abs() / torch.sqrt(torch.clamp(denom2, min=1e-30))).max()
+    resid = (c.abs() / torch.sqrt(torch.clamp(denom2, min=1e-30))).amax(-1)
 
     cs, sn_r, phase = _pair_rotation(a, b, c, eps)
     cs = cs[..., None, :].to(al.dtype)
     sn = (sn_r * phase)[..., None, :].to(al.dtype)
     sn_c = (sn_r * phase.conj())[..., None, :].to(al.dtype)
+    if vl is None:
+        return cs * al - sn_c * ar, sn * al + cs * ar, None, None, resid
     return (
         cs * al - sn_c * ar,
         sn * al + cs * ar,
@@ -87,6 +89,34 @@ def _rotate_seats(l, r):
     return new_l, new_r
 
 
+def _adaptive_sweeps(al, ar, vl, vr, sweeps: int, criterion: str):
+    """The spec's adaptive loop on the seat blocks ``al, ar`` (..., rows, p)
+    and the matching blocks of V (None: not accumulated): sweeps of 2p - 1
+    phases until a sweep's largest residual over the batch drops below the
+    dtype's tolerance (f32 1e-6, f64 1e-13), at most ``sweeps``.  Returns
+    the blocks and each matrix's count, int32 of the batch shape: the
+    sweeps until its own residual first dropped below the tolerance."""
+    rdtype = real_of(al.dtype)
+    eps = float(torch.finfo(rdtype).eps)
+    conv_tol = 1e-6 if rdtype == torch.float32 else 1e-13
+    batch = al.shape[:-2]
+    count = torch.zeros(batch, dtype=torch.int32, device=al.device)
+    active = torch.ones(batch, dtype=torch.bool, device=al.device)
+    for _ in range(sweeps):
+        resid = torch.zeros(batch, dtype=rdtype, device=al.device)
+        for _ in range(2 * al.shape[-1] - 1):
+            al, ar, vl, vr, r = _phase_update(al, ar, vl, vr, eps, criterion)
+            al, ar = _rotate_seats(al, ar)
+            if vl is not None:
+                vl, vr = _rotate_seats(vl, vr)
+            resid = torch.maximum(resid, r)
+        count += active.to(torch.int32)
+        active = active & (resid >= conv_tol)
+        if not float(resid.max()) >= conv_tol:
+            break
+    return al, ar, vl, vr, count
+
+
 def jacobi_svd(
     m: torch.Tensor, sweeps: int = DEFAULT_SWEEPS, sort: bool = True
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -99,28 +129,13 @@ def jacobi_svd(
     p = n // 2
     dtype = m.dtype
     rdtype = real_of(dtype)
-    eps = float(torch.finfo(rdtype).eps)
 
     eye = torch.eye(n, dtype=dtype, device=m.device).expand(m.shape)
-    al, ar = m[..., :, :p], m[..., :, p:]
-    vl, vr = eye[..., :, :p], eye[..., :, p:]
-
     # f32 uses the kernel's entry-absolute (or hybrid) criterion; f64 keeps
     # the relative one, as in the spec.
-    is_f32 = rdtype == torch.float32
-    conv_tol = 1e-6 if is_f32 else 1e-13
-    criterion = jacobi_criterion() if is_f32 else "relative"
-
-    k, resid = 0, float("inf")
-    while k < sweeps and resid >= conv_tol:
-        worst = torch.zeros((), dtype=rdtype, device=m.device)
-        for _ in range(n - 1):
-            al, ar, vl, vr, r = _phase_update(al, ar, vl, vr, eps, criterion)
-            al, ar = _rotate_seats(al, ar)
-            vl, vr = _rotate_seats(vl, vr)
-            worst = torch.maximum(worst, r)
-        resid = float(worst)
-        k += 1
+    criterion = jacobi_criterion() if rdtype == torch.float32 else "relative"
+    al, ar, vl, vr, _ = _adaptive_sweeps(m[..., :, :p], m[..., :, p:], eye[..., :, :p], eye[..., :, p:],
+                                         sweeps, criterion)
 
     a = torch.cat([al, ar], dim=-1)
     v = torch.cat([vl, vr], dim=-1)
@@ -143,3 +158,50 @@ def jacobi_svd_top_k(
     """Top-k truncated SVD via :func:`jacobi_svd`."""
     u, s, vh = jacobi_svd(m, sweeps=sweeps)
     return u[..., :, :k], s[..., :k], vh[..., :k, :]
+
+
+def jacobi_sweeps_per_matrix(
+    m: torch.Tensor, sweeps: int = DEFAULT_SWEEPS, criterion: str | None = None
+) -> torch.Tensor:
+    """Adaptive sweep count of the one-sided Jacobi on each matrix of ``m``
+    (..., rows, n): n columns of length rows, n even; returns (B,) int32
+    over the flattened batch, on ``m``'s device.
+
+    The tolerance and criterion rule of the spec: f32 stops at 1e-6 under
+    ``criterion`` (None: :func:`config.jacobi_criterion`), f64 at 1e-13
+    under "relative".  The f32 "entry"/"hybrid" counts from 8 columns on
+    come from the Jacobi rows of ops/jacobi_kernel.py on the transposed
+    planes (rows must be at least n), as the engine sends them: on CPU
+    tensors its plain twin, on CUDA tensors the kernel K1, which reports
+    each matrix's sweeps.  Every other case (the χ-growth heads, f64) runs
+    :func:`jacobi_svd`'s loop without V."""
+    n = m.shape[-1]
+    if n % 2:
+        raise ValueError(f"an even column count is expected, got {tuple(m.shape)}")
+    mb = m.reshape((-1,) + tuple(m.shape[-2:]))
+    rdtype = real_of(mb.dtype)
+    is_f32 = rdtype == torch.float32
+    if criterion is None:
+        criterion = jacobi_criterion() if is_f32 else "relative"
+    if is_f32 and criterion in ("entry", "hybrid") and 8 <= n <= mb.shape[-2]:
+        from .jacobi_kernel import jacobi_rows
+
+        mt = mb.transpose(-1, -2)
+        w_re = (mt.real if mt.is_complex() else mt).contiguous()
+        w_im = (mt.imag.contiguous() if mt.is_complex() else torch.zeros_like(w_re))
+        return jacobi_rows(w_re, w_im, sweeps, criterion)[2]
+
+    p = n // 2
+    return _adaptive_sweeps(mb[..., :, :p], mb[..., :, p:], None, None, sweeps, criterion)[4]
+
+
+def jacobi_sweeps_used(
+    m: torch.Tensor, sweeps: int = DEFAULT_SWEEPS, criterion: str | None = None
+) -> torch.Tensor:
+    """Number of adaptive sweeps the Jacobi loop executes on ``m`` (...,
+    rows, n): one int32 scalar for the whole batch, the count of its
+    slowest matrix — what the spec's shared loop runs, and what the
+    roofline's flop model multiplies (ops/roofline.py).  One sweep is n - 1
+    phases.  Each matrix's own count is :func:`jacobi_sweeps_per_matrix`,
+    whose rules this follows."""
+    return jacobi_sweeps_per_matrix(m, sweeps, criterion).max()

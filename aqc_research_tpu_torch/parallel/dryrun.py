@@ -16,7 +16,12 @@ the same inputs:
    path; the z-cached co-sweep with ``grow_w``; the χ-growth value sweep);
 3. the site-sharded (chain) obj+grad at n=16 χ=16 over sp;
 4. a chain-sharded and a pair-sharded L-BFGS horizon against the
-   replicated ones.
+   replicated ones;
+5. on rank 0, the collective-cost model (``collective_model``): the chain
+   obj+grad's census at n=16 χ=8 fitted at P = 2 and 4 Gloo ranks on the
+   CPU and held out at P = 8; on the card, the model's predicted sp=4
+   speedup of the 28q χ=128 obj+grad from T₁ measured in the same run
+   (``collective_model.CHAIN28_MODEL``, NVLink datasheet link).
 
 On the card the ranks run c64 (precision "fast") and the kernels of the
 route in effect; on the CPU c128.  Rank 0 prints one line; any failed check
@@ -208,6 +213,37 @@ def _horizons(dp_tp, dp_sp, rdtype, dev, thr):
     return f_start, f_chain, f_repl, f_ps, f_pr
 
 
+def _collective_model_step(rdtype, dev) -> dict:
+    """Step 5 (rank 0 only): fit at (2, 4), hold out at 8, and on the card
+    the predicted sp=4 speedup at 28q χ=128 from a T₁ measured here."""
+    from ..ops import roofline
+    from .collective_model import CHAIN28_MODEL, fit_chain_model, predicted_speedup, validate_chain_model
+
+    circ, th, lvec, phi = _trotter_case(16, 2, 8, 2, 0.05, 5, 1e-10, rdtype, dev)
+    model = fit_chain_model(circ, th, lvec, phi, (2, 4))
+    held = validate_chain_model(model, circ, th, lvec, phi, 8)
+    _check(model.a > 0 and model.b > 0, f"collective model without halo or pipeline terms: {model}")
+    out = {"model": (model.a, model.b, model.bytes_a, model.bytes_b),
+           "held_out_8": {k: held[k] for k in ("ppermute_pred", "ppermute_actual", "bytes_pred", "bytes_actual")}}
+    if dev.type != "cuda":
+        out["sp4_speedup_28q"] = "not measured: no card (T1 comes from an unsharded 28q sweep on the card)"
+        return out
+    from ..models.sp_lhs.jit_asp import _mps_value_fns
+
+    c28, th28, t28, bits, thr = roofline.make_case(28, 128, 4, dev)
+    _, value_and_grad = _mps_value_fns(c28, bits, thr)
+    value_and_grad(th28, t28)
+    torch.cuda.synchronize(dev)
+    tic = time.perf_counter()
+    for _ in range(3):
+        value_and_grad(th28, t28)
+    torch.cuda.synchronize(dev)
+    t1 = (time.perf_counter() - tic) / 3
+    out["t1_28q_s"] = t1
+    out["sp4_speedup_28q"] = predicted_speedup(CHAIN28_MODEL, 4, t1)
+    return out
+
+
 def dryrun_multichip() -> dict:
     """Runs the dry run on this rank (the process group must be up or
     configured: see :func:`parallel.distributed.initialize_distributed`)."""
@@ -236,12 +272,13 @@ def dryrun_multichip() -> dict:
     gnorm, grow_ov = _pair_sharded_obj_grad(dp_tp, rdtype, dev, thr)
     cgnorm, cobj = _chain_obj_grad(dp_sp, rdtype, dev, thr)
     f_start, f_chain, f_repl, f_ps, f_pr = _horizons(dp_tp, dp_sp, rdtype, dev, thr)
+    collective = _collective_model_step(rdtype, dev) if rank == 0 else None
     summary = {
         "ranks": world, "backend": torch.distributed.get_backend(), "mesh": {"dp": dp, "tp": tp, "sp": sp},
         "fleet_fobj": [round(float(f), 6) for f in fobj], "pair_sharded_grad_norm": gnorm,
         "pair_sharded_growth_overlap": grow_ov, "chain_grad_norm": cgnorm, "chain_overlap": cobj,
         "chain_horizon": (f_start, f_chain, f_repl), "pair_sharded_horizon": (f_ps, f_pr),
-        "seconds": time.perf_counter() - tic,
+        "collective_model": collective, "seconds": time.perf_counter() - tic,
     }
     if rank == 0:
         print(f"dryrun_multichip OK: {summary}", flush=True)

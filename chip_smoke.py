@@ -8,8 +8,9 @@ flagship and the driver's dense objective), approximate quantum compiling
 and the multi-start fleets (dense and MPS), and the multi-GPU engines on
 torch.distributed (one process per card).
 
-Five kernel sources are built: jacobi_rows.cu (K1), theta_build.cu (K2),
-rand_tail.cu (K3), fused_pair.cu (K4) and tile_probe.cu (the probe).
+Six kernel sources are built: jacobi_rows.cu (K1), theta_build.cu (K2),
+rand_tail.cu (K3), fused_pair.cu (K4), tile_probe.cu (the probe) and
+attainable.cu (the roofline's attainable-rate microkernels).
 
 Usage:  python3 chip_smoke.py        (from the root of a checkout; one card)
 
@@ -206,6 +207,19 @@ Phases, one line each:
                 off (K1 at 256x256) in turns (rand, jacobi, unfused,
                 unfused, jacobi, rand; 3 sweeps each), then one
                 profiled sweep each.
+  8a. roofline — the MPS sweep's roofline (ops/roofline.py) on phases 3
+                and 6's cases, no target rebuilt: first the attainable-rate
+                microkernels (csrc/attainable.cu: the f32 FMA chain and the
+                HBM stream) against their plain twins, timed; then the
+                record's roofline path, which must launch the microkernels
+                and K1-K4: measure_attainable and, at 20q χ=64 and 28q
+                χ=128 on "jacobi" (K4 at 28q) and "rand", the measured
+                obj+grad sweep, the adaptive sweeps per stage captured on
+                the real pair matrices (mean and maximum per matrix), and
+                the report's floors and shares of the measured attainable
+                rates and of the published peaks.  Fails unless the census equals the
+                captured (batch, n) phases of every stage and every share
+                is at most 100%; prints its own wall time.
   8b. lu28   — phase 5a at 28 qubits (padded samples of 256 rows), without
                 the horizon.
   9. mesh28   — the multi-GPU engines on torch.distributed: one process per
@@ -224,7 +238,13 @@ Phases, one line each:
                 (d) fleet12's 8 starts through multistart_minimize over dp
                 (maxiter 40), each lane within 1e-4 of the unsharded
                 fleet's.  A rank that fails or hangs fails the phase.  Its
-                launches (from (a)) are the record's mesh28 path.  Alone:
+                launches (from (a)) are the record's mesh28 path.  The
+                collective model (parallel/collective_model.py) predicts
+                (b)'s sweep at sp = world and sp = 4 from T₁, phase 8a's
+                unsharded 28q rand sweep; with two ranks or more the hop
+                latency and bandwidth come from an NCCL ping-pong between
+                ranks 0 and 1 at 8 B and 64 MiB, with one card they stay
+                the datasheet defaults ("uncalibrated: one card").  Alone:
                 ``mesh28_alone()`` (phases 1, 7 and 9).
 Phases 5 and 8 time the routes over one round of turns (two before this
 phase was added, to keep the script near half its time limit).
@@ -452,10 +472,12 @@ def kernel_counters():
     from aqc_research_tpu_torch.ops.fused_pair import fused_pair, theta_build
     from aqc_research_tpu_torch.ops.fused_rand import rand_tail
     from aqc_research_tpu_torch.ops.jacobi_kernel import jacobi_rows
+    from aqc_research_tpu_torch.ops.roofline import fma_chain, stream_passes
     from aqc_research_tpu_torch.ops.tile_probes import tile_probe
 
     return {"jacobi_rows": jacobi_rows, "theta_build": theta_build, "rand_tail": rand_tail,
-            "fused_pair": fused_pair, "tile_probe": tile_probe}
+            "fused_pair": fused_pair, "tile_probe": tile_probe, "fma_chain": fma_chain,
+            "stream_passes": stream_passes}
 
 
 def reset_counts() -> None:
@@ -2629,6 +2651,102 @@ def phase_lu(case, tag: str, calls: int, horizon: bool):
     return launches
 
 
+# The attainable-rate microkernels against their twins: the kernel rounds
+# once per step (fmaf), the twin twice (mul, add).  FMA chain: values in
+# [0, 1], the map contracts by 0.999, so the gap stays below the sum of
+# 0.999^k x 1.5 ulp(1) over the 4000 steps (1.8e-4).  Stream: values grow to
+# ~21 over 20 passes by 1.0001, a gap below 20 x 1.5 ulp(32) (5.7e-5).
+TOL_FMA = 2e-4
+TOL_STREAM = 1e-4
+ROOFLINE_ROUTES = ("jacobi", "rand")
+ROOFLINE_SHARES = ("share_core", "share_core_peak", "share_composite", "share_composite_peak", "share_hbm",
+                   "share_hbm_peak", "attainable_vs_peak_core", "attainable_vs_peak_hbm")
+
+
+def attainable_kernel_stats(dev) -> dict:
+    """The attainable-rate microkernels against their plain twins on the
+    roofline's inputs, then timed: device-only and per call, the twin per
+    call, the bound of the function (its input read once, its output
+    written once) and, for the stream, of its passes."""
+    from aqc_research_tpu_torch.ops import roofline as rl
+
+    x = rl.attainable_inputs(dev)
+    out = {}
+    for name, fn, twin, arg, tol, flop, passes in (
+        ("fma_chain", rl.fma_chain, rl.fma_chain_reference, x["fma"], TOL_FMA,
+         2.0 * x["fma"].numel() * rl.FMA_ITERS, 1),
+        ("stream_passes", rl.stream_passes, rl.stream_passes_reference, x["stream"], TOL_STREAM,
+         2.0 * x["stream"].numel() * rl.STREAM_PASSES, rl.STREAM_PASSES),
+    ):
+        got, want = fn(arg), twin(arg)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(bool(torch.isfinite(got).all()) and err <= tol, f"{name} vs its twin: max abs error {err:.3g} > {tol}")
+        kern = timings(lambda: fn(arg), calls=5, repeats=3, runs=5)
+        plain_ms = median_ms(lambda: twin(arg), runs=3, warmup=1)
+        nbytes = 2 * 4 * arg.numel()
+        bound_ms, bound_by = bound(flop, nbytes)
+        out[name] = {"shape": f"{arg.numel()} f32", "max_abs_err": err, "ms": kern["ms"], "call_ms": kern["call_ms"],
+                     "queued": kern["queued"], "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": None, "passes_bound_ms": 1e3 * passes * nbytes / PEAK_BYTES}
+    return out
+
+
+def phase_roofline(case20, case28, card_line: str):
+    """The roofline phase (8a): the microkernels vs their twins, then the
+    record's roofline path: the attainable rates and one report per (case,
+    route), whose sweeps and captures launch K1-K4.  Returns (the path's
+    counts, the microkernels' stats, the 28q rand sweep's seconds)."""
+    from aqc_research_tpu_torch.ops import roofline as rl
+
+    tic = time.perf_counter()
+    dev = case20["x0"].device
+    stats = attainable_kernel_stats(dev)
+    reset_counts()
+    att = rl.measure_attainable()
+    parts, t1 = [], None
+    for case in (case20, case28):
+        for route in ROOFLINE_ROUTES:
+            with route_override(route):
+                run = rl.measure_sweep(case["circ"], case["x0"], case["target"], case["base_bits"],
+                                       case["trunc_thr"], att, repeats=3, card=card_line)
+            tag = f"{case['circ'].num_qubits}q chi={case['chi']} {route}"
+            for stage, phases in run["census"].items():
+                check(run["stats"][stage]["phases"] == phases,
+                      f"{tag}: census {stage} {phases} vs captured {run['stats'][stage]['phases']}")
+            r = run["numbers"]
+            over = {k: r[k] for k in ROOFLINE_SHARES if not 0.0 <= r[k] <= 1.0}
+            check(not over, f"{tag}: shares outside [0, 100%] (a counting error): {over}")
+            if case is case28 and route == "rand":
+                t1 = run["measured_s"]
+            sweeps = ", ".join(f"{k} {run['sweeps'][k]:.2f} (max {run['sweeps_max'][k]})" for k in run["census"])
+            parts.append(
+                f"{tag} ({run['impl']}): sweep {1e3 * run['measured_s']:.1f} ms; sweeps per matrix {sweeps}; "
+                f"Jacobi {r['jacobi_gflop']:.2f} GFLOP, products {r['matmul_gflop']:.2f} GFLOP "
+                f"({r['matmul_core_gflop']:.2f} CUDA cores, {r['matmul_blas_gflop']:.2f} cuBLAS); floors CUDA cores "
+                f"{1e3 * r['t_core_s']:.3f} + cuBLAS {1e3 * r['t_blas_s']:.3f} = {1e3 * r['bound_s']:.3f} ms "
+                f"(at the published peak {1e3 * r['peak_bound_s']:.3f}), HBM {1e3 * r['t_hbm_s']:.4f} ms; shares of "
+                f"the sweep: Jacobi rate {100 * r['share_core']:.2f}% of attainable ({100 * r['share_core_peak']:.2f}% "
+                f"of peak), composite {100 * r['share_composite']:.2f}% ({100 * r['share_composite_peak']:.2f}%), "
+                f"HBM {100 * r['share_hbm']:.3f}% ({100 * r['share_hbm_peak']:.3f}%)")
+    torch.cuda.synchronize()
+    counts = (read_counts(), read_counts_at(), read_counts_home())
+    for name in ("fma_chain", "stream_passes", "jacobi_rows", "theta_build", "rand_tail", "fused_pair"):
+        check(counts[0][name] > 0, f"the roofline path never launched {name}: {counts[0]}")
+    fmt_k = "; ".join(
+        f"{name}: max abs err vs twin {st['max_abs_err']:.3g}, {st['ms']:.4f} ms device-only, {st['call_ms']:.4f} "
+        f"per call, twin {st['plain_ms']:.3f} ms, bound {st['bound_ms']:.4f} ms ({st['bound_by']})"
+        + (f", {st['passes_bound_ms']:.4f} ms at its {rl.STREAM_PASSES} passes" if name == "stream_passes" else "")
+        for name, st in stats.items())
+    print(f"[roofline] {card_line} | attainable: CUDA cores {att['vpu_gflops']:.1f} GFLOP/s f32 FMA "
+          f"({100 * att['vpu_gflops'] / rl.PEAK_F32_GFLOPS:.1f}% of the published 67 TFLOP/s), cuBLAS c64 "
+          f"{att['mxu_gflops']:.1f} GFLOP/s (TF32 off), HBM {att['hbm_gbps']:.1f} GB/s "
+          f"({100 * att['hbm_gbps'] / rl.PEAK_HBM_GBPS:.1f}% of 3.35 TB/s); launches on the path "
+          f"{ {k: v for k, v in counts[0].items() if not k.startswith('tile_probe')} } | {fmt_k} | "
+          + " || ".join(parts) + f" | phase {time.perf_counter() - tic:.1f} s", flush=True)
+    return counts, stats, t1
+
+
 MESH_WORLD_MAX = 4  # ranks of the mesh28 phase: one per card, at most four
 MESH_TIMEOUT_S = 420.0  # a collective that waits this long fails; the phase's deadline
 MESH_CHAIN20_MAXITER = 10
@@ -2636,6 +2754,7 @@ MESH_FLEET_MAXITER = 40  # fleet12's 8 starts, cut from 150 iterations
 TOL_MESH_F = 1e-4  # a sharded fobj vs the replicated one (f32 sketch noise)
 TOL_MESH_G = 1e-3  # relative l2 of the chain gradient vs the replicated one
 TOL_MESH_TP = 1e-5  # the sharded statevector vs the replicated one (c64)
+MESH_PING_BYTES = 64 * 1024 * 1024  # the ping-pong's large message; its small one is 8 B
 
 
 @contextmanager
@@ -2855,6 +2974,14 @@ def _mesh_rank(rank: int, world: int, port: int, payload28: dict, payload20: dic
         mesh_sp = td.global_mesh((world,), ("sp",))
         mesh_dp = td.global_mesh((world,), ("dp",))
         walls, out = {}, {"backend": dist.get_backend(), "device": str(dev)}
+        if world >= 2:  # the link between ranks 0 and 1, for the collective model
+            from aqc_research_tpu_torch.parallel.collective_model import ping_pong
+
+            ax = axis_of(mesh_sp, "sp")
+            hop = ping_pong(ax, 8)
+            big = ping_pong(ax, MESH_PING_BYTES)
+            out["link"] = {"hop_latency_s": hop, "ici_bytes_per_s": MESH_PING_BYTES / max(big - hop, 1e-9),
+                           "big_hop_s": big}
         tic = time.perf_counter()
         out["a"] = _mesh_pair_sharded(payload28, mesh_tp, axis_of(mesh_tp, "tp"), dev)
         walls["a"] = time.perf_counter() - tic
@@ -2872,14 +2999,18 @@ def _mesh_rank(rank: int, world: int, port: int, payload28: dict, payload20: dic
         raise
 
 
-def phase_mesh28(case28, case20):
+def phase_mesh28(case28, case20, t1_s: float):
     """The multi-GPU engines on one NCCL process per card (at most four):
     (a) phase 7's horizon pair-sharded, (b) the chain-sharded obj+grad at
     28q and a 20q chain horizon, (c) the tp-sharded statevector, (d) the
-    dp-sharded fleet.  A rank that fails or hangs fails the phase."""
+    dp-sharded fleet; then the collective model's prediction of (b) from
+    ``t1_s``, the unsharded 28q sweep.  A rank that fails or hangs fails
+    the phase."""
     import multiprocessing
     import queue
     import socket
+
+    from aqc_research_tpu_torch.parallel.collective_model import CHAIN28_MODEL, predicted_sweep_time
 
     tic = time.perf_counter()
     world = min(torch.cuda.device_count(), MESH_WORLD_MAX)
@@ -2919,6 +3050,20 @@ def phase_mesh28(case28, case20):
     one = ("one rank: every check runs the sharded code on a group of one — the pair axis unsplit (one "
            "all_gather of each whole half-layer), the chain in one block (m = 28), no qubit sharded (no "
            "exchange), one dp rank with all 8 lanes" if world == 1 else f"{world} ranks")
+    link = r0.get("link", {})
+    pred = {p: predicted_sweep_time(CHAIN28_MODEL, p, t1_s, **{k: link[k] for k in ("hop_latency_s",
+                                                                                 "ici_bytes_per_s") if k in link})
+            for p in (world, 4)}
+    check(all(np.isfinite(t) and t > 0 for t in pred.values()), f"collective model predictions: {pred}")
+    m = CHAIN28_MODEL
+    link_text = (f"link calibrated by an NCCL ping-pong between ranks 0 and 1: hop {1e6 * link['hop_latency_s']:.2f} "
+                 f"us (8 B), {link['ici_bytes_per_s'] / 1e9:.1f} GB/s (64 MiB in {1e3 * link['big_hop_s']:.3f} ms)"
+                 if link else "uncalibrated: one card (the NVLink datasheet's 450 GB/s, an assumed 10 us hop)")
+    model_line = (f"collective model (CHAIN28_MODEL: rounds {m.a:.0f} + {m.b:.0f}·P, bytes {m.bytes_a:.0f} + "
+                  f"{m.bytes_b:.0f}·P; the fit holds from P = 2), T1 {t1_s:.3f} s (phase 8a's unsharded 28q rand "
+                  f"sweep), {link_text}: "
+                  + ", ".join(f"predicted sp={p} {t:.4f} s (speedup {t1_s / t:.2f}x)" for p, t in sorted(pred.items()))
+                  + f" against the measured chain obj+grad at sp={world} {b['sweep_s']:.4f} s")
     print(f"[mesh28] world {world}, backend {r0['backend']} ({one}) | (a) pair-sharded 28q chi=128 rand "
           f"horizon: fobj {a['fobj']:.7g} vs phase 7's unsharded {a['f_unsharded']:.7g} (diff {a['diff']:.3g}), "
           f"c128 re-eval {a['f_check']:.7g} ({a['check_s']:.1f} s), {a['iters']} iters, {a['horizon_s']:.2f} s = "
@@ -2932,8 +3077,8 @@ def phase_mesh28(case28, case20):
           f"statevector 12q V†: max err {cd['tp_err']:.3g}, {cd['tp_s']:.3f} s | (d) fleet12 over dp={world} "
           f"(maxiter {MESH_FLEET_MAXITER}): lanes within {cd['fleet_lane_diff']:.3g} of the unsharded fleet, best "
           f"{cd['fleet_best']}, {cd['fleet_s']:.1f} s | rank 0 walls (a) {r0['walls']['a']:.1f} s, (b) "
-          f"{r0['walls']['b']:.1f} s, (c+d) {r0['walls']['cd']:.1f} s, phase {time.perf_counter() - tic:.1f} s",
-          flush=True)
+          f"{r0['walls']['b']:.1f} s, (c+d) {r0['walls']['cd']:.1f} s | {model_line} | phase "
+          f"{time.perf_counter() - tic:.1f} s", flush=True)
     return a["counts"]
 
 
@@ -2947,7 +3092,11 @@ def mesh28_alone():
     case20 = make_case(dev, 20, PATH_CHI, maxiter=10, f64_device="cpu")
     case28 = make_case(dev, 28, PATH28_CHI, maxiter=10, f64_device=dev)
     phase_rand(case28, "rand28")
-    return phase_mesh28(case28, case20)
+    from aqc_research_tpu_torch.models.sp_lhs import jit_asp
+
+    _, value_and_grad = jit_asp._mps_value_fns(case28["circ"], case28["base_bits"], case28["trunc_thr"])
+    t1_s = sweep_ms(value_and_grad, case28, "rand", 3) / 1e3
+    return phase_mesh28(case28, case20, t1_s)
 
 
 KERNELS = (
@@ -2963,6 +3112,10 @@ KERNELS = (
      "benchmarks/probe_mosaic_precision.py:40; benchmarks/probe_mosaic_ops.py:47", "probes"),
     ("tile_probe_tc", "aqc_research_tpu_torch/csrc/tile_probe.cu",
      "benchmarks/probe_mosaic_precision.py:40; benchmarks/probe_mosaic_ops.py:47", "probes"),
+    # XLA-fused loops of the JAX roofline, not Pallas kernels.
+    ("fma_chain", "aqc_research_tpu_torch/csrc/attainable.cu", "aqc_research_tpu/ops/roofline.py:194", "roofline"),
+    ("stream_passes", "aqc_research_tpu_torch/csrc/attainable.cu", "aqc_research_tpu/ops/roofline.py:224",
+     "roofline"),
 )
 
 
@@ -3000,8 +3153,10 @@ def main() -> int:
         paths["jacobi28"] = phase_slice(case, "slice28")
         paths["rand28"] = phase_rand(case, "rand28")
         phase_routes(case, "routes28", ("rand", "jacobi", "unfused"), repeats=1, calls=3)
+        paths["roofline"], roof_stats, t1_s = phase_roofline(case20, case, card_line)
+        stats.update(roof_stats)
         phase_lu(case, "lu28", calls=2, horizon=False)
-        paths["mesh28"] = phase_mesh28(case, case20)
+        paths["mesh28"] = phase_mesh28(case, case20, t1_s)
     except (SmokeFailure, ImportError, RuntimeError, ValueError) as exc:
         print(f"chip_smoke: FAILED: {type(exc).__name__}: {exc}", file=sys.stderr)
         return 1

@@ -228,6 +228,27 @@ def chain_horizon(circ_args, thetas, lvec, phi, trunc_thr, maxiter):
     return {"thetas": res.thetas.numpy(), "fobj": res.fobj.numpy(), "num_iters": int(res.num_iters)}
 
 
+def chain_objective_log(circ_args, thetas, lvec, phi):
+    """The chain obj+grad under the collective model's spy: this rank's log
+    (``parallel/collective_model.collective_log``)."""
+    from aqc_research_tpu_torch.parallel import mps_chain as mc
+    from aqc_research_tpu_torch.parallel.collective_model import collective_log
+
+    mesh = _mesh("sp")
+    circ = interop.ansatz_from_args(circ_args)
+    cl, cp = _chain(*lvec, mesh), _chain(*phi, mesh)
+    with collective_log() as log:
+        mc.chain_asp_objective_and_gradient(circ, torch.as_tensor(thetas), cl, cp, mesh)
+    return log
+
+
+def ping_pong(nbytes: int):
+    from aqc_research_tpu_torch.parallel.collective_model import ping_pong as pp
+    from aqc_research_tpu_torch.parallel.comm import axis_of
+
+    return pp(axis_of(_mesh("sp"), "sp"), nbytes, reps=3)
+
+
 # -----------------------------------------------------------------------------
 # Sharded multi-start.
 # -----------------------------------------------------------------------------

@@ -35,8 +35,6 @@ MODULE_MAP = {
 # "Not to port" list does.
 NOT_PORTED = {
     "ops/blocked_jacobi.py": "`ops/blocked_jacobi.py`: a pinned negative",
-    "ops/roofline.py": "`ops/roofline.py`: the TPU's roofline model",
-    "parallel/collective_model.py": "`parallel/collective_model.py`: the TPU mesh's collective-cost model",
 }
 
 # Public names that live under another name in the port.
@@ -57,8 +55,9 @@ ABSENT = {
     ("ops/svd_tpu.py", "svd_top_k"): ('"embed" route', "the embed route works around a TPU complex-buffer fault"),
     ("ops/pallas_jacobi.py", "jacobi_svd_pallas"): (None, "the engine takes top-χ factors only; "
                                                           "jacobi_svd_kernel_top_k with k = columns is the full SVD"),
-    ("ops/jacobi_svd.py", "jacobi_sweeps_used"): ("ops/roofline.py", "the sweep count behind the roofline's flop "
-                                                                     "accounting; the kernels report their own sweeps"),
+    ("parallel/collective_model.py", "census_hlo"): (None, "counts the ops of a compiled HLO text; the port has "
+                                                             "no compiled program, its census spies on the "
+                                                             "collectives as they run (collective_log)"),
     ("utils/__init__.py", "from_host"): ("from_host", "TPU host-transfer workaround"),
     ("utils/__init__.py", "as_device"): ("from_host", "TPU host-transfer workaround (from_host's helper)"),
     ("utils/__init__.py", "to_host"): ("to_host", "TPU host-transfer workaround"),
@@ -86,6 +85,11 @@ PARAM_ABSENT = {
                                                   "not device objects",
     ("parallel/multistart.py", "random_initial_thetas", "key"): "a JAX PRNG key; the port draws from a "
                                                                 "torch.Generator (generator)",
+    ("parallel/collective_model.py", "collective_census", "hlo_text"): "a compiled HLO text; the port's census "
+                                                                       "reads every rank's log of a run (logs)",
+    ("parallel/collective_model.py", "fit_chain_model", "devices"): "the JAX devices of a virtual mesh; the port "
+                                                                    "counts in P Gloo processes on the CPU",
+    ("parallel/collective_model.py", "validate_chain_model", "devices"): "see fit_chain_model(devices=)",
     ("ops/mps.py", "MPS.tree_flatten", None): "JAX pytree registration; torch has no pytree classes",
     ("ops/mps.py", "MPS.tree_unflatten", None): "JAX pytree registration; torch has no pytree classes",
     ("parallel/mps_chain.py", "ChainMPS.tree_flatten", None): "JAX pytree registration; torch has no pytree "
