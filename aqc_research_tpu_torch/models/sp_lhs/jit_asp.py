@@ -44,7 +44,8 @@ from ...ops.mps import (
     v_mul_mps_growing,
 )
 from ...ops.gradients import grad_of_dot_product
-from ...ops.mps_gradient import _layered_eligible, fast_dot_gradient, fast_dot_gradient_with_state
+from ...ops.mps_gradient import _layered_eligible  # noqa: F401  (read as jit_asp._layered_eligible)
+from ...ops.mps_gradient import fast_dot_gradient, fast_dot_gradient_with_state
 from ...ops.statevector import as_state, as_thetas, v_dagger_mul_vec
 from ...optim.lbfgs import (
     lane_objective,
@@ -365,8 +366,9 @@ def optimize_horizon_surrogate_timed(
 def _mps_value_fns(circ: Ansatz, base_bits: tuple, trunc_thr: float):
     """The MPS fidelity objective as functions of ``(thetas, target)``:
     returns ``(value, value_and_grad)``.  ``thetas`` may be a fleet's rows
-    ``(L, P)`` (a layered Trotter ansatz): the values are then ``(L,)`` and
-    every pair group of all lanes is one batched decomposition."""
+    ``(L, P)`` on any ansatz: the values are then ``(L,)`` and every pair
+    update of all lanes is one batched decomposition.  On the "rand" route
+    the sketch Ω is drawn per batch shape (ops/rand_svd.sketch)."""
     use_cache = v_dagger_layer_cache_eligible(circ)
 
     def value(th: torch.Tensor, tgt: MPS) -> torch.Tensor:
@@ -424,23 +426,6 @@ def _run_horizon(circ, x0, tgt, base_bits, trunc_thr, fobj_thr, maxiter, no_impr
     return JitHorizonResult(res.thetas, res.fobj, 1.0 - res.fobj, res.num_iters, res.converged), timed_out
 
 
-def _lane_by_lane(value, value_and_grad):
-    """A lane objective from the one-lane MPS objective: the running lanes
-    evaluated one after another and stacked into ``(L,)`` / ``(L, P)``, so
-    each lane follows its one-lane trajectory (the JAX fleet's ``vmap`` of
-    the one-lane program) on circuits whose engine paths take no lane
-    axis."""
-
-    def lanes_value(xs: torch.Tensor, tgt) -> torch.Tensor:
-        return torch.stack([value(x, tgt) for x in xs])
-
-    def lanes_value_and_grad(xs: torch.Tensor, tgt):
-        outs = [value_and_grad(x, tgt) for x in xs]
-        return torch.stack([f for f, _ in outs]), torch.stack([g for _, g in outs])
-
-    return lanes_value, lanes_value_and_grad
-
-
 def optimize_horizon_mps_multistart(
     circ: Ansatz,
     thetas0_batch,
@@ -455,15 +440,14 @@ def optimize_horizon_mps_multistart(
     """Multi-start MPS ASP horizon optimization: the L rows of
     ``thetas0_batch`` run :func:`optimize_horizon_mps_jit`'s loop in lock
     step as one fleet (optim/lbfgs.lbfgs_fleet_programs, sequential
-    backtracking as in the JAX twin).  On a layered Trotter (cx) ansatz,
-    whose engine paths take lanes, the lanes fold into the batch of every
-    pair update: one evaluation decomposes each pair group of all running
-    lanes in ONE launch of the route's kernels.  Any other ansatz (cz and
-    cp entanglers, plain layered, the per-gate path) evaluates the running
-    lanes one after another through the one-lane objective inside the same
-    loop.  Like the JAX twin, the fleet has no collapse watchdog.  Returns
-    the lanes' results (``num_iters``/``converged`` host arrays); the
-    winner is ``argmin(res.fobj)``.
+    backtracking as in the JAX twin).  On every ansatz the lanes fold into
+    the batch of every pair update (each engine path takes lane axes): one
+    evaluation decomposes each pair update of all running lanes in ONE
+    launch of the route's kernels, as the JAX twin's vmapped program does.
+    No ansatz is evaluated lane by lane.  Like the JAX twin, the fleet has
+    no collapse watchdog.  Returns the lanes' results
+    (``num_iters``/``converged`` host arrays); the winner is
+    ``argmin(res.fobj)``.
 
     On the "rand" route the sketch Ω is drawn per batch shape
     (ops/rand_svd.sketch), so a folded lane agrees with its one-lane run to
@@ -477,8 +461,6 @@ def optimize_horizon_mps_multistart(
     x0 = thetas0_batch if isinstance(thetas0_batch, torch.Tensor) else torch.as_tensor(
         np.asarray(thetas0_batch), dtype=target.lambdas.dtype, device=target.device)
     value, value_and_grad = _mps_value_fns(circ, base_t, float(trunc_thr))
-    if not _layered_eligible(circ):
-        value, value_and_grad = _lane_by_lane(value, value_and_grad)
     res = minimize_lbfgs_compact_lanes(
         lambda th: value(th, target), lambda th: value_and_grad(th, target), x0.detach(),
         maxiter=int(maxiter), fobj_thr=_loss_thr(fidelity_thr),

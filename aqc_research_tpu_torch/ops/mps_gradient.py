@@ -18,9 +18,10 @@
 Every pair update goes through ``ops/mps._pair_update``, so on the card the
 decompositions run the route's kernels.
 
-The layered Trotter paths take lane axes: ``thetas (..., P)``, states with
-the same leading axes (or none, broadcast), gradients ``(..., P)``; the
-pair groups of all lanes decompose as one batch.
+Every path takes lane axes: ``thetas (..., P)``, states with the same
+leading axes (or none, broadcast), gradients ``(..., P)``.  Each pair
+update of all lanes (a pair group on the layered paths; one block, its
+swaps and the CP shift on the per-gate sweep) decomposes as one batch.
 """
 
 from __future__ import annotations
@@ -67,9 +68,9 @@ def _lead(thetas: torch.Tensor) -> tuple:
 
 def _site_tensor(mps: MPS, q: int) -> torch.Tensor:
     """λ-folded site tensor A_q = Γ_q diag(λ_q) (A_{n-1} = Γ_{n-1})."""
-    g = mps.gammas[q]
+    g = mps.gammas[..., q, :, :, :]
     if q < mps.num_sites - 1:
-        return g * mps.lambdas[q][None, None, :].to(g.dtype)
+        return g * mps.lambdas[..., q, None, None, :].to(g.dtype)
     return g
 
 
@@ -121,33 +122,35 @@ class _EnvTracker:
 
     def dot_span(self, lo: int, hi: int, pauli_site: Optional[int], pauli_mat, w_override: Optional[MPS] = None):
         """<(P@)w | z> through the multi-site transfer over [lo, hi]:
-        L · T_lo · ... · T_hi · R[hi] (``pauli_site`` None: no Pauli).  Valid
-        while the sites > hi are unchanged since the last refresh, which is
-        what makes it work for non-nearest-neighbour blocks: every site the
-        swap network touched lies inside [lo, hi]."""
+        L · T_lo · ... · T_hi · R[hi] (``pauli_site`` None: no Pauli), one
+        value per lane.  Valid while the sites > hi are unchanged since the
+        last refresh, which is what makes it work for non-nearest-neighbour
+        blocks: every site the swap network touched lies inside [lo, hi]."""
         w = self.w if w_override is None else w_override
         env = self._left if self._absorbed == lo else self._left_to(lo)
         for q in range(lo, hi + 1):
             aw = _site_tensor(w, q)
             if pauli_site == q:
-                aw = torch.einsum("ij,jab->iab", pauli_mat.to(aw.dtype), aw)
+                aw = torch.einsum("ij,...jab->...iab", pauli_mat.to(aw.dtype), aw)
             env = _env_left_step(env, aw, _site_tensor(self.z, q))
-        return (env * self._right[hi]).sum()
+        return (env * self._right[hi]).sum((-2, -1))
 
 
 def _entangler_4x4_lo_hi(circ: Ansatz, tht, dtype, ctrl: int, targ: int, shift: float = 0.0):
-    """The block's entangler as a 4x4 in (lo, hi) site order."""
+    """The block's entangler as a ``(..., 4, 4)`` in (lo, hi) site order
+    (``tht (..., tpb)``; lanes only where the entangler has an angle)."""
     device = tht.device
     if circ.entangler == "cp":
-        mat = G.controlled(G.phase(tht[4] + shift, dtype))
+        mat = G.controlled(G.phase(tht[..., 4] + shift, dtype))
     elif circ.entangler == "cz":
         mat = G.controlled(G.z(dtype, device))
     else:
         mat = G.controlled(G.x(dtype, device))
-    g = mat.reshape(2, 2, 2, 2)
+    lead = tuple(mat.shape[:-2])
+    g = mat.reshape(lead + (2, 2, 2, 2))
     if ctrl > targ:  # (ctrl, targ) = (hi, lo) -> (lo, hi)
-        g = g.permute(1, 0, 3, 2)
-    return g.reshape(4, 4)
+        g = g.transpose(-4, -3).transpose(-2, -1)
+    return g.reshape(lead + (4, 4))
 
 
 def _fast_dot_gradient_impl(
@@ -172,24 +175,25 @@ def _fast_dot_gradient_impl(
     s_mat = G.x(dtype, device) if circ.entangler == "cx" else G.z(dtype, device)
     y_mat, z_mat = G.y(dtype, device), G.z(dtype, device)
     trot = circ.is_trotterized
+    lead = _lead(thetas)
     thetas1q = circ.subset1q(thetas)
     thetas2q = circ.subset2q(thetas)
     env = _EnvTracker(lvec, vh_phi)
-    zero = torch.zeros((), dtype=dtype, device=device)
+    zero = torch.zeros(lead, dtype=dtype, device=device)
 
     def apply_both(gate, site):
         env.w = apply_1q_mps(env.w, gate, site)
         env.z = apply_1q_mps(env.z, gate, site)
         env.mark_modified(site)
 
-    grad1q = torch.zeros((n, 3), dtype=dtype, device=device)
+    grad1q = torch.zeros(lead + (n, 3), dtype=dtype, device=device)
     for q in range(n):
-        t = thetas1q[q]
+        t = thetas1q[..., q, :]
         env.prepare(q, q)
         for col, gate_fn, pauli in ((2, G.rz, z_mat), (1, G.ry, y_mat), (0, G.rz, z_mat)):
-            apply_both(gate_fn(t[col], dtype), q)
+            apply_both(gate_fn(t[..., col], dtype), q)
             if front_layer:
-                grad1q[q, col] = 0.5j * env.dot_span(q, q, q, pauli)
+                grad1q[..., q, col] = 0.5j * env.dot_span(q, q, q, pauli)
 
     def block_step(k: int, i_mod3: int, t, inside: bool):
         """One unit block of the co-sweep; returns its per-parameter dots
@@ -217,21 +221,21 @@ def _fast_dot_gradient_impl(
         for col, gate_fn, site, pauli in (
             (0, G.ry, ctrl, y_mat), (1, G.rz, ctrl, z_mat), (2, G.ry, targ, y_mat), (3, rs_fn, targ, s_mat),
         ):
-            apply_both(gate_fn(t[col], dtype), site)
+            apply_both(gate_fn(t[..., col], dtype), site)
             if inside:
                 dots[col] = 0.5j * env.dot_span(lo, hi, site, pauli)
         if trot and i_mod3 == 2:
             apply_both(G.rz(np.pi / 2, dtype, device), targ)
-        return torch.stack(dots)
+        return torch.stack(dots, dim=-1)
 
     inside = [block_range[0] <= k < block_range[1] for k in range(nb)]
-    grad2q = torch.stack([block_step(k, k % 3, thetas2q[k], inside[k]) for k in range(nb)])
+    grad2q = torch.stack([block_step(k, k % 3, thetas2q[..., k, :], inside[k]) for k in range(nb)], dim=-2)
     half = circ.half_layer_num_blocks if trot else 0
     if half:
         # 2nd-order Trotter trailing half-layer: accumulates into rows [0, half).
-        rows = [block_step(k, k % 3, thetas2q[k], inside[k]) for k in range(half)]
-        grad2q[:half] += torch.stack(rows)
-    return torch.cat([grad1q.reshape(-1), grad2q.reshape(-1)])
+        rows = [block_step(k, k % 3, thetas2q[..., k, :], inside[k]) for k in range(half)]
+        grad2q[..., :half, :] += torch.stack(rows, dim=-2)
+    return torch.cat([grad1q.reshape(lead + (-1,)), grad2q.reshape(lead + (-1,))], dim=-1)
 
 
 # -----------------------------------------------------------------------------
@@ -694,8 +698,9 @@ def _embed_1q(g, on_hi: bool):
 
 
 def _plain_group_cosweep(circ: Ansatz, group, layer_thetas, layer_masks, w: MPS, z: MPS, trunc_thr, dtype):
-    """One disjoint-pair run of a plain layer; returns (w', z', dots (bpl,
-    tpb)) with rows only for this group's blocks filled."""
+    """One disjoint-pair run of a plain layer; returns (w', z', dots (...,
+    bpl, tpb)) with rows only for this group's blocks filled
+    (``layer_thetas (..., bpl, tpb)``: the leading axes are lanes)."""
     device = w.gammas.device
     cp = circ.entangler == "cp"
     cx = circ.entangler == "cx"
@@ -711,43 +716,44 @@ def _plain_group_cosweep(circ: Ansatz, group, layer_thetas, layer_masks, w: MPS,
             los.append(lo)
         blocks_info.append((k, ctrl > targ, los.index(lo)))
 
-    dots = torch.zeros((layer_thetas.shape[0], circ.tpb), dtype=dtype, device=device)
+    dots = torch.zeros(tuple(layer_thetas.shape[:-1]) + (circ.tpb,), dtype=dtype, device=device)
     _, _, l_stack, r_stack = _env_stacks(w, z)
-    n4 = _pair_env_tensors(w, z, l_stack, r_stack, tuple(los))  # (P, 4, 4)
+    n4 = _pair_env_tensors(w, z, l_stack, r_stack, tuple(los))  # (..., P, 4, 4)
     prefix = [torch.eye(4, dtype=dtype, device=device) for _ in los]
     p11 = torch.zeros((4, 4), dtype=dtype, device=device)
     p11[3, 3] = 1.0
 
-    def sandwich(pre, op):
-        return torch.einsum("ji,jk,kl->il", pre.conj(), op, pre)
+    def dot(pre, op, p):
+        """<(pre^H op pre) w | z> at pair p, one value per lane."""
+        y4 = torch.einsum("...ji,jk,...kl->...il", pre.conj(), op, pre)
+        return (y4.conj() * n4[..., p, :, :]).sum((-2, -1))
 
     for k, ctrl_is_hi, p in blocks_info:
-        th = layer_thetas[k]
+        th = layer_thetas[..., k, :]
         msk = layer_masks[k].to(dtype)
         if cx:
             ent = _cx_lo_hi(ctrl_is_hi, dtype, device)
         elif cp:
             # CP and CZ are symmetric in their two qubits: no reordering.
-            ent = G.controlled(G.phase(th[4], dtype))
+            ent = G.controlled(G.phase(th[..., 4], dtype))
         else:
             ent = G.controlled(z_mat)
         pre = torch.matmul(ent, prefix[p])
         if cp:
-            dots[k, 4] += (-1j) * (sandwich(pre, p11).conj() * n4[p]).sum() * msk
+            dots[..., k, 4] += (-1j) * dot(pre, p11, p) * msk
         for gate_fn, pauli, on_hi, col in (
             (G.ry, y_mat, ctrl_is_hi, 0),  # on ctrl
             (G.rz, z_mat, ctrl_is_hi, 1),  # on ctrl
             (G.ry, y_mat, not ctrl_is_hi, 2),  # on targ
             (rs_fn, s_mat, not ctrl_is_hi, 3),  # on targ
         ):
-            pre = torch.matmul(_embed_1q(gate_fn(th[col], dtype), on_hi), pre)
-            y4 = sandwich(pre, _embed_pauli(pauli, on_hi))
-            dots[k, col] += 0.5j * (y4.conj() * n4[p]).sum() * msk
+            pre = torch.matmul(_embed_1q(gate_fn(th[..., col], dtype), on_hi), pre)
+            dots[..., k, col] += 0.5j * dot(pre, _embed_pauli(pauli, on_hi), p) * msk
         prefix[p] = pre
 
     order = np.argsort(los)
     w, z = _apply_pairs_both(
-        w, z, torch.stack([prefix[i] for i in order]), tuple(los[i] for i in order), trunc_thr
+        w, z, torch.stack([prefix[i] for i in order], dim=-3), tuple(los[i] for i in order), trunc_thr
     )
     return w, z, dots
 
@@ -766,20 +772,21 @@ def _fast_dot_gradient_layered_plain(
     bpl = _plain_layer_period(circ)
     layers = nb // bpl
     groups = _plain_groups(circ, bpl)
+    lead = _lead(thetas)
     thetas1q = circ.subset1q(thetas)
-    th_layers = circ.subset2q(thetas).reshape(layers, bpl, tpb)
+    th_layers = circ.subset2q(thetas).reshape(lead + (layers, bpl, tpb))
     m_layers = _masks(nb, block_range, thetas.dtype, thetas.device).reshape(layers, bpl)
 
     w, z, grad1q = _front_cosweep_batched(circ, thetas1q, lvec, vh_phi, front_layer, dtype)
     rows = []
     for j in range(layers):
-        dots = torch.zeros((bpl, tpb), dtype=dtype, device=thetas.device)
+        dots = torch.zeros(lead + (bpl, tpb), dtype=dtype, device=thetas.device)
         for group in groups:
-            w, z, d = _plain_group_cosweep(circ, group, th_layers[j], m_layers[j], w, z, trunc_thr, dtype)
+            w, z, d = _plain_group_cosweep(circ, group, th_layers[..., j, :, :], m_layers[j], w, z, trunc_thr, dtype)
             dots = dots + d
         rows.append(dots)
-    grad2q = torch.stack(rows).reshape(nb, tpb)
-    return torch.cat([grad1q.reshape(-1), grad2q.reshape(-1)])
+    grad2q = torch.stack(rows, dim=-3).reshape(lead + (nb, tpb))
+    return torch.cat([grad1q.reshape(lead + (-1,)), grad2q.reshape(lead + (-1,))], dim=-1)
 
 
 def _check_grow_w_contract(grow_w: bool, lvec: MPS) -> None:
@@ -809,8 +816,9 @@ def fast_dot_gradient(
     ``v_dagger_mul_mps_layers``, which layered Trotter ansatze consume to
     skip the z-side decompositions.  Dispatch: the z-cached Trotter path,
     the uncached Trotter path, the plain layered path, else the per-gate
-    sweep (module docstring).  ``thetas``: a tensor, or numpy on
-    ``lvec``'s device in its real precision."""
+    sweep (module docstring).  ``thetas``: a tensor ``(..., P)``, or numpy
+    on ``lvec``'s device in its real precision; on every path the leading
+    axes are lanes and the gradient is ``(..., P)``."""
     if circ.circuit_power != 1:
         # The co-sweep differentiates ONE application of V.
         raise ValueError("analytic gradient requires circuit_power == 1")

@@ -186,16 +186,33 @@ Phases, one line each:
                 profiled fleet evaluation; K2 and K3 at the folded batch B=40 χ=64 against
                 their twins and timed device-only beside B=10, with bounds.
                 The record's fleet20 path.
-  5g. fleet20cz — the MPS fleet on an ansatz outside the folded-lane
-                family: the 20q case's Trotter layout, cut to 2 layers, with
-                the cz entangler; its target V(θ*)|Neel> planted on the χ=64
-                engine; 4 lanes (θ* + 0.05 N(0,1) from seeds 5..8), maxiter
-                5, route "rand"; the lanes run the one-lane objective one after
-                another; every lane within 1e-4 of its one-lane
-                optimize_horizon_mps_jit run from the same start with equal
-                iterations, and within TOL_FINAL of its f64 re-evaluation on
-                the card; K1-K3 launches and wall times.  The record's
-                fleet20cz path.
+  5g. fleet20cz — the MPS fleet on a plain layered ansatz: the 20q case's
+                Trotter layout, cut to 2 layers, with the cz entangler; its
+                target V(θ*)|Neel> planted on the χ=64 engine; 4 lanes (θ* +
+                0.05 N(0,1) from seeds 5..8), maxiter 5, route "rand"; the
+                lanes fold into every pair update: the fleet's start
+                obj+grad against the stacked one-lane obj+grads (fobj 1e-4,
+                gradient 1e-3 relative), every lane within 1e-4 of its
+                one-lane optimize_horizon_mps_jit run from the same start
+                and within TOL_FINAL of its f64 re-evaluation on the card
+                (both sets of iterations printed: the sketch differs by
+                batch shape), K2 and K3 launched as often per fleet
+                evaluation (value, and obj+grad) as per one lane's, aten
+                ops per obj+grad each (a dispatch count), lane-sweeps/s
+                against one lane's sweeps/s in turns over two rounds
+                (fleet, one, one, fleet); K2 and K3 at the co-sweep's
+                folded batch B=80 (w and z of 4 lanes x 10 pairs) against
+                their twins and timed.  The record's fleet20cz path.
+  5h. fleet12ring — the lane checks on the per-gate path: 12 qubits, the
+                cyclic_spin layout with the cp entangler, 2 layers (the
+                wrap-around block through the swap network, the CP
+                two-point difference), χ=16, so every pair update is K1 at
+                32x32 on the "rand" route; planted target, 4 lanes, maxiter
+                5; each lane against its one-lane horizon and f64, K1
+                launched as often per fleet evaluation as per one lane's,
+                only at 32 rows; K1 at the fleet's batch B=4 32x32
+                against its twin and timed beside torch.linalg.svd.  The
+                record's fleet12ring path.
   6. slice28 — phase 3 at 28 qubits, χ=128 (BASELINE config 5): the jacobi
                 route runs K4 for every pair update at χ=128 and K1 for the
                 χ-growth heads; the final objective is re-evaluated in c128
@@ -2197,16 +2214,73 @@ def phase_fleet_dense(dev):
     return counts, counts_at, homes
 
 
+def folded_rand_rows(dev, batches, seed: int) -> dict:
+    """K2 and K3 at batches of χ=64 pair matrices (a fleet's folded pair
+    groups): each against its plain twin, then timed device-only beside the
+    twin and a library call, with its bound.  Returns {batch: {"theta_build":
+    row, "rand_tail": row}}."""
+    from aqc_research_tpu_torch.kernel_checks import lambda_check, near_threshold, path_planes
+    from aqc_research_tpu_torch.ops import rand_svd
+    from aqc_research_tpu_torch.ops import fused_rand as fr
+    from aqc_research_tpu_torch.ops.fused_pair import theta_build, theta_build_reference
+
+    rng = np.random.default_rng(seed)
+    chi, n = PATH_CHI, 2 * PATH_CHI
+    ell = rand_svd.rand_ell(n, chi)
+    rows = {}
+    for batch in batches:
+        planes = path_planes(rng, batch, chi, dev)
+        k_re, k_im = theta_build(*planes)
+        p_re, p_im = theta_build_reference(*planes)
+        rel = float((torch.linalg.matrix_norm(torch.complex(k_re - p_re, k_im - p_im))
+                     / torch.linalg.matrix_norm(torch.complex(p_re, p_im))).max())
+        check(rel <= TOL_THETA, f"theta_build at B={batch}: relative error {rel:.3g}")
+        a = torch.complex(p_re, p_im).transpose(-1, -2)
+        bm = rand_svd._range_project(a, ell, rand_svd._POWER_ITERS)
+        m_re, m_im = bm.real.contiguous(), (-bm.imag).contiguous()
+        tot2 = (p_re * p_re + p_im * p_im).sum((-2, -1))
+        thr2 = TAIL_THRESHOLDS[0] ** 2
+        kv = fr.rand_tail(m_re, m_im, tot2, thr2, chi, MAX_SWEEPS)
+        pv = fr.rand_tail_reference(m_re, m_im, tot2, thr2, chi, MAX_SWEEPS)
+        lc = lambda_check(kv[2], pv[2], near_threshold(torch.linalg.svdvals(bm), tot2, thr2, chi), TOL_S)
+        check(lc.mask_ok and lc.lam_ok, f"rand_tail at B={batch}: masks {lc.mask_ok}, |dlam| {lc.d_lam:.3g}")
+        sweeps = kv[4].cpu().numpy()
+        th_ms, _ = device_ms(lambda: theta_build(*planes))
+        tail_ms, _ = device_ms(lambda: fr.rand_tail(m_re, m_im, tot2, thr2, chi, MAX_SWEEPS))
+        th_plain = median_ms(lambda: theta_build_reference(*planes), runs=5, warmup=1)
+        tail_plain = median_ms(lambda: fr.rand_tail_reference(m_re, m_im, tot2, thr2, chi, MAX_SWEEPS), runs=1,
+                               warmup=0)
+        th_bound = bound(batch * (32.0 * chi**3 + 128.0 * chi**2), 4 * batch * (4 * 2 * chi * chi + 32 + 2 * n * n))
+        tail_bound = bound(jacobi_flops(ell, n, sweeps) + batch * 2.0 * chi * n,
+                           4 * batch * (2 * ell * n + 1 + 2 * chi * n + 2 * chi + 1))
+        g_c = torch.complex(planes[0][:, :16], planes[0][:, 16:]).reshape(batch, 2, 2, 2, 2)
+        a_c, b_c = torch.complex(planes[1], planes[2]), torch.complex(planes[3], planes[4])
+        th_lib, _ = device_ms(lambda: torch.einsum("bstuv,bvcx,buxa->btcsa", g_c, b_c, a_c))
+        # torch.linalg.svd synchronises (never queued), so few calls will do.
+        tail_lib, _ = device_ms(lambda: torch.linalg.svd(bm, full_matrices=False), calls=2, repeats=2)
+        rows[batch] = {
+            "theta_build": {"shape": f"B={batch} chi={chi}", "ms": th_ms, "plain_ms": th_plain, "bound_ms": th_bound[0],
+                            "bound_by": th_bound[1], "library_ms": th_lib, "max_abs_err": rel},
+            "rand_tail": {"shape": f"B={batch} chi={chi} ({ell}x{n})", "ms": tail_ms, "plain_ms": tail_plain,
+                          "bound_ms": tail_bound[0], "bound_by": tail_bound[1], "library_ms": tail_lib,
+                          "max_abs_err": lc.d_lam, "sweeps_max": int(sweeps.max())},
+        }
+    return rows
+
+
+def fmt_rand_rows(rows: dict) -> str:
+    return "; ".join(
+        f"{name} B={b}: {r[name]['ms']:.4f} ms device-only ({r[name]['ms'] / b * 1e3:.2f} us per matrix), plain "
+        f"{r[name]['plain_ms']:.3f} ms, library {r[name]['library_ms']:.4f} ms, bound {r[name]['bound_ms']:.5f} ms "
+        f"({r[name]['bound_by']})" for name in ("theta_build", "rand_tail") for b, r in rows.items())
+
+
 def phase_fleet_mps(dev, card_line: str):
     """The MPS fleet: phase 3's case, 4 lanes on the default route; the
     lanes fold into the batch of every pair update (checked: K2 and K3
     launch as often per fleet evaluation as per one lane's)."""
     from aqc_research_tpu_torch import config
-    from aqc_research_tpu_torch.kernel_checks import lambda_check, near_threshold, path_planes
     from aqc_research_tpu_torch.models.sp_lhs import jit_asp
-    from aqc_research_tpu_torch.ops import rand_svd
-    from aqc_research_tpu_torch.ops import fused_rand as fr
-    from aqc_research_tpu_torch.ops.fused_pair import theta_build, theta_build_reference
     from aqc_research_tpu_torch.ops.mps import MPS
     from aqc_research_tpu_torch.targets import trotter as trotop
 
@@ -2291,51 +2365,9 @@ def phase_fleet_mps(dev, card_line: str):
 
     # K2 and K3 at the folded batch: against their twins, then timed beside
     # the one-lane batch of a half-layer (B=10).
-    rng = np.random.default_rng(977)
-    chi, n = PATH_CHI, 2 * PATH_CHI
-    ell = rand_svd.rand_ell(n, chi)
     folded = lanes * BATCH
-    rows = {}
-    for batch in (BATCH, folded):
-        planes = path_planes(rng, batch, chi, dev)
-        k_re, k_im = theta_build(*planes)
-        p_re, p_im = theta_build_reference(*planes)
-        rel = float((torch.linalg.matrix_norm(torch.complex(k_re - p_re, k_im - p_im))
-                     / torch.linalg.matrix_norm(torch.complex(p_re, p_im))).max())
-        check(rel <= TOL_THETA, f"theta_build at B={batch}: relative error {rel:.3g}")
-        a = torch.complex(p_re, p_im).transpose(-1, -2)
-        bm = rand_svd._range_project(a, ell, rand_svd._POWER_ITERS)
-        m_re, m_im = bm.real.contiguous(), (-bm.imag).contiguous()
-        tot2 = (p_re * p_re + p_im * p_im).sum((-2, -1))
-        thr2 = TAIL_THRESHOLDS[0] ** 2
-        kv = fr.rand_tail(m_re, m_im, tot2, thr2, chi, MAX_SWEEPS)
-        pv = fr.rand_tail_reference(m_re, m_im, tot2, thr2, chi, MAX_SWEEPS)
-        lc = lambda_check(kv[2], pv[2], near_threshold(torch.linalg.svdvals(bm), tot2, thr2, chi), TOL_S)
-        check(lc.mask_ok and lc.lam_ok, f"rand_tail at B={batch}: masks {lc.mask_ok}, |dlam| {lc.d_lam:.3g}")
-        sweeps = kv[4].cpu().numpy()
-        th_ms, _ = device_ms(lambda: theta_build(*planes))
-        tail_ms, _ = device_ms(lambda: fr.rand_tail(m_re, m_im, tot2, thr2, chi, MAX_SWEEPS))
-        th_plain = median_ms(lambda: theta_build_reference(*planes), runs=5, warmup=1)
-        tail_plain = median_ms(lambda: fr.rand_tail_reference(m_re, m_im, tot2, thr2, chi, MAX_SWEEPS), runs=1,
-                               warmup=0)
-        th_bound = bound(batch * (32.0 * chi**3 + 128.0 * chi**2), 4 * batch * (4 * 2 * chi * chi + 32 + 2 * n * n))
-        tail_bound = bound(jacobi_flops(ell, n, sweeps) + batch * 2.0 * chi * n,
-                           4 * batch * (2 * ell * n + 1 + 2 * chi * n + 2 * chi + 1))
-        g_c = torch.complex(planes[0][:, :16], planes[0][:, 16:]).reshape(batch, 2, 2, 2, 2)
-        a_c, b_c = torch.complex(planes[1], planes[2]), torch.complex(planes[3], planes[4])
-        th_lib, _ = device_ms(lambda: torch.einsum("bstuv,bvcx,buxa->btcsa", g_c, b_c, a_c))
-        tail_lib, _ = device_ms(lambda: torch.linalg.svd(bm, full_matrices=False), calls=5, repeats=3)
-        rows[batch] = {
-            "theta_build": {"shape": f"B={batch} chi={chi}", "ms": th_ms, "plain_ms": th_plain, "bound_ms": th_bound[0],
-                            "bound_by": th_bound[1], "library_ms": th_lib, "max_abs_err": rel},
-            "rand_tail": {"shape": f"B={batch} chi={chi} ({ell}x{n})", "ms": tail_ms, "plain_ms": tail_plain,
-                          "bound_ms": tail_bound[0], "bound_by": tail_bound[1], "library_ms": tail_lib,
-                          "max_abs_err": lc.d_lam, "sweeps_max": int(sweeps.max())},
-        }
-    folded_line = "; ".join(
-        f"{name} B={b}: {r[name]['ms']:.4f} ms device-only ({r[name]['ms'] / b * 1e3:.2f} us per matrix), plain "
-        f"{r[name]['plain_ms']:.3f} ms, library {r[name]['library_ms']:.4f} ms, bound {r[name]['bound_ms']:.5f} ms "
-        f"({r[name]['bound_by']})" for name in ("theta_build", "rand_tail") for b, r in rows.items())
+    rows = folded_rand_rows(dev, (BATCH, folded), 977)
+    folded_line = fmt_rand_rows(rows)
     print(f"[fleet20] {case['about']} | {lanes} lanes (seeds {list(MPS_FLEET_SEEDS)}), maxiter 10, route "
           f"{config.svd_impl(target.device)}: fleet {fleet_s:.2f} s ({fleet_s / max(int(res.num_iters.max()), 1):.3f} "
           f"s/iter, iters {res.num_iters.tolist()}), fobj {', '.join(f'{f:.6g}' for f in fobj)} from "
@@ -2361,7 +2393,7 @@ def phase_fleet_mps(dev, card_line: str):
 TOL_PROBE = 1e-5  # the probes' bar, relative to f64 (TF32 misses it by ~1e-3)
 PROBE_PATH_SHAPES = (("K2 20q chi=64", 10, 128), ("K2/K4 28q chi=128", 14, 256))
 PROBE_PATH_SEED = 12
-# [fleet20cz]: the MPS fleet on an ansatz outside the folded-lane family.
+# [fleet20cz]: the MPS fleet on a plain layered ansatz (the cz entangler).
 # The Trotter target is out of the cz ansatz's reach from any start the
 # smoke can name (fobj stays near 1 at 20 qubits), so the phase plants its
 # solution: the target is V(θ*)|Neel> of the cz circuit (θ* = 0.3 N(0, 1),
@@ -2371,6 +2403,17 @@ PROBE_PATH_SEED = 12
 CZ_FLEET_MAXITER = 5
 CZ_FLEET_LAYERS = 2
 CZ_FLEET_PLANT, CZ_FLEET_START = 0.3, 0.05
+# A folded fleet's start obj+grad against the stacked one-lane obj+grads
+# (f32; on "rand" the sketch differs by batch shape).
+TOL_FOLD_F = 1e-4
+TOL_FOLD_G = 1e-3  # relative l2, per lane
+# [fleet12ring]: the per-gate path (a non-adjacent wrap-around block, the cp
+# entangler's two-point difference).  χ=16 puts every pair update on K1 at
+# 32x32 (below rand_svd.RAND_MIN_N the "rand" route takes K1); the target
+# is planted as [fleet20cz]'s.
+RING_FLEET_QUBITS, RING_FLEET_CHI, RING_FLEET_LAYERS = 12, 16, 2
+RING_FLEET_MAXITER = 5
+RING_FLEET_PLANT, RING_FLEET_START = 0.3, 0.05
 # [lu20]/[lu28]: the range-finder's intermediates against jacobi, in turns.
 LU_ROUTES = ("rand-qr", "rand-lu", "jacobi")
 TOL_LU_SPAN = 1e-4  # a padded sample's numerical range outside span(P L)
@@ -2508,16 +2551,143 @@ def phase_probes(dev, card_line: str):
     return (counts, counts_at, homes), record
 
 
+def aten_calls(fn):
+    """``fn()`` and the aten ops it dispatches (a TorchDispatchMode count:
+    far cheaper than a profiled run at ~10^5 ops).  Returns (result,
+    count)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        calls = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.calls += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count() as mode:
+        out = fn()
+    return out, mode.calls
+
+
+def fleet_against_lanes(tag: str, circ, xs, target, base_bits, trunc_thr, maxiter: int, kernels, aten: bool = False):
+    """The folded MPS fleet on ``circ`` from the starts ``xs`` against one
+    lane at a time, on the route in effect: the fleet horizon (its
+    launches), every lane within TOL_LANE of its one-lane horizon and within
+    TOL_FINAL of its f64 re-evaluation on the card, and the ``kernels``'
+    launches per value and per obj+grad at the starts (fleet = lane 0's >
+    0; with ``aten`` also the obj+grads' aten ops).  Returns (the fleet
+    run's launches, the phase line's text, the fleet's and lane 0's start
+    obj+grads)."""
+    from aqc_research_tpu_torch.models.sp_lhs import jit_asp
+
+    dev = target.device
+    value, value_and_grad = jit_asp._mps_value_fns(circ, base_bits, trunc_thr)
+    reset_counts()
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    res = jit_asp.optimize_horizon_mps_multistart(circ, xs, target, base_bits=base_bits, trunc_thr=trunc_thr,
+                                                  maxiter=maxiter)
+    torch.cuda.synchronize()
+    fleet_s = time.perf_counter() - tic
+    launches = (read_counts(), read_counts_at(), read_counts_home())
+    for name in kernels:
+        check(launches[0][name] > 0, f"{tag}: the fleet never launched {name}: {launches[0]}")
+    fobj = res.fobj.cpu().numpy()
+    with torch.no_grad():
+        f_start = value(xs, target).cpu().numpy()
+    check(bool(np.all(np.isfinite(fobj) & (fobj < f_start))),
+          f"{tag}: a lane did not lower fobj: {f_start.tolist()} -> {fobj.tolist()}")
+    tic = time.perf_counter()
+    f64 = np.array([f64_objective(circ, th, target, base_bits, trunc_thr, dev) for th in res.thetas])
+    check_s = time.perf_counter() - tic
+    gaps = np.abs(f64 - fobj)
+    check(float(gaps.max()) <= TOL_FINAL, f"{tag}: lanes' fobj {fobj.tolist()} vs f64 {f64.tolist()}")
+    tic = time.perf_counter()
+    ones = [jit_asp.optimize_horizon_mps_jit(circ, x, target, base_bits=base_bits, trunc_thr=trunc_thr,
+                                             maxiter=maxiter) for x in xs]
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - tic
+    gap = max(abs(float(o.fobj) - float(f)) for o, f in zip(ones, fobj))
+    fleet_iters, one_iters = res.num_iters.tolist(), [int(o.num_iters) for o in ones]
+    check(gap <= TOL_LANE, f"{tag}: lanes {fobj.tolist()} ({fleet_iters} iters) vs one-lane horizons "
+                           f"{[float(o.fobj) for o in ones]} ({one_iters} iters)")
+
+    per_eval, aten_ops, start = {}, {}, {}
+    for label, fn, x in (("fleet value", value, xs), ("one value", value, xs[0]),
+                         ("fleet obj+grad", value_and_grad, xs), ("one obj+grad", value_and_grad, xs[0])):
+        reset_counts()
+        with torch.no_grad():
+            if aten and fn is value_and_grad:
+                start[label], aten_ops[label] = aten_calls(lambda: fn(x, target))
+            else:
+                start[label] = fn(x, target)
+        torch.cuda.synchronize()
+        per_eval[label] = {name: read_counts()[name] for name in kernels}
+    for kind in ("value", "obj+grad"):
+        fl, on = per_eval[f"fleet {kind}"], per_eval[f"one {kind}"]
+        check(all(fl[name] == on[name] > 0 for name in kernels),
+              f"{tag}: launches per {kind}: fleet {fl} vs one lane {on}")
+    line = (
+        f"fleet {fleet_s:.2f} s ({fleet_s / max(max(fleet_iters), 1):.3f} s/iter, iters {fleet_iters}), fobj "
+        f"{', '.join(f'{f:.6g}' for f in fobj)} from {', '.join(f'{f:.6g}' for f in f_start)}; f64 on the card max "
+        f"gap {gaps.max():.2e} ({check_s:.1f} s) | one-lane horizons {single_s:.2f} s "
+        f"({single_s / max(sum(one_iters), 1):.3f} s/iter, iters {one_iters}), max lane gap {gap:.1e}; fleet wall / "
+        f"one-lane horizons' wall {fleet_s / single_s:.3f} | launches (fleet run) {launches[0]} (by n: "
+        f"{launches[1]}; by home: {launches[2]}) | launches per evaluation {per_eval}")
+    if aten:
+        fl, on = aten_ops["fleet obj+grad"], aten_ops["one obj+grad"]
+        line += f" | aten ops per obj+grad (dispatch count) fleet {fl}, one lane {on} ({fl / on:.3f}x)"
+    return launches, line, (start["fleet obj+grad"], start["one obj+grad"])
+
+
+def fold_costs(tag: str, circ, xs, target, base_bits, trunc_thr, fleet_og, lane0_og) -> str:
+    """What the fold costs per evaluation: the fleet's start obj+grad
+    ``fleet_og`` against the stacked one-lane obj+grads (``lane0_og`` and
+    lanes 1.. here; TOL_FOLD_F, TOL_FOLD_G), and lane-sweeps/s against one
+    lane's sweeps/s in turns over two rounds (fleet, one, one, fleet)."""
+    from aqc_research_tpu_torch.models.sp_lhs import jit_asp
+
+    tic = time.perf_counter()
+    lanes = xs.shape[0]
+    _, value_and_grad = jit_asp._mps_value_fns(circ, base_bits, trunc_thr)
+    with torch.no_grad():
+        ones = [lane0_og] + [value_and_grad(x, target) for x in xs[1:]]
+    f_one, g_one = torch.stack([f for f, _ in ones]), torch.stack([g for _, g in ones])
+    df = float((fleet_og[0] - f_one).abs().max())
+    dg = float((torch.linalg.vector_norm(fleet_og[1] - g_one, dim=-1) / torch.linalg.vector_norm(g_one, dim=-1)).max())
+    check(df <= TOL_FOLD_F and dg <= TOL_FOLD_G,
+          f"{tag}: the fleet's start obj+grad vs the stacked lanes: fobj {df:.3g} > {TOL_FOLD_F} or gradient "
+          f"relative {dg:.3g} > {TOL_FOLD_G}")
+
+    def sweep_wall(x):
+        torch.cuda.synchronize()
+        tic_ = time.perf_counter()
+        with torch.no_grad():
+            value_and_grad(x, target)
+        torch.cuda.synchronize()
+        return time.perf_counter() - tic_
+
+    walls = {"fleet": [], "one": []}
+    for label in ("fleet", "one", "one", "fleet"):
+        walls[label].append(sweep_wall(xs if label == "fleet" else xs[0]))
+    return (f"start obj+grad fleet vs stacked lanes: fobj {df:.1e}, gradient relative {dg:.1e} | obj+grad in "
+            f"turns (fleet, one, one, fleet): fleet {', '.join(f'{lanes / w:.3f}' for w in walls['fleet'])} "
+            f"lane-sweeps/s, one lane {', '.join(f'{1.0 / w:.3f}' for w in walls['one'])} sweeps/s "
+            f"({time.perf_counter() - tic:.1f} s)")
+
+
 def phase_fleet_cz(case, card_line: str):
-    """The MPS fleet on a circuit outside the folded-lane family: the
-    20q χ=64 case's Trotter layout with the cz entangler (a plain layered
-    ansatz; CZ_FLEET_* say how it is cut and where its target comes from),
-    4 lanes on the default route; each lane runs the one-lane objective,
-    so it must match its own one-lane horizon."""
+    """The MPS fleet on a plain layered ansatz: the 20q χ=64 case's Trotter
+    layout with the cz entangler (CZ_FLEET_* say how it is cut and where
+    its target comes from), 4 lanes on the default route, folded into the
+    batch of every pair update (:func:`fleet_against_lanes`: K2 and K3
+    launch as often per fleet evaluation as per one lane's; then
+    :func:`fold_costs`); then K2 and K3 at the co-sweep's folded batch (w
+    and z of 4 lanes × 10 pairs)."""
     from aqc_research_tpu_torch import config
     from aqc_research_tpu_torch.circuit.ansatz import Ansatz
     from aqc_research_tpu_torch.circuit.structures import make_trotter_like_circuit
-    from aqc_research_tpu_torch.models.sp_lhs import jit_asp
+    from aqc_research_tpu_torch.ops import mps_gradient
     from aqc_research_tpu_torch.ops.mps import mps_basis_state, v_mul_mps
 
     tic_phase = time.perf_counter()
@@ -2527,54 +2697,98 @@ def phase_fleet_cz(case, card_line: str):
     check(config.svd_impl(dev) == "rand", "fleet20cz: the default route on the card is not 'rand'")
     n = len(base_bits)
     circ = Ansatz.make(n, "cz", make_trotter_like_circuit(n, CZ_FLEET_LAYERS))
-    check(not jit_asp._layered_eligible(circ), "fleet20cz: the cz ansatz took the folded-lane path")
+    check(mps_gradient._plain_layered_eligible(circ), "fleet20cz: the cz ansatz is not on the plain layered path")
     plant = CZ_FLEET_PLANT * np.random.default_rng(4).standard_normal(circ.num_thetas)
     with torch.no_grad():
         target = v_mul_mps(circ, torch.tensor(plant, dtype=torch.float32, device=dev),
                            mps_basis_state(base_bits, chi, torch.complex64, dev), trunc_thr=trunc_thr)
     xs = torch.tensor(np.stack([plant + CZ_FLEET_START * np.random.default_rng(s).standard_normal(circ.num_thetas)
                                 for s in MPS_FLEET_SEEDS]), dtype=torch.float32, device=dev)
-    reset_counts()
-    torch.cuda.synchronize()
+    launches, run, (fleet_og, lane0_og) = fleet_against_lanes(
+        "fleet20cz", circ, xs, target, base_bits, trunc_thr, CZ_FLEET_MAXITER, ("theta_build", "rand_tail"), aten=True)
+    costs = fold_costs("fleet20cz", circ, xs, target, base_bits, trunc_thr, fleet_og, lane0_og)
     tic = time.perf_counter()
-    res = jit_asp.optimize_horizon_mps_multistart(circ, xs, target, base_bits=base_bits, trunc_thr=trunc_thr,
-                                                  maxiter=CZ_FLEET_MAXITER)
-    torch.cuda.synchronize()
-    fleet_s = time.perf_counter() - tic
-    counts, counts_at, homes = read_counts(), read_counts_at(), read_counts_home()
-    for name in ("theta_build", "rand_tail"):
-        check(counts[name] > 0, f"fleet20cz: the fleet never launched {name}: {counts}")
-    fobj = res.fobj.cpu().numpy()
-    value, _ = jit_asp._mps_value_fns(circ, base_bits, trunc_thr)
-    with torch.no_grad():
-        f_start = np.array([float(value(x, target)) for x in xs])
-    check(bool(np.all(np.isfinite(fobj) & (fobj < f_start))),
-          f"fleet20cz: a lane did not lower fobj: {f_start.tolist()} -> {fobj.tolist()}")
-    tic = time.perf_counter()
-    f64 = np.array([f64_objective(circ, th, target, base_bits, trunc_thr, dev) for th in res.thetas])
-    check_s = time.perf_counter() - tic
-    gaps = np.abs(f64 - fobj)
-    check(float(gaps.max()) <= TOL_FINAL, f"fleet20cz: lanes' fobj {fobj.tolist()} vs f64 {f64.tolist()}")
-    tic = time.perf_counter()
-    ones = [jit_asp.optimize_horizon_mps_jit(circ, x, target, base_bits=base_bits, trunc_thr=trunc_thr,
-                                             maxiter=CZ_FLEET_MAXITER) for x in xs]
-    torch.cuda.synchronize()
-    single_s = time.perf_counter() - tic
-    lane_gaps = [abs(float(o.fobj) - float(f)) for o, f in zip(ones, fobj)]
-    check(max(lane_gaps) <= TOL_LANE and [o.num_iters for o in ones] == res.num_iters.tolist(),
-          f"fleet20cz: lanes {fobj.tolist()} ({res.num_iters.tolist()} iters) vs one-lane horizons "
-          f"{[float(o.fobj) for o in ones]} ({[o.num_iters for o in ones]} iters)")
+    folded = 2 * len(MPS_FLEET_SEEDS) * (n // 2)
+    rows = folded_rand_rows(dev, (folded,), 978)
     print(f"[fleet20cz] {n}q chi={chi} {CZ_FLEET_LAYERS}-layer Trotter layout with the cz entangler "
-          f"({circ.num_thetas} thetas, lanes evaluated one after another), target V(theta*)|Neel> (theta* "
+          f"({circ.num_thetas} thetas, plain layered path, lanes folded), target V(theta*)|Neel> (theta* "
           f"{CZ_FLEET_PLANT} N(0,1), seed 4), {len(MPS_FLEET_SEEDS)} lanes (theta* + {CZ_FLEET_START} N(0,1), "
-          f"seeds {list(MPS_FLEET_SEEDS)}), maxiter {CZ_FLEET_MAXITER}, route "
-          f"{config.svd_impl(dev)}: fleet {fleet_s:.2f} s ({fleet_s / max(int(res.num_iters.max()), 1):.3f} s/iter, "
-          f"iters {res.num_iters.tolist()}), fobj {', '.join(f'{f:.6g}' for f in fobj)} from "
-          f"{', '.join(f'{f:.6g}' for f in f_start)}; f64 on the card max gap {gaps.max():.2e} ({check_s:.1f} s) | "
-          f"one-lane horizons {single_s:.2f} s, max lane gap {max(lane_gaps):.1e}, iters equal | launches (fleet "
-          f"run) {counts} (by n: {counts_at}) | phase wall {time.perf_counter() - tic_phase:.1f} s | {card_line}",
+          f"seeds {list(MPS_FLEET_SEEDS)}), maxiter {CZ_FLEET_MAXITER}, route {config.svd_impl(dev)}: {run} | "
+          f"{costs} | the co-sweep's folded batch, checked against the twins: {fmt_rand_rows(rows)} "
+          f"({time.perf_counter() - tic:.1f} s) | phase wall {time.perf_counter() - tic_phase:.1f} s | {card_line}",
           flush=True)
-    return counts, counts_at, homes
+    return launches, rows[folded]
+
+
+def k1_row(dev, batch: int, n: int, seed: int) -> dict:
+    """K1 at one path shape (graded matrices): singular values against its
+    plain twin, then timed device-only beside the twin and
+    torch.linalg.svd, with its bound."""
+    from aqc_research_tpu_torch.ops.jacobi_kernel import jacobi_rows, jacobi_rows_reference
+
+    m = torch.tensor(graded_matrices(np.random.default_rng(seed), batch, n), device=dev)
+    mt = m.transpose(-1, -2)
+    re, im = mt.real.contiguous(), mt.imag.contiguous()
+    k_re, k_im, k_sw = jacobi_rows(re, im, MAX_SWEEPS)
+    p_re, p_im, _ = jacobi_rows_reference(re, im, MAX_SWEEPS)
+    ks, ps = _factor(k_re, k_im, m)[0], _factor(p_re, p_im, m)[0]
+    err = float(((ks - ps).abs() / ps[:, :1]).max())
+    check(np.isfinite(err) and err <= TOL_S, f"K1 at B={batch} {n}x{n}: |ds|/s_max {err:.3g} > {TOL_S}")
+    sweeps = k_sw.cpu().numpy()
+    kern = timings(lambda: jacobi_rows(re, im, MAX_SWEEPS), calls=10, repeats=3)
+    plain_ms = median_ms(lambda: jacobi_rows_reference(re, im, MAX_SWEEPS), runs=3, warmup=1)
+    lib = timings(lambda: torch.linalg.svd(m, full_matrices=False), calls=3, repeats=3, runs=5)
+    bound_ms, bound_by = bound(jacobi_flops(n, n, sweeps), 4 * 4 * batch * n * n + 4 * batch)
+    return {"shape": f"B={batch} {n}x{n}", **record_times(kern, lib), "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "max_abs_err": err, "sweeps_max": int(sweeps.max())}
+
+
+def phase_fleet_ring(dev, card_line: str):
+    """The MPS fleet on the per-gate path: RING_FLEET_* (12 qubits, the
+    cyclic_spin layout, the cp entangler, 2 layers, χ=16), a planted
+    target, 4 lanes on the default route, folded into every pair update
+    (the wrap-around block's swaps and the CP shift included): K1 at 32x32
+    launches as often per fleet evaluation as per one lane's
+    (:func:`fleet_against_lanes`); then K1 at the fleet's batch B=4 against
+    its twin and timed."""
+    from aqc_research_tpu_torch import config
+    from aqc_research_tpu_torch.circuit.ansatz import Ansatz
+    from aqc_research_tpu_torch.circuit.structures import create_ansatz_structure
+    from aqc_research_tpu_torch.ops import mps_gradient
+    from aqc_research_tpu_torch.ops.mps import mps_basis_state, v_mul_mps
+
+    tic_phase = time.perf_counter()
+    config.set_precision("fast")
+    config.set_svd_impl(None)
+    check(config.svd_impl(dev) == "rand", "fleet12ring: the default route on the card is not 'rand'")
+    n, chi, trunc_thr = RING_FLEET_QUBITS, RING_FLEET_CHI, 1e-6
+    base_bits = tuple(1 if q % 2 == 0 else 0 for q in range(n))  # Neel prep
+    circ = Ansatz.make(n, "cp", create_ansatz_structure(n, "cyclic_spin", "full", RING_FLEET_LAYERS * n))
+    check(not mps_gradient._plain_layered_eligible(circ) and not mps_gradient._layered_eligible(circ),
+          "fleet12ring: the ring is not on the per-gate path")
+    plant = RING_FLEET_PLANT * np.random.default_rng(4).standard_normal(circ.num_thetas)
+    with torch.no_grad():
+        target = v_mul_mps(circ, torch.tensor(plant, dtype=torch.float32, device=dev),
+                           mps_basis_state(base_bits, chi, torch.complex64, dev), trunc_thr=trunc_thr)
+    xs = torch.tensor(np.stack([plant + RING_FLEET_START * np.random.default_rng(s).standard_normal(circ.num_thetas)
+                                for s in MPS_FLEET_SEEDS]), dtype=torch.float32, device=dev)
+    launches, run, _ = fleet_against_lanes("fleet12ring", circ, xs, target, base_bits, trunc_thr, RING_FLEET_MAXITER,
+                                           ("jacobi_rows",))
+    check(set(launches[1]["jacobi_rows"]) == {2 * chi},
+          f"fleet12ring: K1 ran at other pair sizes than {2 * chi}: {launches[1]['jacobi_rows']}")
+    tic = time.perf_counter()
+    row = k1_row(dev, len(MPS_FLEET_SEEDS), 2 * chi, 979)
+    print(f"[fleet12ring] {n}q chi={chi} cyclic_spin layout, cp entangler, {RING_FLEET_LAYERS} layers "
+          f"({circ.num_thetas} thetas, per-gate path, the wrap-around block through the swap network, lanes "
+          f"folded), target V(theta*)|Neel> (theta* {RING_FLEET_PLANT} N(0,1), seed 4), {len(MPS_FLEET_SEEDS)} lanes "
+          f"(theta* + {RING_FLEET_START} N(0,1), seeds {list(MPS_FLEET_SEEDS)}), maxiter {RING_FLEET_MAXITER}, "
+          f"route {config.svd_impl(dev)}: {run} | K1 at the fleet's batch, {row['shape']} "
+          f"(sweeps max {row['sweeps_max']}): |ds|/s_max {row['max_abs_err']:.1e} vs twin, {row['ms']:.4f} ms "
+          f"device-only, {row['call_ms']:.4f} ms per call, plain {row['plain_ms']:.3f} ms, torch.linalg.svd "
+          f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms ({row['bound_by']}) "
+          f"({time.perf_counter() - tic:.1f} s) | phase wall {time.perf_counter() - tic_phase:.1f} s | {card_line}",
+          flush=True)
+    return launches, row
 
 
 def lu_padded_check(dev, n: int, batch: int, rank: int) -> str:
@@ -3146,9 +3360,11 @@ def main() -> int:
         paths["aqc5"] = phase_aqc(dev)
         paths["fleet12"] = phase_fleet_dense(dev)
         paths["fleet20"], folded = phase_fleet_mps(dev, card_line)
-        paths["fleet20cz"] = phase_fleet_cz(case20, card_line)
+        paths["fleet20cz"], folded_cz = phase_fleet_cz(case20, card_line)
+        paths["fleet12ring"], ring_k1 = phase_fleet_ring(dev, card_line)
         for name in ("theta_build", "rand_tail"):
-            stats[name]["shapes"].append(folded[name])
+            stats[name]["shapes"] += [folded[name], folded_cz[name]]
+        stats["jacobi_rows"]["shapes"].append(ring_k1)
         case = make_case(dev, 28, PATH28_CHI, maxiter=10, f64_device=dev)
         paths["jacobi28"] = phase_slice(case, "slice28")
         paths["rand28"] = phase_rand(case, "rand28")

@@ -19,11 +19,12 @@ float64 / complex128: the same numpy-seeded starts go through
   ``optimize_horizon_mps_multistart`` at n = 3 χ = 8 and n = 6 χ = 16 on
   the "native" route: per-lane fobj within 1e-8, the same ``num_iters``;
   a wrong ``base_bits`` raises ValueError;
-* the MPS fleet on the ansatze whose engine paths take no lane axis (the
-  lanes evaluated one after another): a cz entangler on the Trotter
-  layout, a plain layered cp ansatz and a per-gate cz layout, at n = 5
-  χ = 8 on "native": every lane's θ and fobj within 1e-8 of the JAX
-  fleet's, the same ``num_iters``.
+* the MPS fleet outside the layered cx family (the lanes folded into
+  every pair update, tests/test_torch_fleet_lanes.py holds the folded
+  evaluation): a cz entangler on the Trotter layout, a plain layered cp
+  ansatz and a per-gate cz layout, at n = 5 χ = 8 on "native": every
+  lane's θ and fobj within 1e-8 of the JAX fleet's, the same
+  ``num_iters``.
 """
 
 import jax
@@ -294,8 +295,9 @@ def _other_ansatz(kind: str, n: int):
 
 @pytest.mark.parametrize("kind", ["cz-trotter", "cp-plain", "cz-pergate"])
 def test_optimize_horizon_mps_multistart_on_every_ansatz(kind):
-    """The fleet on circuits outside the layered cx family: each lane runs
-    the one-lane objective, so it follows the JAX fleet's vmapped lane."""
+    """The fleet on circuits outside the layered cx family: the lanes fold
+    into every pair update's batch, and each lane follows the JAX fleet's
+    vmapped lane."""
     n, chi = 5, 8
     ini = jtrot.neel_init_state(n)
     jt = jtrot.Trotter(num_qubits=n, evol_time=0.6, num_steps=20, delta=1.0, second_order=True).as_mps(
