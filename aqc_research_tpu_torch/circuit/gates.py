@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..config import complex_dtype, device as default_device, real_of
+from ..ops.cuda_graphs import device_table
 
 
 def _cdtype(dtype=None) -> torch.dtype:
@@ -30,10 +31,13 @@ def _dev(device):
 
 
 def _angle(angle, dtype, device) -> torch.Tensor:
-    """The angle as a real tensor of ``dtype``'s real precision."""
+    """The angle as a real tensor of ``dtype``'s real precision; a scalar
+    angle is filled in on the device (no copy from the host)."""
     rdtype = real_of(dtype)
     if isinstance(angle, torch.Tensor):
         return angle.to(rdtype)
+    if np.ndim(angle) == 0:
+        return torch.full((), float(angle), dtype=rdtype, device=_dev(device))
     return torch.as_tensor(np.asarray(angle, np.float64), dtype=rdtype, device=_dev(device))
 
 
@@ -77,7 +81,8 @@ def phase(angle, dtype=None, device=None) -> torch.Tensor:
 
 
 def _const(rows, dtype, device) -> torch.Tensor:
-    return torch.tensor(rows, dtype=_cdtype(dtype), device=_dev(device))
+    """A constant gate, built once per (dtype, device) and shared."""
+    return device_table(tuple(map(tuple, rows)), _cdtype(dtype), _dev(device))
 
 
 def x(dtype=None, device=None) -> torch.Tensor:

@@ -282,3 +282,11 @@ def set_jacobi_criterion(criterion: str | None) -> None:
 
 def jacobi_criterion() -> str:
     return _JACOBI_CRITERION
+
+
+def trace_policy() -> tuple:
+    """The global settings a pair update reads besides its route: the
+    fused-update override, the Jacobi sweep cap and criterion, and the
+    unfused-rand opt-in.  A device program bakes them in at its capture, so
+    programs are keyed on them (models/sp_lhs/jit_asp.py)."""
+    return (_FUSED_PAIR, _JACOBI_SWEEPS, _JACOBI_CRITERION, allow_unfused_rand())

@@ -2,6 +2,12 @@
 ``aqc_research_tpu/models/sp_lhs/jit_asp.py``): one horizon is a compact
 L-BFGS (optim/lbfgs.py) over a surrogate objective, on the tensors' device.
 The ``_jit`` names keep the JAX twins findable; the loops run on the host.
+The one-lane MPS horizon evaluates through device programs, the JAX
+package's jitted ``_mps_value_program`` and ``_mps_chunk_cache``: on CUDA
+each value and obj+grad is the replay of a CUDA graph captured at its first
+call, cached per (circuit, base bits, trunc_thr, route, shapes, policy) and
+pinned to its route (ops/cuda_graphs.py); on the CPU they are the eager
+functions.
 
 * **Dense** (full state vectors): :func:`make_surrogate_loss` is the
   stateless max-projection surrogate (fixed weight, hard argmax), optimized
@@ -32,7 +38,7 @@ import numpy as np
 import torch
 
 from ...circuit.ansatz import Ansatz
-from ...config import mps_watchdog_enabled, svd_impl, svd_impl_override
+from ...config import mps_watchdog_enabled, svd_impl, svd_impl_override, trace_policy
 from ...ops.mps import (
     MPS,
     mps_basis_state,
@@ -43,9 +49,10 @@ from ...ops.mps import (
     v_dagger_mul_mps_layers,
     v_mul_mps_growing,
 )
+from ...ops.cuda_graphs import ProgramCache
 from ...ops.gradients import grad_of_dot_product
 from ...ops.mps_gradient import _layered_eligible  # noqa: F401  (read as jit_asp._layered_eligible)
-from ...ops.mps_gradient import fast_dot_gradient, fast_dot_gradient_with_state
+from ...ops.mps_gradient import _check_grow_w_contract, fast_dot_gradient, fast_dot_gradient_with_state
 from ...ops.statevector import as_state, as_thetas, v_dagger_mul_vec
 from ...optim.lbfgs import (
     lane_objective,
@@ -55,7 +62,6 @@ from ...optim.lbfgs import (
     minimize_lbfgs_compact_lanes,
     minimize_lbfgs_lanes,
     run_lbfgs_chunked,
-    stateless,
 )
 
 
@@ -408,20 +414,143 @@ def _mps_value_fns(circ: Ansatz, base_bits: tuple, trunc_thr: float):
     return value, value_and_grad
 
 
+# -----------------------------------------------------------------------------
+# The MPS objective's device programs (the JAX package's jitted
+# ``_mps_value_program`` and ``_mps_chunk_cache``): on CUDA every evaluation of
+# a one-lane horizon is the replay of a CUDA graph captured at its first call
+# (ops/cuda_graphs.py), one graph per (circuit, base bits, trunc_thr, route,
+# θ shape and the target's χ, dtype and device, and the policy the pair
+# updates read); on the CPU a program is the eager function.  Each program is
+# pinned to its route, so flipping the ambient route between calls never
+# serves a stale graph.
+# -----------------------------------------------------------------------------
+
+_PROGRAMS: dict = {}
+
+
+def _wrap_svd_impl(fn, impl: str):
+    """Pins ``fn`` to one SVD route: it runs under ``svd_impl_override(impl)``
+    (programs made from it are cached keyed on ``impl``)."""
+
+    def pinned(*args):
+        with svd_impl_override(impl):
+            return fn(*args)
+
+    return pinned
+
+
+def _trace_key(impl: str) -> tuple:
+    """What a program's capture reads beyond its arguments: the route, the
+    pair updates' global policy and the range-finder's knobs."""
+    from ...ops import rand_svd
+    from ...ops.mps import pair_sharding
+
+    knobs = (rand_svd._OVERSAMPLE, rand_svd._POWER_ITERS, rand_svd._INTERMEDIATE, rand_svd.RAND_MIN_N)
+    return (impl, trace_policy(), knobs, pair_sharding() is not None)
+
+
+class _MpsProgram:
+    """An MPS objective function of ``(thetas, target)`` as device
+    programs, one per signature of its tensors and trace key."""
+
+    def __init__(self, fn, impl: str, name: str):
+        self.impl = impl
+        pinned = _wrap_svd_impl(fn, impl)
+        self.cache = ProgramCache(lambda th, g, lam: pinned(th, MPS(g, lam)), name)
+
+    def entry(self, th: torch.Tensor, tgt: MPS):
+        """The program that a call at these tensors replays."""
+        return self.cache.entry((th, tgt.gammas, tgt.lambdas), _trace_key(self.impl))
+
+    def __call__(self, th: torch.Tensor, tgt: MPS):
+        return self.entry(th, tgt)(th, tgt.gammas, tgt.lambdas)
+
+
+def _cached(key, build):
+    prog = _PROGRAMS.get(key)
+    if prog is None:
+        prog = _PROGRAMS[key] = build()
+    return prog
+
+
+def _mps_value_program(circ: Ansatz, base_bits: tuple, trunc_thr: float, impl: str) -> _MpsProgram:
+    """The objective's value as device programs pinned to ``impl``."""
+
+    def build():
+        value, _ = _mps_value_fns(circ, base_bits, trunc_thr)
+        return _MpsProgram(value, impl, "mps value")
+
+    return _cached(("value", circ, base_bits, trunc_thr, impl), build)
+
+
+def _mps_value_and_grad_program(circ: Ansatz, base_bits: tuple, trunc_thr: float, impl: str) -> _MpsProgram:
+    """The objective and its co-sweep gradient as device programs pinned to
+    ``impl``.  The co-sweep's grow_w contract (a rank-1 product lvec), which
+    the traced function skips, is checked here once, on the basis state the
+    function builds."""
+
+    def build():
+        lvec = mps_basis_state(base_bits, 2, torch.complex128, "cpu")
+        _check_grow_w_contract(v_dagger_layer_cache_eligible(circ), lvec)
+        _, value_and_grad = _mps_value_fns(circ, base_bits, trunc_thr)
+        return _MpsProgram(value_and_grad, impl, "mps obj+grad")
+
+    return _cached(("value_and_grad", circ, base_bits, trunc_thr, impl), build)
+
+
+def _mps_chunk_cache(circ: Ansatz, base_bits: tuple, trunc_thr: float, fobj_thr, maxiter: int,
+                     no_improve_iters, impl: str):
+    """The L-BFGS loop's ``(init, chunk, extract)`` over the programs of
+    ``impl``; the target rides in the loop's objective state, as the JAX
+    package threads it through its chunk programs as data.  The loop stays on
+    the host: its scalar reads fall between replays."""
+
+    def build():
+        value = _mps_value_program(circ, base_bits, trunc_thr, impl)
+        value_and_grad = _mps_value_and_grad_program(circ, base_bits, trunc_thr, impl)
+        return lbfgs_chunk_programs(
+            lambda x, tgt: (value(x, tgt), tgt),
+            lambda x, tgt: value_and_grad(x, tgt) + (tgt,),
+            maxiter=maxiter,
+            fobj_thr=fobj_thr,
+            no_improve_iters=no_improve_iters,
+        )
+
+    return _cached(("chunks", circ, base_bits, trunc_thr, fobj_thr, maxiter, no_improve_iters, impl), build)
+
+
+def mps_programs() -> list:
+    """Every device program the cached MPS programs hold (their stats say
+    what each capture cost)."""
+    return [p for prog in _PROGRAMS.values() if isinstance(prog, _MpsProgram)
+            for p in prog.cache.programs.values()]
+
+
+def release_mps_programs() -> int:
+    """Drops every cached MPS program, frees its graph and memory pool, and
+    returns the pool bytes released.  A schedule calls it between horizons:
+    a new horizon's circuit needs new programs."""
+    freed = 0
+    for prog in _PROGRAMS.values():
+        if isinstance(prog, _MpsProgram):
+            freed += sum(p.pool_bytes or 0 for p in prog.cache.programs.values())
+            prog.cache.release()
+    _PROGRAMS.clear()
+    if freed and torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return freed
+
+
 def _run_horizon(circ, x0, tgt, base_bits, trunc_thr, fobj_thr, maxiter, no_improve_iters,
-                 time_limit=None, chunk_iters=None):
-    """The L-BFGS loop over the MPS objective: in one run, or in chunks of
-    ``chunk_iters`` iterations with the clock checked between them when
+                 time_limit=None, chunk_iters=None, impl=None):
+    """The L-BFGS loop over the MPS objective's programs of ``impl`` (None:
+    the route in effect for the target's device): in one run, or in chunks
+    of ``chunk_iters`` iterations with the clock checked between them when
     ``time_limit`` > 0.  Returns (JitHorizonResult, timed_out)."""
-    value, value_and_grad = _mps_value_fns(circ, base_bits, trunc_thr)
-    programs = lbfgs_chunk_programs(
-        *stateless(lambda th: value(th, tgt), lambda th: value_and_grad(th, tgt)),
-        maxiter=maxiter,
-        fobj_thr=fobj_thr,
-        no_improve_iters=no_improve_iters,
-    )
+    impl = svd_impl(tgt.device) if impl is None else impl
+    programs = _mps_chunk_cache(circ, base_bits, trunc_thr, fobj_thr, maxiter, no_improve_iters, impl)
     res, _, timed_out = run_lbfgs_chunked(
-        programs, x0, maxiter=maxiter, time_limit=time_limit, chunk_iters=chunk_iters or max(maxiter, 1)
+        programs, x0, tgt, maxiter=maxiter, time_limit=time_limit, chunk_iters=chunk_iters or max(maxiter, 1)
     )
     return JitHorizonResult(res.thetas, res.fobj, 1.0 - res.fobj, res.num_iters, res.converged), timed_out
 
@@ -503,9 +632,8 @@ def _mps_watchdog(circ, thetas0, target, res: JitHorizonResult, *, base_bits, tr
     reference = _watchdog_reference_impl(target.device)
     if not mps_watchdog_enabled() or route == reference:
         return res
-    value, _ = _mps_value_fns(circ, base_bits, trunc_thr)
-    with svd_impl_override(reference):
-        fobj_ref = float(value(res.thetas, target))
+    check = _mps_value_program(circ, base_bits, trunc_thr, reference)
+    fobj_ref = float(check(res.thetas, target))
     fobj_opt = float(res.fobj)
     diff = abs(fobj_opt - fobj_ref)
     scale = min(abs(fobj_opt), abs(fobj_ref))
@@ -525,9 +653,8 @@ def _mps_watchdog(circ, thetas0, target, res: JitHorizonResult, *, base_bits, tr
         "re-optimizing this horizon under %s",
         fobj_opt, fobj_ref, route, reference,
     )
-    with svd_impl_override(reference):
-        return _run_horizon(circ, thetas0, target, base_bits, trunc_thr, fobj_thr,
-                            maxiter, no_improve_iters)[0]
+    return _run_horizon(circ, thetas0, target, base_bits, trunc_thr, fobj_thr, maxiter, no_improve_iters,
+                        impl=reference)[0]
 
 
 def optimize_horizon_mps_jit(

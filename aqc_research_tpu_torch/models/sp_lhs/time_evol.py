@@ -314,10 +314,20 @@ def _optimize_jit(
             fidelity_thr=fid_thr,
             maxiter=int(opts.maxiter),
         )
+        # Each horizon's circuit is new, so are its device programs: the
+        # previous horizon's graphs and memory pools go first.
+        freed = jit_asp.release_mps_programs()
         if time_limit > 0:
             res, timed_out = jit_asp.optimize_horizon_mps_timed(circ, x0, target, **timed, **kw)
         else:
             res = jit_asp.optimize_horizon_mps_jit(circ, x0, target, **kw)
+        if target.device.type == "cuda":
+            pools = sum(p.pool_bytes or 0 for p in jit_asp.mps_programs())
+            _logger.info(
+                "device programs: %d graphs, pools %0.1f MiB (%0.1f MiB freed before the horizon), "
+                "peak allocated %0.1f MiB", len(jit_asp.mps_programs()), pools / 2**20, freed / 2**20,
+                torch.cuda.max_memory_allocated(target.device) / 2**20,
+            )
         weight = 0.0
     else:
         kw = dict(

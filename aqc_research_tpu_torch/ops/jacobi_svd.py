@@ -23,6 +23,7 @@ from typing import Tuple
 import torch
 
 from ..config import jacobi_criterion, real_of
+from .cuda_graphs import tracing
 
 DEFAULT_SWEEPS = 12
 
@@ -102,7 +103,12 @@ def _adaptive_sweeps(al, ar, vl, vr, sweeps: int, criterion: str):
     batch = al.shape[:-2]
     count = torch.zeros(batch, dtype=torch.int32, device=al.device)
     active = torch.ones(batch, dtype=torch.bool, device=al.device)
+    # In a device program the loop reads no device value: every sweep runs,
+    # and once the batch has converged the sweeps after it are masked out
+    # (the same blocks and counts as the early exit).
+    going = torch.ones((), dtype=torch.bool, device=al.device) if tracing() else None
     for _ in range(sweeps):
+        before = (al, ar, vl, vr)
         resid = torch.zeros(batch, dtype=rdtype, device=al.device)
         for _ in range(2 * al.shape[-1] - 1):
             al, ar, vl, vr, r = _phase_update(al, ar, vl, vr, eps, criterion)
@@ -110,10 +116,16 @@ def _adaptive_sweeps(al, ar, vl, vr, sweeps: int, criterion: str):
             if vl is not None:
                 vl, vr = _rotate_seats(vl, vr)
             resid = torch.maximum(resid, r)
-        count += active.to(torch.int32)
+        if going is None:
+            count += active.to(torch.int32)
+            active = active & (resid >= conv_tol)
+            if not float(resid.max()) >= conv_tol:
+                break
+            continue
+        al, ar, vl, vr = (b if a is None else torch.where(going, a, b) for a, b in zip((al, ar, vl, vr), before))
+        count += (active & going).to(torch.int32)
         active = active & (resid >= conv_tol)
-        if not float(resid.max()) >= conv_tol:
-            break
+        going = going & (resid.max() >= conv_tol)
     return al, ar, vl, vr, count
 
 

@@ -40,6 +40,7 @@ from ..config import (
     svd_impl,
 )
 from . import rand_svd
+from .cuda_graphs import device_table
 from .fused_pair import fused_pair_update
 from .fused_rand import fused_rand_pair_update
 from .jacobi_kernel import jacobi_svd_kernel_top_k, truncation_supported
@@ -108,10 +109,16 @@ class MPS:
         return MPS(self.gammas[idx], self.lambdas[idx])
 
 
+def site_index(sites, device) -> torch.Tensor:
+    """The site positions ``sites`` as a long tensor on ``device``, built
+    once per (sites, device) and shared (the engine's index tables)."""
+    return device_table(tuple(int(q) for q in sites), torch.long, device)
+
+
 def _boundary(chi: int, batch, dtype, device) -> torch.Tensor:
     """The trivial bond vector e_0, shape batch + (1, chi)."""
     b = torch.zeros(tuple(batch) + (1, chi), dtype=dtype, device=device)
-    b[..., 0, 0] = 1.0
+    b[..., 0, 0].fill_(1.0)
     return b
 
 
@@ -122,9 +129,9 @@ def mps_basis_state(bits: Tuple[int, ...], chi_max: int, dtype=None, device=None
     n = len(bits)
     gammas = torch.zeros((n, 2, chi_max, chi_max), dtype=dtype, device=device)
     for q, b in enumerate(bits):
-        gammas[q, int(b), 0, 0] = 1.0
+        gammas[q, int(b), 0, 0].fill_(1.0)
     lambdas = torch.zeros((max(n - 1, 0), chi_max), dtype=real_of(dtype), device=device)
-    lambdas[:, 0] = 1.0
+    lambdas[:, 0].fill_(1.0)
     return MPS(gammas, lambdas)
 
 
@@ -193,7 +200,7 @@ def apply_1q_many(mps: MPS, gates: torch.Tensor, sites: Tuple[int, ...]) -> MPS:
     """DISTINCT 1-qubit gates (..., P, 2, 2) at distinct sites in one batched einsum."""
     if len(set(sites)) != len(sites):
         raise ValueError("apply_1q_many needs distinct sites")
-    idx = torch.as_tensor(sites, dtype=torch.long, device=mps.gammas.device)
+    idx = site_index(sites, mps.gammas.device)
     g = gates.to(mps.gammas.dtype)
     mps = broadcast_mps(mps, g.shape[:-3])
     gammas = mps.gammas.clone()
@@ -422,7 +429,7 @@ def apply_pairs_mps(
         mesh, axis = _PAIR_SHARDING
         return apply_pairs_mps_sharded(mps, gates4, lo_sites, mesh, axis=axis, trunc_thr=trunc_thr)
     dev = mps.gammas.device
-    lo = torch.as_tensor(lo_np, dtype=torch.long, device=dev)
+    lo = site_index(lo_sites, dev)
     mps = broadcast_mps(mps, gates4.shape[:-3])
     lam_ext = _lam_ext(mps)
     new_g1, new_g2, new_lam = _pair_update(
@@ -446,9 +453,8 @@ def apply_pairs_mps(
 
 
 def _swap_gate(dtype, device) -> torch.Tensor:
-    sw = torch.zeros((4, 4), dtype=dtype, device=device)
-    sw[0, 0] = sw[3, 3] = sw[1, 2] = sw[2, 1] = 1
-    return sw
+    """The SWAP gate, built once per (dtype, device) and shared."""
+    return device_table(((1, 0, 0, 0), (0, 0, 1, 0), (0, 1, 0, 0), (0, 0, 0, 1)), dtype, device)
 
 
 def apply_2q_any_mps(
@@ -523,7 +529,7 @@ def mps_dot(mps1: MPS, mps2: MPS) -> torch.Tensor:
     a1 = _folded_tensors(mps1)
     a2 = _folded_tensors(mps2)
     env = torch.zeros((mps1.chi, mps2.chi), dtype=a1.dtype, device=a1.device)
-    env[0, 0] = 1.0
+    env[0, 0].fill_(1.0)
     a1c = a1.conj()
     for q in range(mps1.num_sites):
         env = torch.einsum("...sab,...aA,...sAB->...bB", a1c[..., q, :, :, :], env, a2[..., q, :, :, :])
@@ -543,7 +549,7 @@ def mps_flip_amplitudes(mps: MPS, base_bits: Tuple[int, ...]) -> torch.Tensor:
         raise ValueError("base_bits needs one bit per site")
     a = _folded_tensors(mps)
     e0 = torch.zeros(chi, dtype=a.dtype, device=a.device)
-    e0[0] = 1.0
+    e0[0].fill_(1.0)
 
     def site(q, bit):
         return a[..., q, bit, :, :]

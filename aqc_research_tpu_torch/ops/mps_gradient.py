@@ -42,12 +42,14 @@ from .mps import (
     apply_pairs_mps,
     mps_resize,
     no_truncation_threshold,
+    site_index,
 )
+from .cuda_graphs import tracing
 
 
 def _e0(cw: int, cz: int, dtype, device) -> torch.Tensor:
     e0 = torch.zeros((cw, cz), dtype=dtype, device=device)
-    e0[0, 0] = 1.0
+    e0[0, 0].fill_(1.0)
     return e0
 
 
@@ -264,7 +266,7 @@ def _dots_from_stacks(w: MPS, z: MPS, l_stack, r_stack, pauli_mats, sites):
     """All ``<P_k w | z>`` for distinct sites in one batched contraction
     against pre-built environment stacks (valid across 1-qubit gates applied
     to both states: the per-site transfer matrix is invariant)."""
-    idx = torch.as_tensor(sites, dtype=torch.long, device=l_stack.device)
+    idx = site_index(sites, l_stack.device)
     aw, az = _folded_tensors(w), _folded_tensors(z)
     paw = torch.einsum("...pij,...pjab->...piab", pauli_mats.to(aw.dtype), aw[..., idx, :, :, :])
     x = torch.einsum("...paA,...psab->...pAsb", l_stack[..., idx, :, :], paw.conj())
@@ -324,7 +326,7 @@ def _rz_frame_lo_hi(angle, on_hi: bool, dtype, device):
 def _pair_env_tensors(w: MPS, z: MPS, l_stack, r_stack, los):
     """The 4x4 two-site environment tensors N_p of <w|z> at pairs
     (lo, lo+1): ``<(Y w)|z> = sum(conj(Y) * N)`` for any pair-local Y."""
-    idx = torch.as_tensor(los, dtype=torch.long, device=l_stack.device)
+    idx = site_index(los, l_stack.device)
     aw, az = _folded_tensors(w), _folded_tensors(z)
 
     def at(a, off):
@@ -373,7 +375,7 @@ def _triplet_prefixes(group, layer_thetas, layer_masks, dtype, device):
             ent = torch.matmul(ent, _rz_frame_lo_hi(-np.pi / 2, True, dtype, device))
         prefix = torch.matmul(ent, prefix)
 
-        blk = torch.as_tensor([3 * t + b for t in tidx], dtype=torch.long, device=device)
+        blk = site_index([3 * t + b for t in tidx], device)
         th = layer_thetas[..., blk, :]  # (..., P, tpb)
         msk = layer_masks[blk].to(dtype)  # (P,)
         specs = (
@@ -508,7 +510,7 @@ def _front_cosweep_batched(circ, thetas1q, w: MPS, z: MPS, front_layer: bool, dt
 
 def _masks(nb: int, block_range: Tuple[int, int], dtype, device) -> torch.Tensor:
     masks = torch.zeros(nb, dtype=dtype, device=device)
-    masks[block_range[0] : block_range[1]] = 1.0
+    masks[block_range[0] : block_range[1]].fill_(1.0)
     return masks
 
 
@@ -721,7 +723,7 @@ def _plain_group_cosweep(circ: Ansatz, group, layer_thetas, layer_masks, w: MPS,
     n4 = _pair_env_tensors(w, z, l_stack, r_stack, tuple(los))  # (..., P, 4, 4)
     prefix = [torch.eye(4, dtype=dtype, device=device) for _ in los]
     p11 = torch.zeros((4, 4), dtype=dtype, device=device)
-    p11[3, 3] = 1.0
+    p11[3, 3].fill_(1.0)
 
     def dot(pre, op, p):
         """<(pre^H op pre) w | z> at pair p, one value per lane."""
@@ -791,8 +793,11 @@ def _fast_dot_gradient_layered_plain(
 
 def _check_grow_w_contract(grow_w: bool, lvec: MPS) -> None:
     """grow_w truncates ``lvec`` to chi=1, which is exact ONLY for a rank-1
-    product state with all bond weight at index 0."""
-    if grow_w and bool((lvec.lambdas[..., 1:] != 0).any()):
+    product state with all bond weight at index 0.  Checked on every eager
+    call; a device program reads no device value, so the contract is checked
+    once where the program is built (ops/cuda_graphs.tracing; the JAX
+    package's rule under tracing)."""
+    if grow_w and not tracing() and bool((lvec.lambdas[..., 1:] != 0).any()):
         raise ValueError(
             "grow_w=True requires a chi=1 product-state lvec "
             "(all bond spectra confined to index 0)"

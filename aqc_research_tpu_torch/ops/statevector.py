@@ -31,6 +31,7 @@ import torch
 from ..circuit import gates as G
 from ..circuit.ansatz import Ansatz
 from ..config import complex_dtype, device as default_device, real_of
+from .cuda_graphs import device_table
 
 # -----------------------------------------------------------------------------
 # Gate-application primitives.
@@ -130,8 +131,8 @@ def block_gates(circ: Ansatz, thetas2q: torch.Tensor, dtype, dagger: bool = Fals
         eye = G.eye2(dtype, dev)
         rz_m = G.kron2(G.rz(-np.pi / 2, dtype, dev), eye)  # on ctrl, triplet start
         rz_p = G.kron2(eye, G.rz(np.pi / 2, dtype, dev))  # on targ, triplet end
-        start = torch.as_tensor(idx % 3 == 0, device=dev)[:, None, None]
-        end = torch.as_tensor(idx % 3 == 2, device=dev)[:, None, None]
+        start = device_table(tuple(bool(k) for k in idx % 3 == 0), torch.bool, dev)[:, None, None]
+        end = device_table(tuple(bool(k) for k in idx % 3 == 2), torch.bool, dev)[:, None, None]
         if dagger:
             pre = torch.where(end, torch.matmul(blocks4, rz_p.conj().T), blocks4)
             blocks4 = torch.where(start, torch.matmul(rz_m.conj().T, pre), pre)

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from ..config import real_of
-from ..ops.mps import MPS, _lam_ext, _pair_update, broadcast_mps, no_truncation_threshold
+from ..ops.mps import MPS, _lam_ext, _pair_update, broadcast_mps, no_truncation_threshold, site_index
 from .comm import all_gather, axis_of
 
 
@@ -69,7 +69,7 @@ def apply_pairs_mps_sharded(
         lo_pad = lo
     k = lo_pad.size // ax.size
     mine = slice(ax.index * k, (ax.index + 1) * k)
-    lo_mine = torch.as_tensor(lo_pad[mine], dtype=torch.long, device=dev)
+    lo_mine = site_index(lo_pad[mine], dev)
     lam_ext = _lam_ext(mps)
     new = _pair_update(
         lam_ext[..., lo_mine, :], lam_ext[..., lo_mine + 1, :], lam_ext[..., lo_mine + 2, :],
@@ -95,7 +95,7 @@ def apply_pairs_mps_sharded(
     new_g2 = torch.view_as_complex(outs[1].contiguous())
     new_lam = outs[2].to(rdtype)
 
-    lo_t = torch.as_tensor(lo, dtype=torch.long, device=dev)
+    lo_t = site_index(lo, dev)
     gammas = mps.gammas.clone()
     gammas[..., lo_t, :, :, :] = new_g1
     gammas[..., lo_t + 1, :, :, :] = new_g2

@@ -82,6 +82,23 @@ Phases, one line each:
   4. rand     — the same horizon and target under the default route, which
                 must be "rand" (K2 + range-finder + K3, K1 for the χ-growth
                 heads and the watchdog).
+  4b. graphs20 — the compiled programs (models/sp_lhs/jit_asp.py's
+                _mps_value_program and _mps_value_and_grad_program, CUDA
+                graphs through ops/cuda_graphs.py) at phase 3's case on
+                "jacobi" and "rand": per program its node count, warm-up,
+                capture and instantiate seconds, memory pool and K1-K4
+                launches per replay (recorded at capture; equal to one
+                eager evaluation's); the graphed value and obj+grad against
+                the same functions run op by op (cuda_graphs.eager():
+                fobj within 1e-6, gradient within 1e-5 relative; the
+                jacobi start objective and horizon to the digits earlier
+                runs printed); a replay at another θ must leave an earlier
+                result as it was; obj+grad sweeps/s eager and graphed in
+                turns (eager, graphed, graphed, eager); one profiled graphed
+                obj+grad (device busy, idle share, aten calls); a graphed
+                10-iteration horizon beside the eager one (equal
+                iterations, fobj within 1e-5, the graphed one against f64);
+                the pools and the peak memory; the programs are released.
   5. routes   — objective+gradient sweeps/s of both routes at the start
                 point, timed in turns in this process (rand, jacobi, jacobi,
                 rand, twice), then one profiled sweep each: device busy
@@ -220,6 +237,7 @@ Phases, one line each:
   7. rand28   — the same horizon under the default route, "rand": K2 and K3
                 (K3 at χ=64 and χ=128), K1 for the heads, K4 in the
                 watchdog's "jacobi" re-check.
+  7b. graphs28 — phase 4b at 28 qubits χ=128 (K4 on "jacobi").
   8. routes28 — phase 5 at 28 qubits: rand, jacobi (K4) and jacobi with K4
                 off (K1 at 256x256) in turns (rand, jacobi, unfused,
                 unfused, jacobi, rand; 3 sweeps each), then one
@@ -264,7 +282,12 @@ Phases, one line each:
                 the datasheet defaults ("uncalibrated: one card").  Alone:
                 ``mesh28_alone()`` (phases 1, 7 and 9).
 Phases 5 and 8 time the routes over one round of turns (two before this
-phase was added, to keep the script near half its time limit).
+phase was added, to keep the script near half its time limit).  Since the
+compiled programs, every one-lane MPS horizon on the card (phases 3, 4, 5a,
+5b, 5f-5h's one-lane references, 6, 7, 9) evaluates by graph replay, so the
+kernel launches printed and recorded are the launches that ran: the
+wrappers' eager launches, less those a capture recorded, plus each graph's
+captured launches times its replays (ops/cuda_graphs.captured/replayed).
 The λ checks of K3 and K4 (kernel_checks.lambda_check) hold λ on the values
 both sides keep, allowing for the rescale change of the keep flips that
 kernel_checks.near_threshold allows, and fail on any flip outside that set.
@@ -357,6 +380,19 @@ DENSE_DRIVER_MAXITER = 40
 HOST_MAXITER = 10
 TOL_HOST_F = 1e-4
 TOL_HOST_G = 1e-3  # relative l2
+# The compiled programs (phase [graphs]): a graphed evaluation against the
+# same function dispatched eagerly (both f32: cuSOLVER's and the kernels'
+# own order of operations may differ between calls), and a graphed horizon
+# against the eager one from the same start.
+GRAPH_ROUTES = ("jacobi", "rand")
+TOL_GRAPH_F = 1e-6  # absolute
+TOL_GRAPH_G = 1e-5  # relative l2
+TOL_GRAPH_HORIZON = 1e-5
+# The jacobi route's start objective (the value at x0) and its 10-iteration
+# horizon's final objective as the eager path prints them on the H100
+# ([slice], [slice28]).
+START_DIGITS = {20: "0.3980857", 28: "0.6090654"}
+HORIZON_DIGITS = {20: "0.004270494", 28: "0.00813967"}
 
 # Peak rates of one H100 SXM for the bounds: f32 outside the tensor cores and
 # HBM3 bandwidth (NVIDIA's data sheet, at the 700 W limit).
@@ -498,6 +534,9 @@ def kernel_counters():
 
 
 def reset_counts() -> None:
+    from aqc_research_tpu_torch.ops import cuda_graphs
+
+    cuda_graphs.reset_launch_ledger()
     for fn in kernel_counters().values():
         fn.launches = 0
         if hasattr(fn, "launches_by_kernel"):
@@ -508,25 +547,46 @@ def reset_counts() -> None:
             fn.launches_home = {}
 
 
+def _executed(name: str, field: str, counts: dict) -> dict:
+    """A wrapper's counts (``field``: "at" or "home") as launches that ran:
+    a wrapper counts when it is called, and inside a CUDA graph that is at
+    the capture, where nothing runs; the kernels run at each replay.  So the
+    launches a capture recorded are taken off and each replay's added: a
+    program's launches at capture times its replays (ops/cuda_graphs
+    ``captured`` and ``replayed``)."""
+    from aqc_research_tpu_torch.ops import cuda_graphs
+
+    out = dict(counts)
+    for ledger, sign in ((cuda_graphs.captured, -1), (cuda_graphs.replayed, 1)):
+        for key, n in ledger.items():
+            if key[0] == name and len(key) == 3 and key[1] == field:
+                out[key[2]] = out.get(key[2], 0) + sign * n
+    return dict(sorted((k, v) for k, v in out.items() if v))
+
+
 def read_counts() -> dict:
-    """Launches per kernel: a wrapper of two kernels (the tile probe's) by
-    its per-kernel counts."""
+    """Launches per kernel that ran (eager launches, and each CUDA graph's
+    captured launches times its replays; :func:`_executed`): a wrapper of
+    two kernels (the tile probe's) by its per-kernel counts."""
+    from aqc_research_tpu_torch.ops import cuda_graphs
+
     counts = {}
     for name, fn in kernel_counters().items():
-        counts.update(getattr(fn, "launches_by_kernel", {name: fn.launches}))
+        graphs = cuda_graphs.replayed[(name,)] - cuda_graphs.captured[(name,)]
+        counts.update(getattr(fn, "launches_by_kernel", {name: fn.launches + graphs}))
     return counts
 
 
 def read_counts_at() -> dict:
-    """Launches by pair-matrix size n = 2χ (K1: its row count); the tile
-    probe keeps no such count."""
-    return {name: dict(sorted(fn.launches_at.items())) for name, fn in kernel_counters().items()
+    """Launches that ran, by pair-matrix size n = 2χ (K1: its row count);
+    the tile probe keeps no such count."""
+    return {name: _executed(name, "at", fn.launches_at) for name, fn in kernel_counters().items()
             if hasattr(fn, "launches_at")}
 
 
 def read_counts_home() -> dict:
-    """K1's and K3's launches by plane home."""
-    return {name: dict(sorted(fn.launches_home.items())) for name, fn in kernel_counters().items()
+    """K1's and K3's launches that ran, by plane home."""
+    return {name: _executed(name, "home", fn.launches_home) for name, fn in kernel_counters().items()
             if hasattr(fn, "launches_home")}
 
 
@@ -1341,6 +1401,152 @@ def phase_routes(case, tag: str, routes, repeats: int, calls: int):
             f"top device: {top}")
     print(f"[{tag}] same case and start point, timed in turns ({', '.join(order[:2 * len(routes)])}) x {repeats}, "
           f"{calls} sweeps each: " + " || ".join(parts), flush=True)
+
+
+def same_digits(value: float, printed) -> bool:
+    """``value`` printed to the significant digits of ``printed`` (a string)
+    reads ``printed``; True when there is nothing to compare with."""
+    if printed is None:
+        return True
+    sig = len(printed.split(".")[1].lstrip("0"))
+    return f"{value:.{sig}g}" == printed
+
+
+def _programs_ms(program, case, x, calls: int, eager: bool) -> float:
+    """Mean host wall of ``calls`` calls of a device program at ``x``,
+    graphed or (``eager``) dispatched op by op, ending in ``synchronize()``."""
+    from aqc_research_tpu_torch.ops import cuda_graphs
+
+    with cuda_graphs.eager() if eager else contextlib.nullcontext():
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        for _ in range(calls):
+            out = program(x, case["target"])
+        torch.cuda.synchronize()
+    check(all(bool(torch.isfinite(t).all()) for t in out), "a program returned non-finite values")
+    return 1e3 * (time.perf_counter() - tic) / calls
+
+
+def _timed_horizon(case, eager: bool):
+    """``optimize_horizon_mps_jit`` on the case under the route in effect:
+    (result, fobj, seconds)."""
+    from aqc_research_tpu_torch.models.sp_lhs import jit_asp
+    from aqc_research_tpu_torch.ops import cuda_graphs
+
+    with cuda_graphs.eager() if eager else contextlib.nullcontext():
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        res = jit_asp.optimize_horizon_mps_jit(case["circ"], case["x0"], case["target"], base_bits=case["base_bits"],
+                                               trunc_thr=case["trunc_thr"], maxiter=case["maxiter"])
+        fobj = float(res.fobj)
+        torch.cuda.synchronize()
+    return res, fobj, time.perf_counter() - tic
+
+
+def _fmt_program(p) -> str:
+    st = p.stats()
+    return (f"{st['name']}: {st['nodes']} nodes, warm-up {st['warmup_s']:.2f} s, capture {st['capture_s']:.2f} s, "
+            f"instantiate {st['instantiate_s']:.2f} s, pool {st['pool_bytes'] / 2**20:.1f} MiB, "
+            f"launches per replay {st['launches']}")
+
+
+def phase_graphs(case, tag: str, card_line: str, calls: int):
+    """The MPS objective's device programs at ``case`` on "jacobi" and
+    "rand" (models/sp_lhs/jit_asp.py, ops/cuda_graphs.py): each program's
+    node count, warm-up, capture and instantiate seconds and pool; the
+    graphed value and obj+grad against the same functions dispatched
+    eagerly (the jacobi start objective and horizon also against the digits
+    the eager path prints); K1-K4 launches per graphed evaluation (recorded at capture) against one eager
+    evaluation's; an aliasing check (a replay at another θ leaves the
+    earlier result as it was, and sees its new θ); obj+grad sweeps/s,
+    eager and graphed, in turns over two rounds; one profiled graphed
+    obj+grad (device busy, idle share, aten calls); a graphed horizon
+    (programs captured) beside the eager one from the same start, equal
+    iterations, the graphed result against f64.  The programs are released
+    at the end."""
+    from aqc_research_tpu_torch import config
+    from aqc_research_tpu_torch.models.sp_lhs import jit_asp
+    from aqc_research_tpu_torch.ops import cuda_graphs
+
+    tic_phase = time.perf_counter()
+    circ, x0, target, bits, thr = (case[k] for k in ("circ", "x0", "target", "base_bits", "trunc_thr"))
+    dev = x0.device
+    gen = torch.Generator().manual_seed(1)
+    x1 = x0 + 0.01 * torch.randn(x0.shape, generator=gen, dtype=x0.dtype).to(dev)
+    kernels = ("jacobi_rows", "theta_build", "rand_tail", "fused_pair")
+    parts = []
+    for route in GRAPH_ROUTES:
+        with route_override(route):
+            impl = config.svd_impl(dev)
+            programs = {"value": jit_asp._mps_value_program(circ, bits, thr, impl),
+                        "obj+grad": jit_asp._mps_value_and_grad_program(circ, bits, thr, impl)}
+            eager, graphed, eager_launches = {}, {}, {}
+            for name, program in programs.items():
+                reset_counts()
+                with cuda_graphs.eager():
+                    eager[name] = program(x0, target)
+                eager_launches[name] = {k: n for k, n in read_counts().items() if k in kernels and n}
+                graphed[name] = program(x0, target)  # captured at its first call
+            entries = {name: program.entry(x0, target) for name, program in programs.items()}
+            for name, entry in entries.items():
+                check(entry.graph is not None, f"{tag} {route} {name}: no graph was captured")
+                got = cuda_graphs.kernel_launches(entry.launches)
+                check(got == eager_launches[name],
+                      f"{tag} {route} {name}: launches per graphed evaluation {got} vs eager {eager_launches[name]}")
+            f_e, g_e = eager["obj+grad"]
+            f_g, g_g = graphed["obj+grad"]
+            gap_f = max(abs(float(f_g) - float(f_e)), abs(float(graphed["value"]) - float(eager["value"])))
+            gap_g = rel_err(g_g, g_e)
+            check(gap_f <= TOL_GRAPH_F and gap_g <= TOL_GRAPH_G,
+                  f"{tag} {route}: graphed vs eager fobj {gap_f:.3g}, gradient {gap_g:.3g}")
+            if route == "jacobi":
+                check(same_digits(float(graphed["value"]), START_DIGITS.get(circ.num_qubits)),
+                      f"{tag}: graphed jacobi start objective {float(graphed['value']):.9g} vs the eager path's "
+                      f"{START_DIGITS.get(circ.num_qubits)}")
+            # Aliasing: a later replay writes the static outputs, never a result returned before.
+            kept = (f_g.clone(), g_g.clone())
+            f_1, g_1 = programs["obj+grad"](x1, target)
+            f_r, g_r = programs["obj+grad"](x0, target)
+            check(torch.equal(f_g, kept[0]) and torch.equal(g_g, kept[1]),
+                  f"{tag} {route}: a replay overwrote an earlier result")
+            check(not torch.equal(g_1, g_g), f"{tag} {route}: the replay at another θ returned the first result")
+            replay_gap = max(abs(float(f_r) - float(f_g)), rel_err(g_r, g_g))
+            walls = {"eager": [], "graphed": []}
+            for mode in ("eager", "graphed", "graphed", "eager"):
+                walls[mode].append(_programs_ms(programs["obj+grad"], case, x0, calls, mode == "eager"))
+            prof = profile_calls(lambda: programs["obj+grad"](x0, target))
+            prof.pop("events")
+            jit_asp.watchdog_events.clear()
+            res_g, fobj_g, s_g = _timed_horizon(case, eager=False)
+            res_e, fobj_e, s_e = _timed_horizon(case, eager=True)
+            check(res_g.num_iters == res_e.num_iters and abs(fobj_g - fobj_e) <= TOL_GRAPH_HORIZON,
+                  f"{tag} {route}: graphed horizon {fobj_g} ({res_g.num_iters} iters) vs eager {fobj_e} "
+                  f"({res_e.num_iters} iters)")
+            check(not jit_asp.watchdog_events, f"{tag} {route}: watchdog fired: {jit_asp.watchdog_events}")
+            if route == "jacobi":
+                check(same_digits(fobj_g, HORIZON_DIGITS.get(circ.num_qubits)),
+                      f"{tag}: graphed jacobi horizon {fobj_g:.9g} vs the eager path's "
+                      f"{HORIZON_DIGITS.get(circ.num_qubits)}")
+            f_check = f64_objective(circ, res_g.thetas, target, bits, thr, case["f64_device"])
+            check(abs(f_check - fobj_g) <= TOL_FINAL, f"{tag} {route}: graphed fobj {fobj_g} vs f64 {f_check}")
+        parts.append(
+            f"{route}: {' ; '.join(_fmt_program(e) for e in entries.values())} | start fobj graphed {float(f_g):.9g} "
+            f"eager {float(f_e):.9g}, value graphed {float(graphed['value']):.9g}; largest gaps fobj {gap_f:.3g}, "
+            f"gradient {gap_g:.3g} (relative l2), replay at x0 again {replay_gap:.3g}; aliasing ok | obj+grad "
+            f"sweeps/s in turns (eager, graphed, graphed, eager), {calls} each: eager "
+            f"{' / '.join(f'{1e3 / w:.3f}' for w in walls['eager'])}, graphed "
+            f"{' / '.join(f'{1e3 / w:.3f}' for w in walls['graphed'])} | profiled graphed obj+grad "
+            f"{prof['wall_ms']:.1f} ms wall, device busy {prof['busy_ms']:.1f} ms (idle {prof['idle']:.1%}), "
+            f"{prof['aten_calls']} aten calls | horizon maxiter={case['maxiter']}: graphed {fobj_g:.7g} "
+            f"{res_g.num_iters} iters {s_g / max(res_g.num_iters, 1):.3f} s/iter, eager {fobj_e:.7g} "
+            f"{res_e.num_iters} iters {s_e / max(res_e.num_iters, 1):.3f} s/iter, f64 {f_check:.7g}")
+    pools = sum(p.pool_bytes or 0 for p in jit_asp.mps_programs())
+    peak = torch.cuda.max_memory_allocated(dev)
+    freed = jit_asp.release_mps_programs()
+    print(f"[{tag}] {case['about']} | {' || '.join(parts)} | graph pools {pools / 2**20:.1f} MiB over "
+          f"{len(parts)} routes (released: {freed / 2**20:.1f} MiB), peak allocated "
+          f"{peak / 2**20:.1f} MiB | launches per replay are counted at capture | {card_line} | phase "
+          f"{time.perf_counter() - tic_phase:.1f} s", flush=True)
 
 
 @contextmanager
@@ -3352,6 +3558,7 @@ def main() -> int:
         case20 = make_case(dev, 20, PATH_CHI, maxiter=10, f64_device="cpu")
         paths["jacobi20"] = phase_slice(case20, "slice")
         paths["rand20"] = phase_rand(case20, "rand")
+        phase_graphs(case20, "graphs20", card_line, calls=3)
         phase_routes(case20, "routes", ("rand", "jacobi"), repeats=1, calls=5)
         paths["lu20"] = phase_lu(case20, "lu20", calls=3, horizon=True)
         paths["driver20"] = phase_driver()
@@ -3368,6 +3575,7 @@ def main() -> int:
         case = make_case(dev, 28, PATH28_CHI, maxiter=10, f64_device=dev)
         paths["jacobi28"] = phase_slice(case, "slice28")
         paths["rand28"] = phase_rand(case, "rand28")
+        phase_graphs(case, "graphs28", card_line, calls=2)
         phase_routes(case, "routes28", ("rand", "jacobi", "unfused"), repeats=1, calls=3)
         paths["roofline"], roof_stats, t1_s = phase_roofline(case20, case, card_line)
         stats.update(roof_stats)

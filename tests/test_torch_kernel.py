@@ -472,3 +472,47 @@ def test_lu_stab_handles_padded_pair_samples_on_card(cuda_device, n, batch, rank
     want = trs._range_project(a, ell, trs._POWER_ITERS, intermediate="qr")
     s_got, s_want = torch.linalg.svdvals(got), torch.linalg.svdvals(want)
     assert float((s_got - s_want).abs().max()) <= 1e-5 * float(s_want.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["jacobi", "rand"])
+def test_mps_programs_graph_the_objective_on_card(cuda_device, route):
+    """The MPS objective's device programs (models/sp_lhs/jit_asp.py) at 8
+    qubits χ=16 on the card: captured as CUDA graphs, equal to the same
+    functions dispatched eagerly (fobj within 1e-6, gradient within 1e-5
+    relative), with the same kernel launches per evaluation; a replay at
+    another θ leaves an earlier result as it was."""
+    from aqc_research_tpu_torch.circuit.ansatz import TrotterAnsatz
+    from aqc_research_tpu_torch.circuit.structures import make_trotter_like_circuit
+    from aqc_research_tpu_torch.models.sp_lhs import jit_asp
+    from aqc_research_tpu_torch.ops import cuda_graphs
+    from aqc_research_tpu_torch.targets.trotter import init_ansatz_to_trotter
+
+    n, chi = 8, 16
+    circ = TrotterAnsatz.make(n, make_trotter_like_circuit(n, 2), True)
+    th = init_ansatz_to_trotter(circ, np.zeros(circ.num_thetas), evol_time=1.2, delta=1.0)
+    th = th + 0.05 * np.random.default_rng(5).standard_normal(circ.num_thetas)
+    x0 = torch.tensor(th, dtype=torch.float32, device=cuda_device)
+    t = Trotter(num_qubits=n, evol_time=1.2, num_steps=3, delta=1.0, second_order=True).as_mps(
+        neel_init_state(n), trunc_thr=1e-6, chi_max=chi)
+    target = tm.MPS(t.gammas.to(cuda_device, torch.complex64), t.lambdas.to(cuda_device, torch.float32))
+    bits = tuple(1 if q % 2 == 0 else 0 for q in range(n))
+    jit_asp.release_mps_programs()
+    try:
+        program = jit_asp._mps_value_and_grad_program(circ, bits, 1e-6, route)
+        cuda_graphs.reset_launch_ledger()
+        with cuda_graphs.eager():
+            f_eager, g_eager = program(x0, target)
+        f0, g0 = program(x0, target)
+        kept = (f0.clone(), g0.clone())
+        f1, g1 = program(x0 + 0.1, target)
+        torch.cuda.synchronize()
+        entry = program.entry(x0, target)
+        assert entry.graph is not None and entry.replays == 2 and entry.nodes > 0
+        assert abs(float(f0) - float(f_eager)) <= 1e-6
+        assert float(torch.linalg.vector_norm(g0 - g_eager) / torch.linalg.vector_norm(g_eager)) <= 1e-5
+        assert torch.equal(f0, kept[0]) and torch.equal(g0, kept[1]) and not torch.equal(g1, g0)
+        assert cuda_graphs.kernel_launches(entry.launches)["jacobi_rows"] > 0
+        assert cuda_graphs.replayed == cuda_graphs.captured + cuda_graphs.captured
+    finally:
+        jit_asp.release_mps_programs()
