@@ -63,6 +63,7 @@ from ...optim.lbfgs import (
     minimize_lbfgs_lanes,
     run_lbfgs_chunked,
 )
+from ...utils.profiling import count, request, span
 
 
 class JitHorizonResult(NamedTuple):
@@ -632,9 +633,11 @@ def _mps_watchdog(circ, thetas0, target, res: JitHorizonResult, *, base_bits, tr
     reference = _watchdog_reference_impl(target.device)
     if not mps_watchdog_enabled() or route == reference:
         return res
-    check = _mps_value_program(circ, base_bits, trunc_thr, reference)
-    fobj_ref = float(check(res.thetas, target))
-    fobj_opt = float(res.fobj)
+    value_ref = _mps_value_program(circ, base_bits, trunc_thr, reference)(res.thetas, target)
+    with span("host.read"):
+        count("host_reads", 2)
+        fobj_ref = float(value_ref)
+        fobj_opt = float(res.fobj)
     diff = abs(fobj_opt - fobj_ref)
     scale = min(abs(fobj_opt), abs(fobj_ref))
     if diff <= max(_WATCHDOG_ABS, _WATCHDOG_REL * scale):
@@ -710,10 +713,12 @@ def optimize_horizon_mps_timed(
     base_t = tuple(int(b) for b in base_bits)
     fobj_thr = _loss_thr(fidelity_thr)
     no_imp = None if no_improve_iters is None else int(no_improve_iters)
-    res, timed_out = _run_horizon(circ, thetas0, target, base_t, float(trunc_thr), fobj_thr, int(maxiter),
-                                  no_imp, time_limit, int(chunk_iters))
-    res = _mps_watchdog(
-        circ, thetas0, target, res, base_bits=base_t, trunc_thr=float(trunc_thr),
-        fobj_thr=fobj_thr, maxiter=int(maxiter), no_improve_iters=no_imp,
-    )
+    with request("asp.horizon"):
+        res, timed_out = _run_horizon(circ, thetas0, target, base_t, float(trunc_thr), fobj_thr, int(maxiter),
+                                      no_imp, time_limit, int(chunk_iters))
+        with span("asp.watchdog"):
+            res = _mps_watchdog(
+                circ, thetas0, target, res, base_bits=base_t, trunc_thr=float(trunc_thr),
+                fobj_thr=fobj_thr, maxiter=int(maxiter), no_improve_iters=no_imp,
+            )
     return res, timed_out

@@ -24,7 +24,8 @@ from ... import checking as chk
 from ... import config
 from ...ops import mps as mpsop
 from ...targets import trotter as trotop
-from ...utils import MyTimer, create_logger
+from ...utils import create_logger
+from ...utils.profiling import settle, span
 from .user_options import UserOptions
 
 _logger = create_logger(__file__)
@@ -113,12 +114,25 @@ class TargetMpsState:
         return True
 
 
+def _timings(gt, t1) -> str:
+    """The log line's timings: the two evolutions' spans, while spans are
+    on (their walls hold the device's work)."""
+    return "" if gt is None else f"  |  timings: |t1_gt> {gt.seconds:.3f} s, |t1> {t1.seconds:.3f} s"
+
+
 def generate_all_mps_targets(
     *, opts: Any, num_qubits: int, second_order: bool, dtype=None, device=None
 ) -> List[TargetMpsState]:
     """Incremental MPS target generation: each horizon's circuit is applied
     to the PREVIOUS horizon's MPS.  ``dtype``/``device``: of the MPS
-    (default: the precision in effect, ``config.device()``)."""
+    (default: the precision in effect, ``config.device()``).  A
+    ``target.generate`` span over a ``target.t1_gt`` and a ``target.t1``
+    span per horizon (utils/profiling)."""
+    with span("target.generate"):
+        return _generate_mps_targets(opts, num_qubits, second_order, dtype, device)
+
+
+def _generate_mps_targets(opts, num_qubits, second_order, dtype, device) -> List[TargetMpsState]:
     _logger.info("%s: generating targets ...", generate_all_mps_targets.__name__)
     trotter_steps = np.asarray(opts.trotter_steps)
     evol_times = np.asarray(opts.evol_times)
@@ -136,11 +150,13 @@ def generate_all_mps_targets(
         )
 
     t1_gt, t1 = initial(), initial()
+    # The initial states' work (a process's first device work, with the
+    # device's start-up) stays out of the evolutions' spans.
+    settle(t1.device)
     interval = float(evol_times[0])
     nsteps = int(trotter_steps[0])
     targets: List[TargetMpsState] = []
     for i in range(evol_times.size):
-        timer = MyTimer()
         if i > 0:
             interval = float(evol_times[i] - evol_times[i - 1])
             nsteps = int(trotter_steps[i] - trotter_steps[i - 1])
@@ -152,10 +168,12 @@ def generate_all_mps_targets(
             )
             return trot.as_mps(state, trunc_thr=thr)
 
-        with timer("|t1_gt>"):
+        with span("target.t1_gt") as gt_span:
             t1_gt = evolve(t1_gt, nsteps * precise_multiplier())
-        with timer("|t1>"):
+            settle(t1_gt.device)
+        with span("target.t1") as t1_span:
             t1 = evolve(t1, nsteps)
+            settle(t1.device)
         targets.append(
             TargetMpsState(
                 opts=opts,
@@ -169,10 +187,10 @@ def generate_all_mps_targets(
             )
         )
         _logger.info(
-            "t=%0.3f: fid(|t1>, |t1_gt>) = %0.6f  |  timings: %s",
+            "t=%0.3f: fid(|t1>, |t1_gt>) = %0.6f%s",
             evol_times[i],
             trotop.fidelity(t1_gt, t1),
-            timer.rounded_metrics(3),
+            _timings(gt_span, t1_span),
         )
     return targets
 
@@ -290,16 +308,18 @@ def generate_classic_target(
         )
         return trot.as_vector(opts.ini_state_func[0](num_qubits), dtype=dtype, device=device)
 
-    timer = MyTimer()
-    with timer("|t1_gt>"):
-        t1_gt = evolve(num_trot_steps * precise_multiplier())
-    with timer("|t1>"):
-        t1 = evolve(num_trot_steps)
+    with span("target.generate"):
+        with span("target.t1_gt") as gt_span:
+            t1_gt = evolve(num_trot_steps * precise_multiplier())
+            settle(t1_gt.device)
+        with span("target.t1") as t1_span:
+            t1 = evolve(num_trot_steps)
+            settle(t1.device)
     _logger.info(
-        "t=%0.3f: fid(|t1>, |t1_gt>) = %0.6f  |  timings: %s",
+        "t=%0.3f: fid(|t1>, |t1_gt>) = %0.6f%s",
         evol_time,
         trotop.fidelity(t1_gt, t1),
-        timer.rounded_metrics(3),
+        _timings(gt_span, t1_span),
     )
     return TargetClassicState(
         opts=opts,

@@ -26,6 +26,11 @@ at replay: a program records the launches its capture made
 (:data:`captured`), and every replay adds them to :data:`replayed`, the
 ledger ``chip_smoke.py`` adds to the wrappers' counts.
 
+While spans are on (``utils/profiling``), every call of a program is a
+``program.replay`` span timed on the device by a pair of CUDA events (input
+copies, replay and output clones; an eager call on the CPU has no device
+time).  A capture is timed by :meth:`GraphProgram.stats`.
+
 :func:`device_table` holds host data (index lists, gate constants) as
 tensors built once per (values, dtype, device): a captured region may not
 copy from the host.
@@ -40,6 +45,8 @@ from collections import Counter
 from typing import Callable, Hashable, Optional, Sequence, Tuple
 
 import torch
+
+from ..utils import profiling
 
 _TRACING = 0
 _EAGER = 0
@@ -182,18 +189,21 @@ class GraphProgram:
         self.nodes = self.capture_s = self.instantiate_s = self.warmup_s = self.pool_bytes = None
 
     def __call__(self, *tensors: torch.Tensor):
-        if tensors[0].device.type != "cuda" or _EAGER:
-            with _traced():
-                return self.fn(*tensors)
-        if self.graph is None:
+        dev = tensors[0].device
+        graphed = dev.type == "cuda" and not _EAGER
+        if graphed and self.graph is None:
             self.capture(tensors)
-        for static, t in zip(self.static_in, tensors):
-            static.copy_(t)
-        self.graph.replay()
-        self.replays += 1
-        replayed.update(self.launches)
-        outs = tuple(o.clone() for o in self.static_out)
-        return outs[0] if self.single else outs
+        with profiling.device_span("program.replay", dev, program=self.name):
+            if not graphed:
+                with _traced():
+                    return self.fn(*tensors)
+            for static, t in zip(self.static_in, tensors):
+                static.copy_(t)
+            self.graph.replay()
+            self.replays += 1
+            replayed.update(self.launches)
+            outs = tuple(o.clone() for o in self.static_out)
+            return outs[0] if self.single else outs
 
     def capture(self, tensors: Sequence[torch.Tensor]) -> None:
         """Warm-up on a side stream, capture into a pool of the program's

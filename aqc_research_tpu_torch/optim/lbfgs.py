@@ -40,6 +40,8 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import count, span
+
 
 class JitMinimizeResult(NamedTuple):
     """Same fields as the JAX result (the name keeps the twin findable)."""
@@ -332,8 +334,11 @@ _LANE_FIELDS = ("x", "f", "grad", "s_hist", "y_hist", "rho_hist", "best_f", "bes
 
 
 def _read_mask(mask: torch.Tensor) -> np.ndarray:
-    """One device->host read of a lane mask."""
-    return mask.cpu().numpy().astype(bool)
+    """One device->host read of a lane mask (a ``host.read`` span and the
+    ``host_reads`` counter while spans are on)."""
+    with span("host.read"):
+        count("host_reads")
+        return mask.cpu().numpy().astype(bool)
 
 
 def _lane_index(lanes: np.ndarray, device) -> torch.Tensor:
@@ -464,70 +469,84 @@ def lbfgs_fleet_programs(
         return steps[idx], f_k[rows, idx], g_new, any_ok, ost
 
     def init(x0: torch.Tensor, obj_state0=()) -> FleetCarry:
-        x = x0.detach().clone()
-        lanes, n = x.shape
-        with torch.no_grad():
-            f, grad, ost = value_and_grad_fn(x, obj_state0)
-        stop = state_stop(f < fobj_thr_v, ost)
-        return FleetCarry(
-            it_host=np.zeros(lanes, np.int64), stop_host=_read_mask(stop), stop_mask=stop,
-            x=x, f=f, grad=grad,
-            s_hist=x.new_zeros((lanes, m, n)), y_hist=x.new_zeros((lanes, m, n)), rho_hist=x.new_zeros((lanes, m)),
-            best_f=f.clone(), best_x=x.clone(), since_best=torch.zeros(lanes, dtype=torch.long, device=x.device),
-            ost=ost,
-        )
+        with span("lbfgs.init"):
+            x = x0.detach().clone()
+            lanes, n = x.shape
+            with torch.no_grad():
+                f, grad, ost = value_and_grad_fn(x, obj_state0)
+            stop = state_stop(f < fobj_thr_v, ost)
+            return FleetCarry(
+                it_host=np.zeros(lanes, np.int64), stop_host=_read_mask(stop), stop_mask=stop,
+                x=x, f=f, grad=grad,
+                s_hist=x.new_zeros((lanes, m, n)), y_hist=x.new_zeros((lanes, m, n)),
+                rho_hist=x.new_zeros((lanes, m)), best_f=f.clone(), best_x=x.clone(),
+                since_best=torch.zeros(lanes, dtype=torch.long, device=x.device), ost=ost,
+            )
 
-    @torch.no_grad()
-    def chunk(c: FleetCarry, limit: int) -> FleetCarry:
-        while True:
-            c.stop_host = _read_mask(c.stop_mask)
-            act = np.flatnonzero(~c.stop_host & (c.it_host < limit))
-            if act.size == 0:
-                return c
-            whole = act.size == c.it_host.size
-            ia = None if whole else _lane_index(act, c.x.device)
-            x, f, grad, s_hist, y_hist, rho_hist, best_f, best_x, since_best, _ = (
-                getattr(c, name) if whole else getattr(c, name)[ia] for name in _LANE_FIELDS)
-            depth = min(m, int(c.it_host[act].max()))
-            direction = -two_loop(grad, s_hist, y_hist, rho_hist, depth)
-            # Fall back to steepest descent where the direction is not descent.
-            descent = (grad * direction).sum(-1) < 0
-            direction = torch.where(descent[:, None], direction, -grad)
-            slope = (grad * direction).sum(-1)
+    def iterate(c: FleetCarry, act: np.ndarray) -> None:
+        """One L-BFGS iteration of the lanes ``act`` (direction, line search,
+        gradient at the accepted point, histories), in place."""
+        whole = act.size == c.it_host.size
+        ia = None if whole else _lane_index(act, c.x.device)
+        x, f, grad, s_hist, y_hist, rho_hist, best_f, best_x, since_best, _ = (
+            getattr(c, name) if whole else getattr(c, name)[ia] for name in _LANE_FIELDS)
+        depth = min(m, int(c.it_host[act].max()))
+        direction = -two_loop(grad, s_hist, y_hist, rho_hist, depth)
+        # Fall back to steepest descent where the direction is not descent.
+        descent = (grad * direction).sum(-1) < 0
+        direction = torch.where(descent[:, None], direction, -grad)
+        slope = (grad * direction).sum(-1)
 
-            if k_grid is not None and fuse_linesearch_grad:
+        if k_grid is not None and fuse_linesearch_grad:
+            with span("lbfgs.linesearch"):
                 step, f_new, g_new, ok, ost = grid(x, f, direction, slope, c.ost, True)
-                x_new = x + step[:, None] * direction
-            else:
+            x_new = x + step[:, None] * direction
+        else:
+            with span("lbfgs.linesearch"):
                 if k_grid is None:
                     step, f_new, ok, ost = backtrack(x, f, direction, slope, c.ost)
                 else:
                     step, f_new, _, ok, ost = grid(x, f, direction, slope, c.ost, False)
-                x_new = x + step[:, None] * direction
+            x_new = x + step[:, None] * direction
+            with span("lbfgs.grad"):
                 _, g_new, ost = value_and_grad_fn(x_new, ost)
 
-            s = x_new - x
-            y = g_new - grad
-            sy = (s * y).sum(-1)
-            accept = sy > 1e-10
-            s_hist = _push(s_hist, s, accept)
-            y_hist = _push(y_hist, y, accept)
-            rho_hist = _push(rho_hist, 1.0 / torch.clamp(sy, min=1e-30), accept)
+        s = x_new - x
+        y = g_new - grad
+        sy = (s * y).sum(-1)
+        accept = sy > 1e-10
+        s_hist = _push(s_hist, s, accept)
+        y_hist = _push(y_hist, y, accept)
+        rho_hist = _push(rho_hist, 1.0 / torch.clamp(sy, min=1e-30), accept)
 
-            improved = f_new < best_f
-            best_f = torch.where(improved, f_new, best_f)
-            best_x = torch.where(improved[:, None], x_new, best_x)
-            since_best = torch.where(improved, torch.zeros_like(since_best), since_best + 1)
-            stop = state_stop((f_new < fobj_thr_v) | (since_best > no_imp) | ~ok, ost)
+        improved = f_new < best_f
+        best_f = torch.where(improved, f_new, best_f)
+        best_x = torch.where(improved[:, None], x_new, best_x)
+        since_best = torch.where(improved, torch.zeros_like(since_best), since_best + 1)
+        stop = state_stop((f_new < fobj_thr_v) | (since_best > no_imp) | ~ok, ost)
 
-            new = (x_new, f_new, g_new, s_hist, y_hist, rho_hist, best_f, best_x, since_best, stop)
-            for name, val in zip(_LANE_FIELDS, new):
-                if whole:
-                    setattr(c, name, val)
-                else:
-                    getattr(c, name)[ia] = val
-            c.ost = ost
-            c.it_host[act] += 1
+        new = (x_new, f_new, g_new, s_hist, y_hist, rho_hist, best_f, best_x, since_best, stop)
+        for name, val in zip(_LANE_FIELDS, new):
+            if whole:
+                setattr(c, name, val)
+            else:
+                getattr(c, name)[ia] = val
+        c.ost = ost
+        c.it_host[act] += 1
+
+    @torch.no_grad()
+    def chunk(c: FleetCarry, limit: int) -> FleetCarry:
+        c.stop_host = _read_mask(c.stop_mask)
+        while True:
+            act = np.flatnonzero(~c.stop_host & (c.it_host < limit))
+            if act.size == 0:
+                return c
+            # One pass over the running lanes; its span closes after the
+            # stop-mask read that ends it, so its wall holds the device time
+            # of the accepted point's gradient.
+            with span("lbfgs.iteration"):
+                iterate(c, act)
+                c.stop_host = _read_mask(c.stop_mask)
 
     def extract(c: FleetCarry) -> Tuple[FleetResult, Any]:
         return FleetResult(c.best_x, c.best_f, c.it_host.copy(), c.stop_host.copy(), c.x), c.ost

@@ -150,22 +150,40 @@ def test_same_key_same_program_and_new_keys_new_ones(monkeypatch):
     assert tja.mps_programs() == [] and value.cache.programs == {}
 
 
-def test_programs_stay_pinned_to_their_route():
+def test_programs_stay_pinned_to_their_route(monkeypatch):
     """A program built for "jacobi" runs "jacobi" under any ambient route:
-    flipping the route between calls never serves a stale program."""
+    flipping the route between calls never serves a stale program.  Which
+    route ran is read from spies on the routes' SVD entries
+    (``torch.linalg.svd`` for "native", the Jacobi twin and kernel wrapper
+    for "jacobi"): the two routes' f32 values may tie in every bit."""
+    ran = Counter()
+
+    def spy(route, fn):
+        def entry(*args, **kwargs):
+            ran[route] += 1
+            return fn(*args, **kwargs)
+
+        return entry
+
+    monkeypatch.setattr(torch.linalg, "svd", spy("native", torch.linalg.svd))
+    monkeypatch.setattr(tm, "jacobi_svd_top_k", spy("jacobi", tm.jacobi_svd_top_k))
+    monkeypatch.setattr(tm, "jacobi_svd_kernel_top_k", spy("jacobi", tm.jacobi_svd_kernel_top_k))
     _, tc, _, th, tgt = _case("trotter", torch.complex64)
     value, _ = tja._mps_value_fns(tc, BITS, THR)
     with config.svd_impl_override("jacobi"):
         f_jacobi = value(th, tgt)
     with config.svd_impl_override("native"):
         f_native = value(th, tgt)
-    assert not torch.equal(f_jacobi, f_native)
     jacobi_program = tja._mps_value_program(tc, BITS, THR, "jacobi")
     native_program = tja._mps_value_program(tc, BITS, THR, "native")
     for ambient in ("native", "jacobi", "rand"):
         with config.svd_impl_override(ambient):
+            ran.clear()
             assert torch.equal(jacobi_program(th, tgt), f_jacobi)
+            assert ran["jacobi"] > 0 and ran["native"] == 0, (ambient, ran)
+            ran.clear()
             assert torch.equal(native_program(th, tgt), f_native)
+            assert ran["native"] > 0 and ran["jacobi"] == 0, (ambient, ran)
 
 
 def test_the_contract_is_checked_once_per_program(monkeypatch):

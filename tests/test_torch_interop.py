@@ -234,12 +234,7 @@ def test_profiling_helpers_on_the_cpu(tmp_path):
     assert any("matmul" in e.key or "mm" in e.key for e in prof.key_averages())
     events = json.loads((tmp_path / "trace" / "trace.json").read_text())
     assert events["traceEvents"]
-    results = {}
-    with profiling.device_timer("mm", results) as r:
-        r["out"] = tm.MPS(y[None, None, None], y[None, :1])
-    assert results["mm"] >= 0.0
-    secs, out = profiling.time_jitted(torch.matmul, x, x, repeats=3, warmup=1)
-    assert secs > 0 and torch.equal(out, y)
+    assert torch.equal(y, x @ x)
 
 
 def test_kernel_library_is_built_once_per_host(tmp_path):

@@ -67,6 +67,10 @@ ABSENT = {
                                                    "shard (shard_state)"),
     ("parallel/mesh.py", "batch_sharding"): (None, "a NamedSharding: each rank holds its rows (shard_batch)"),
     ("parallel/mesh.py", "replicated"): (None, "a NamedSharding: a replicated value is every rank's own copy"),
+    ("utils/profiling.py", "device_timer"): (None, "nothing in the port read it; spans time the program's "
+                                                   "layers and CUDA events its replays (span, device_span)"),
+    ("utils/profiling.py", "time_jitted"): (None, "nothing in the port read it; the benchmark (h100bench) and "
+                                                  "the program's spans time the programs"),
 }
 
 
