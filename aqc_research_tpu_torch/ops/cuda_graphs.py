@@ -110,10 +110,11 @@ def reset_launch_ledger() -> None:
 def _kernel_wrappers() -> dict:
     from .fused_pair import fused_pair, theta_build
     from .fused_rand import rand_tail
+    from .householder_qr import householder_qr
     from .jacobi_kernel import jacobi_rows
 
     return {"jacobi_rows": jacobi_rows, "theta_build": theta_build, "rand_tail": rand_tail,
-            "fused_pair": fused_pair}
+            "fused_pair": fused_pair, "householder_qr": householder_qr}
 
 
 def _launch_snapshot() -> Counter:

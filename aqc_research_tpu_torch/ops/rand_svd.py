@@ -14,8 +14,8 @@ the Jacobi problem to l = chi + 8 columns first:
 The reduced Jacobi on B^H and the truncation then run in the rand-tail
 kernel (ops/fused_rand.py), or, in the unfused :func:`rand_svd_top_k`, in
 the Jacobi-rows kernel K1 on the (l, n) rows of B^H.  Steps 1-4 are plain
-torch ops (batched complex products and Householder QR), as the JAX package
-leaves them to XLA.
+torch products, as the JAX package leaves them to XLA, and, on CUDA, the
+hand-written batched Householder QR of ops/householder_qr.py.
 
 The sketch Omega is a real Gaussian drawn once per (b, n, l, dtype, device)
 from a CPU ``torch.Generator`` seeded with the JAX package's constant
@@ -38,6 +38,7 @@ from typing import Tuple
 
 import torch
 
+from . import householder_qr
 from .jacobi_kernel import _sort_guard_top_k, jacobi_rows
 from .jacobi_svd import DEFAULT_SWEEPS
 
@@ -71,29 +72,22 @@ def rand_ell(n: int, k: int, oversample: int | None = None) -> int:
     return ell + ell % 2
 
 
-def qr_chunk(rows: int) -> int:
-    """The most matrices of ``rows`` rows that one CUDA ``torch.linalg.qr``
-    call may take and still factor them with cuSOLVER's geqrf, one matrix
-    after another: torch hands a batch to cuBLAS's batched geqrf when
-    rows <= 256 and the batch holds at least max(2, rows // 16) matrices."""
-    if rows > 256:
-        return 1 << 30
-    return max(1, max(2, rows // 16) - 1)
-
-
 def _orth(y: torch.Tensor) -> torch.Tensor:
     """Orthonormal basis of the columns of each ``y`` (b, n, l): Householder
     QR, backward-stable at any condition (CholeskyQR squares the graded
     sample's condition past f32).
 
-    On CUDA the batch goes in chunks of :func:`qr_chunk` matrices: cuBLAS's
-    batched geqrf returns NaN for a sample whose nonzero rows lie in the two
-    blocks {0..r-1} and {χ..χ+r-1} that the zero padding of θ leaves at a
-    bond rank r < χ (every pair update of the 20-qubit χ=64 cell; H100,
-    torch 2.11), while cuSOLVER's geqrf factors it as LAPACK does."""
-    if y.device.type != "cuda":
+    On CUDA, n <= 256 (every range-finder shape the engine makes: n = 2χ,
+    l = χ + 8), the whole batch goes to the hand-written kernel
+    (ops/householder_qr.py) in one launch; it returns finite, orthonormal
+    columns on the zero-padded pair samples, where cuBLAS's batched geqrf
+    returns NaN.  CUDA inputs with n > 256 take ``torch.linalg.qr``,
+    which factors them with cuSOLVER's geqrf one matrix after another
+    (torch's batched path takes at most 256 rows).  The CPU takes
+    ``torch.linalg.qr`` (LAPACK)."""
+    if y.device.type != "cuda" or y.shape[-2] > householder_qr.MAX_ROWS:
         return torch.linalg.qr(y, mode="reduced")[0]
-    return torch.cat([torch.linalg.qr(c, mode="reduced")[0] for c in y.split(qr_chunk(y.shape[-2]))])
+    return householder_qr.householder_qr(y.contiguous())
 
 
 def sketch(b: int, n: int, ell: int, dtype: torch.dtype, device) -> torch.Tensor:

@@ -8,11 +8,13 @@ flagship and the driver's dense objective), approximate quantum compiling
 and the multi-start fleets (dense and MPS), and the multi-GPU engines on
 torch.distributed (one process per card).
 
-Six kernel sources are built: jacobi_rows.cu (K1), theta_build.cu (K2),
-rand_tail.cu (K3), fused_pair.cu (K4), tile_probe.cu (the probe) and
-attainable.cu (the roofline's attainable-rate microkernels).
+Seven kernel sources are built: jacobi_rows.cu (K1), theta_build.cu (K2),
+rand_tail.cu (K3), fused_pair.cu (K4), householder_qr.cu (Q1, the
+range-finder's batched QR), tile_probe.cu (the probe) and attainable.cu
+(the roofline's attainable-rate microkernels).
 
 Usage:  python3 chip_smoke.py        (from the root of a checkout; one card)
+        python3 chip_smoke.py qr     (the device phase and phase 2e alone)
 
 Phases, one line each:
   1. device   — the card's name and power limit; build and load the kernels
@@ -44,6 +46,13 @@ Phases, one line each:
                 A/B behind ops/fused_pair.theta_tile_edge).  Also the
                 range-finder on zero-padded pair matrices of 128 and 256
                 rows, where torch's batched CUDA QR returns NaN.
+  2e. qr      — (after 2b) Q1, the batched Householder QR of the
+                range-finder (ops/householder_qr.py), at (14, 256, 136),
+                (14, 128, 72) and (80, 128, 72) on graded and zero-padded
+                samples: finite, orthonormal, spanning, columns against
+                cuSOLVER's; timed at every cluster size beside its twin and
+                torch.linalg.qr in chunks that cuSOLVER factors one matrix
+                at a time, with the card's bound ([qr] lines).
   2c. fused   — K4 fused_pair vs its plain twin at B=10, χ in {8, 16, 32,
                 64} (planes in one block's shared memory), {96, 100, 128}
                 (the cluster path: planes in the distributed shared memory
@@ -905,9 +914,8 @@ def phase_rand_kernels(dev):
 
     # The range-finder on pair matrices in the θ layout's zero padding
     # (bonds of rank 4 of χ=64; rank 20 of χ=128): torch's batched CUDA QR
-    # returns NaN there, so rand_svd._orth factors chunks of qr_chunk(rows)
-    # matrices (7 at 128 rows, 15 at 256), which stay on cuSOLVER's
-    # one-matrix path; 16 matrices of 256 rows are one chunk past it.
+    # returns NaN there; rand_svd._orth's batched Householder kernel
+    # (ops/householder_qr.py) takes the whole batch.
     pads = []
     for n, batch, rank in ((2 * PATH_CHI, BATCH, 4), (2 * PATH28_CHI, 16, PAD_RANK)):
         ell = rand_svd.rand_ell(n, n // 2)
@@ -922,7 +930,7 @@ def phase_rand_kernels(dev):
         s_want = torch.linalg.svdvals(rand_svd._range_project(pad, ell, rand_svd._POWER_ITERS))
         d_pad = float((s_got - s_want).abs().max() / s_want.max())
         check(d_pad <= TOL_S, f"range-finder on padded pairs of {n} rows: |ds|/s_max {d_pad:.3g} vs LAPACK > {TOL_S}")
-        pads.append(f"{batch}x{n}x{n} ({2 * rank} nonzero rows, qr_chunk {rand_svd.qr_chunk(n)}): batched "
+        pads.append(f"{batch}x{n}x{n} ({2 * rank} nonzero rows): batched "
                     f"torch.linalg.qr NaN in {batched_nan}/{batch} matrices, rand_svd._orth finite, "
                     f"|ds|/s_max vs LAPACK {d_pad:.2e}")
 
@@ -2116,9 +2124,12 @@ MPS_FLEET_SEEDS = (5, 6, 7, 8)
 
 
 def count_qr_calls(fn) -> int:
-    """The ``torch.linalg.qr`` calls ``fn()`` makes (the range-finder's,
-    ops/rand_svd._orth), counted by a spy on the function."""
-    real, calls = torch.linalg.qr, [0]
+    """The range-finder's QR calls (ops/rand_svd._orth) that ``fn()``
+    makes: ``torch.linalg.qr`` calls, counted by a spy on the function, and
+    launches of the batched Householder kernel."""
+    from aqc_research_tpu_torch.ops.householder_qr import householder_qr
+
+    real, calls = torch.linalg.qr, [-householder_qr.launches]
 
     def spy(*args, **kwargs):
         calls[0] += 1
@@ -2129,7 +2140,7 @@ def count_qr_calls(fn) -> int:
         fn()
     finally:
         torch.linalg.qr = real
-    return calls[0]
+    return calls[0] + householder_qr.launches
 
 
 def evals_per_s(fn, reps: int = 10) -> float:
@@ -3049,7 +3060,7 @@ def phase_lu(case, tag: str, calls: int, horizon: bool):
     for route in LU_ROUTES:
         with route_override(route), torch.no_grad():
             qr_calls[route] = count_qr_calls(lambda: value_and_grad(case["x0"], case["target"]))
-    check(qr_calls["jacobi"] == 0 and 0 < qr_calls["rand-lu"] < qr_calls["rand-qr"], f"{tag}: linalg_qr {qr_calls}")
+    check(qr_calls["jacobi"] == 0 and 0 < qr_calls["rand-lu"] < qr_calls["rand-qr"], f"{tag}: QR calls {qr_calls}")
     profiles = {route: profile_sweep(value_and_grad, case, route) for route in LU_ROUTES[:2]}
     launches = None
     hline = ""
@@ -3059,7 +3070,7 @@ def phase_lu(case, tag: str, calls: int, horizon: bool):
         launches = (launches, launches_at, launches_home)
         hline = f" | rand-lu horizon: {line}"
     rates = " || ".join(f"{route}: {' / '.join(f'{1e3 / w:.3f}' for w in walls[route])} sweeps/s, "
-                        f"{qr_calls[route]} linalg_qr per sweep" for route in LU_ROUTES)
+                        f"{qr_calls[route]} QR calls per sweep" for route in LU_ROUTES)
     profs = " || ".join(
         f"{route}: {p['wall_ms']:.1f} ms wall, device busy {p['busy_ms']:.1f} ms (idle {p['idle']:.1%}), "
         f"{p['aten_calls']} aten calls; top device: {', '.join(f'{k} {ms:.1f} ms x{n}' for k, ms, n in p['top'][:4])}"
@@ -3539,6 +3550,70 @@ KERNELS = (
 )
 
 
+# The batched Householder QR (Q1) at the range-finder's shapes: a half-layer
+# at 28q χ=128 and at χ=64, and the folded fleet's batch.
+QR_SHAPES = ((PATH28_BATCH, 2 * PATH28_CHI, PATH28_CHI + 8), (PATH28_BATCH, 2 * PATH_CHI, PATH_CHI + 8),
+             (80, 2 * PATH_CHI, PATH_CHI + 8))
+
+
+def qr_bound_ms(batch: int, n: int, ell: int) -> float:
+    """The card's least time for ``batch`` QRs with Q formed: max(flop / 67
+    TFLOP/s, bytes / 3.35 TB/s), flop 4 (2 n l^2 - 2 l^3 / 3) each for
+    geqrf and for ungqr (complex), bytes Y read and Q written."""
+    flop = 2 * 4 * (2 * n * ell**2 - 2 * ell**3 / 3) * batch
+    return 1e3 * max(flop / 67e12, 2 * 8 * n * ell * batch / 3.35e12)
+
+
+def phase_qr(dev, card_line: str) -> None:
+    """Q1 against its twin and cuSOLVER (torch.linalg.qr in chunks of
+    max(2, n // 16) - 1 matrices, which cuSOLVER factors one at a time:
+    cuBLAS's batched geqrf returns NaN on padded samples) on graded and
+    zero-padded samples, then timed: every cluster size, the twin, the
+    chunked cuSOLVER calls; one [qr] line per shape."""
+    from aqc_research_tpu_torch.kernel_checks import padded_pair_batch
+    from aqc_research_tpu_torch.ops import cuda_build, rand_svd
+    from aqc_research_tpu_torch.ops import householder_qr as hq
+
+    rng = np.random.default_rng(21)
+    for batch, n, ell in QR_SHAPES:
+        g = rng.standard_normal((batch, n, ell)) + 1j * rng.standard_normal((batch, n, ell))
+        u, _, vh = np.linalg.svd(g, full_matrices=False)
+        graded = torch.tensor((u * 10.0 ** (-2.0 * np.arange(ell) / (ell - 1))) @ vh, dtype=torch.complex64,
+                              device=dev)
+        pad = padded_pair_batch(rng, batch, n, PAD_RANK).to(dev)
+        padded = torch.matmul(pad, rand_svd.sketch(batch, n, ell, pad.dtype, dev))
+        chunk = max(1, max(2, n // 16) - 1)
+
+        def cusolver(y):
+            return torch.cat([torch.linalg.qr(c, mode="reduced")[0] for c in y.split(chunk)])
+
+        errs = {}
+        for label, y in (("graded", graded), ("padded", padded)):
+            q = hq.householder_qr(y)
+            eye = torch.eye(ell, dtype=q.dtype, device=dev)
+            orth = float((q.mH @ q - eye).abs().max())
+            span = float((y - q @ (q.mH @ y)).abs().max() / y.abs().max())
+            check(bool(torch.isfinite(torch.view_as_real(q)).all()) and orth <= 2e-5 and span <= 2e-5,
+                  f"qr {batch}x{n}x{ell} {label}: orthonormality {orth:.2e}, span {span:.2e}")
+            errs[label] = f"orth {orth:.1e} span {span:.1e}"
+        d_ref = float((hq.householder_qr(graded) - cusolver(graded)).abs().max())
+        check(d_ref <= 1e-4, f"qr {batch}x{n}x{ell}: columns differ from cuSOLVER's by {d_ref:.2e}")
+        rule = hq.qr_cluster(n, ell, cuda_build.max_smem(0), batch, cuda_build.sm_count(0))
+        times = {}
+        for cluster in hq.CLUSTERS:
+            if -(-n // cluster) <= hq.MAX_CTA_ROWS:
+                for label, y in (("graded", graded), ("padded", padded)):
+                    times[(cluster, label)] = timings(lambda y=y, c=cluster: hq.householder_qr(y, cluster=c))
+        twin = median_ms(lambda: hq.householder_qr_reference(graded), runs=5, warmup=1)
+        lib = timings(lambda: cusolver(graded), calls=3, repeats=3, runs=5)
+        bound = qr_bound_ms(batch, n, ell)
+        best = times[(rule, "graded")]["ms"]
+        per = " | ".join(f"{'*' if c == rule else ''}cluster {c} {label}: {fmt(t)}" for (c, label), t in times.items())
+        print(f"[qr] {batch}x{n}x{ell} | {errs['graded']} (graded), {errs['padded']} (padded, rank {2 * PAD_RANK}) | "
+              f"vs cuSOLVER {d_ref:.1e} | {per} | twin {twin:.3f} ms per call | cuSOLVER chunks of {chunk}: "
+              f"{fmt(lib)} | bound {bound:.4f} ms, kernel {best / bound:.1f}x | {card_line}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke run needs one card", file=sys.stderr)
@@ -3547,10 +3622,18 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     tic = time.perf_counter()
+    if sys.argv[1:] == ["qr"]:
+        try:
+            phase_qr(dev, phase_device())
+        except (SmokeFailure, RuntimeError, ValueError) as exc:
+            print(f"chip_smoke: FAILED: {type(exc).__name__}: {exc}", file=sys.stderr)
+            return 1
+        return 0
     try:
         card_line = phase_device()
         stats = {"jacobi_rows": phase_kernel(dev)}
         stats["theta_build"], stats["rand_tail"] = phase_rand_kernels(dev)
+        phase_qr(dev, card_line)
         stats["fused_pair"] = phase_fused(dev)
         paths = {}
         paths["probes"], probe_stats = phase_probes(dev, card_line)

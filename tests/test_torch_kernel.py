@@ -393,12 +393,11 @@ def test_rand_route_with_fusion_off_runs_k1_on_card(cuda_device):
 @pytest.mark.cuda
 def test_range_finder_at_256_rows_on_card(cuda_device):
     """The 28q chi=128 pair matrices: 256 rows, 14 matrices (one
-    half-layer), zero-padded as θ is.  ``qr_chunk(256)`` = 15, so the
-    half-layer stays on cuSOLVER's one-matrix path; B must be finite and
-    match LAPACK's on the host."""
+    half-layer), zero-padded as θ is.  The range-finder's QR runs in the
+    batched Householder kernel; B must be finite and match LAPACK's on the
+    host."""
     a = padded_pair_batch(np.random.default_rng(4), 14, 256, 20)
     ell = trs.rand_ell(256, 128)
-    assert trs.qr_chunk(256) == 15
     got = trs._range_project(a.to(cuda_device), ell, trs._POWER_ITERS).cpu()
     want = trs._range_project(a, ell, trs._POWER_ITERS)
     assert bool(torch.isfinite(torch.view_as_real(got)).all())
@@ -411,14 +410,14 @@ def test_range_finder_handles_rank_deficient_batches_on_card(cuda_device):
     """Pair matrices of rank-4 bonds held at χ=64, zero-padded as θ is
     (nonzero rows in two blocks at 0 and χ), in a batch of 10: torch's
     batched CUDA QR returns NaN on their samples, so this batch shows the
-    fault that ``rand_svd._orth`` works around.  The range-finder must
-    return a finite B whose singular values match LAPACK's on the host."""
+    fault that ``rand_svd._orth``'s kernel (ops/householder_qr.py) does
+    not have.  The range-finder must return a finite B whose singular
+    values match LAPACK's on the host."""
     a = padded_pair_batch(np.random.default_rng(3), 10, 128, 4)
     ell = trs.rand_ell(128, 64)
     y = torch.matmul(a.to(cuda_device), trs.sketch(10, 128, ell, a.dtype, cuda_device))
     batched = torch.linalg.qr(y, mode="reduced")[0]
-    # If this fails, torch's batched QR handles the padding now and _orth
-    # may send the whole batch at once.
+    # If this fails, torch's batched QR handles the padding now.
     assert not bool(torch.isfinite(torch.view_as_real(batched)).all())
     assert bool(torch.isfinite(torch.view_as_real(trs._orth(y))).all())
     got = trs._range_project(a.to(cuda_device), ell, trs._POWER_ITERS).cpu()

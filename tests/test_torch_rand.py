@@ -166,12 +166,6 @@ def test_sketch_is_cached_real_gaussian_per_shape():
     assert torch.equal(trs.sketch(2, 32, 24, torch.complex64, "cpu"), first)
 
 
-@pytest.mark.parametrize("rows,chunk", [(16, 1), (64, 3), (128, 7), (192, 11), (256, 15), (300, 1 << 30)])
-def test_qr_chunk_stays_on_the_one_matrix_path(rows, chunk):
-    assert trs.qr_chunk(rows) == chunk
-    assert rows > 256 or trs.qr_chunk(rows) < max(2, rows // 16)
-
-
 def test_range_project_on_zero_padded_pairs_matches_jax():
     """Pair matrices of rank-2 bonds, zero-padded as θ is (the batch that
     breaks torch's batched CUDA QR): same range and projector as JAX's."""
