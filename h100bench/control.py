@@ -5,8 +5,9 @@
 In one process on the card: the cell's set-up once, then per seed a short
 window (the seed's first horizons of the cell's traffic, as many as a run's
 check compares) and the check's numbers for the program (its lower readings); for each control
-seed also the numbers of the control, the reference computed in TF32 and
-put in the program's place (its upper readings).  One JSON line per seed on
+seed also the numbers of the control, the reference computed in the
+precision below the configuration's (TF32 for the MPS runner) and put in
+the program's place (its upper readings).  One JSON line per seed on
 standard output, a summary last.  The benchmark's runs never run this.
 """
 
@@ -35,7 +36,6 @@ def main(argv=None) -> int:
 
     from harness import cell, check
     from harness.spec import cell_spec
-    from reference import mps as R
 
     if not torch.cuda.is_available():
         print("control.py: no CUDA device", file=sys.stderr)
@@ -43,18 +43,20 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     spec = cell_spec(args.workload)
-    prog = cell.setup(spec, dev)
+    runner = spec.runner
+    state = runner.setup(spec, dev)
     controls = {int(s) for s in args.control_seeds.split(",") if s}
     rows = []
     for seed in (int(s) for s in args.seeds.split(",")):
         run = cell.Run(spec, seed, dev)
-        cell.program_outputs(run, prog, cell.window(run, prog, 0.0, False, int(spec.traffic["sample"])))
+        cell.window(run, state, 0.0, False, int(spec.traffic["sample"]))
+        runner.outputs(state, run)
         tic = time.perf_counter()
         row = {"seed": seed, "horizons": len(run.horizons), "iters": [h.iters for h in run.horizons],
-               "failed": cell.failed(run), "program": check.readings(run, dev)}
+               "failed": cell.failed(run), "program": runner.readings(run, dev)}
         row["check_s"] = time.perf_counter() - tic
         if seed in controls:
-            row["control"] = check.readings(run, dev, R.TF32)
+            row["control"] = runner.readings(run, dev, control=True)
         rows.append(row)
         print(json.dumps(row), flush=True)
     summary = {}

@@ -1,73 +1,28 @@
 """The program's spans in a run (the recorder of
 ``aqc_research_tpu_torch/utils/profiling.py``) and the arithmetic the span
-readers share: the window's untraced horizons, the spans under a span,
-cover and self time, the innermost span at an instant.
+readers share: the window's traced and untraced requests, the spans under
+a span, cover and self time, the innermost span at an instant.
 
-The span readers are the first of the benchmark's code that a run executes
-(``spec.cell_spec`` loads every reader before the set-up starts), so the
-recorder is switched on here, when this module is imported, in a traced run
-of ``run.py`` (``--trace 1``) and in no other process: a ``--trace 0`` run,
-a test or another script that imports it records nothing.  This is a
-stopgap until ``cell.execute``, which owns the run's ``trace``, switches the
-recorder on itself and snapshots it after the window's final sync; until
-then spans stay on for the whole process (set-up, window and check), the
-readers find the window's horizons by counting, and a traced run started
-other than as ``run.py`` reads no span.  A program that has no recorder
-records nothing either, and the span readers then return None.
+A traced run records spans from before the kernel library loads until the
+window has closed (``cell.execute``), and the window keeps the recorder's
+snapshot as ``run.spans``.  The window's requests are the top-level spans
+named by the runner's ``REQUEST`` that lie between the times the window
+records: its start, the start of its untraced part and its end.  Where
+nothing was recorded, the span readers return None.
 
 Span times are nanoseconds on the profiler's clock (``time.time_ns()``)."""
 
 from __future__ import annotations
 
-import os
 import statistics
-import sys
-import time
 from typing import Dict, List, Optional
 
-HORIZON, ITERATION, REPLAY = "asp.horizon", "lbfgs.iteration", "program.replay"
-
-
-def _profiling():
-    """The program's ``utils.profiling`` if it has the span recorder."""
-    try:
-        from aqc_research_tpu_torch.utils import profiling
-    except ImportError:
-        return None
-    return profiling if hasattr(profiling, "snapshot") else None
-
-
-def traced_benchmark_run(argv: List[str]) -> bool:
-    """True for the arguments of a ``run.py`` process with ``--trace 1``."""
-    if not argv or os.path.basename(argv[0]) != "run.py":
-        return False
-    for i, arg in enumerate(argv[1:], 1):
-        value = arg.split("=", 1)[1] if arg.startswith("--trace=") else (
-            argv[i + 1] if arg == "--trace" and i + 1 < len(argv) else None)
-        if value is not None:
-            return value.strip().isdigit() and int(value) == 1
-    return False
-
-
-if traced_benchmark_run(sys.argv) and _profiling() is not None:
-    _profiling().enable_spans()
+ITERATION, REPLAY = "lbfgs.iteration", "program.replay"
 
 
 def recorded(run) -> Optional[dict]:
-    """The program's spans of this run: the recorder's snapshot, taken at the
-    first reader that asks (after the window and the check's replays) and
-    kept as ``run.spans``; None where nothing was recorded."""
-    snap = getattr(run, "spans", None)
-    if snap is None:
-        prof = _profiling()
-        if prof is None or not prof.spans_on():
-            return None
-        tic = time.perf_counter()
-        snap = prof.snapshot()
-        run.spans = snap
-        run.notes.append(f"spans: {len(snap['spans'])} spans, snapshot in {time.perf_counter() - tic:.4f} s")
-        if snap["spans"]:
-            run.notes.extend(checks(run, snap))
+    """The program's spans of this run, or None where none was recorded."""
+    snap = run.spans
     return snap if snap and snap["spans"] else None
 
 
@@ -75,46 +30,33 @@ def wall_ns(s: dict) -> int:
     return s["end_ns"] - s["start_ns"]
 
 
-def window_horizons(run, snap: dict) -> List[dict]:
-    """The window's horizon spans, in order: the last ``len(run.horizons)``
-    top-level ``asp.horizon`` spans (the set-up's warm horizon comes
-    before them; the check runs no horizon)."""
-    tops = [s for s in snap["spans"] if s["name"] == HORIZON and s["parent"] is None]
-    n = len(run.horizons)
-    return tops[len(tops) - n:] if n and len(tops) >= n else []
+def _requests(run, snap: dict, start_ns: int, end_ns: int) -> List[dict]:
+    name = run.spec.runner.REQUEST
+    return [s for s in snap["spans"] if s["name"] == name and s["parent"] is None
+            and start_ns <= s["start_ns"] and s["end_ns"] <= end_ns]
 
 
-def _traced_count(run) -> int:
-    """How many of the window's horizons the profiler recorded."""
-    if run.trace is None:
-        return 0
-    done = k = 0
-    while k < len(run.horizons) and done < run.traced_iters:
-        done += run.horizons[k].iters
-        k += 1
-    return k
+def traced_requests(run, snap: dict) -> List[dict]:
+    """The request spans of the window's traced part, in order."""
+    return _requests(run, snap, run.window_start_ns, run.untraced_start_ns)
 
 
-def untraced_horizons(run, snap: dict) -> List[dict]:
-    """The horizon spans of the window's untraced part (all of the window
-    in a run without a trace)."""
-    return window_horizons(run, snap)[_traced_count(run):]
+def untraced_requests(run, snap: dict) -> List[dict]:
+    """The request spans of the window's untraced part (all of the window
+    in a run without a trace), in order."""
+    return _requests(run, snap, run.untraced_start_ns, run.window_end_ns)
 
 
-def traced_horizons(run, snap: dict) -> List[dict]:
-    return window_horizons(run, snap)[:_traced_count(run)]
-
-
-def of_requests(snap: dict, horizons: List[dict]) -> List[dict]:
-    """Every span recorded inside the given horizons (their request ids)."""
-    ids = {h["id"] for h in horizons}
+def of_requests(snap: dict, requests: List[dict]) -> List[dict]:
+    """Every span recorded inside the given requests (their request ids)."""
+    ids = {r["id"] for r in requests}
     return [s for s in snap["spans"] if s["request"] in ids]
 
 
-def iterations(snap: dict, horizons: List[dict]) -> List[dict]:
-    """The L-BFGS iterations the horizons ran themselves (a watchdog's
+def iterations(snap: dict, requests: List[dict]) -> List[dict]:
+    """The L-BFGS iterations the requests ran themselves (a watchdog's
     re-run, inside ``asp.watchdog``, is the horizon's boundary)."""
-    ids = {h["id"] for h in horizons}
+    ids = {r["id"] for r in requests}
     return [s for s in snap["spans"] if s["name"] == ITERATION and s["parent"] in ids]
 
 
@@ -181,16 +123,16 @@ def innermost_at(spans: List[dict], t_ns: float) -> Optional[dict]:
 def untraced_split(run, snap: dict) -> Optional[dict]:
     """The untraced iterations' time in ms per iteration, by part: replays'
     device time under the line search and under the gradient, the
-    horizons' boundary (their wall outside their iterations), and the host
+    requests' boundary (their wall outside their iterations), and the host
     loop (the iterations' wall outside their replays' device time)."""
-    horizons = untraced_horizons(run, snap)
-    spans = of_requests(snap, horizons)
-    its = iterations(snap, horizons)
+    requests = untraced_requests(run, snap)
+    spans = of_requests(snap, requests)
+    its = iterations(snap, requests)
     if not its:
         return None
     n = len(its)
     ls, grad = replay_ms(spans, under="lbfgs.linesearch"), replay_ms(spans, under="lbfgs.grad")
-    boundary = sum(self_ns(h, [i for i in its if i["parent"] == h["id"]]) for h in horizons) * 1e-6
+    boundary = sum(self_ns(r, [i for i in its if i["parent"] == r["id"]]) for r in requests) * 1e-6
     host = None
     inside = [replay_ms(spans, within=i) for i in its]
     if None not in inside:
@@ -206,11 +148,11 @@ def untraced_split(run, snap: dict) -> Optional[dict]:
 def trace_origin_ns(run, snap: dict) -> Optional[float]:
     """Where the traced window's zero sits on the spans' clock: the
     profiler's ``cudaGraphLaunch`` calls paired in order with the traced
-    horizons' replay spans (the median of the differences; each replay's
+    requests' replay spans (the median of the differences; each replay's
     launch follows its span's start by its input copies)."""
     if run.trace is None:
         return None
-    spans = of_requests(snap, traced_horizons(run, snap))
+    spans = of_requests(snap, traced_requests(run, snap))
     starts = sorted(s["start_ns"] for s in spans if s["name"] == REPLAY)
     launches = sorted(t for n, t in zip(run.trace.host_names, run.trace.host_start.tolist())
                       if n == "cudaGraphLaunch")
@@ -233,7 +175,7 @@ def idle_gaps_by_span(run, snap: dict, count: int = 10) -> List[list]:
     edges = [0.0] + [x for ab in busy for x in ab] + [run.trace.window_s]
     gaps = sorted(((edges[i + 1] - edges[i], edges[i]) for i in range(0, len(edges), 2)
                    if edges[i + 1] > edges[i]), reverse=True)[:count]
-    spans = of_requests(snap, traced_horizons(run, snap))
+    spans = of_requests(snap, traced_requests(run, snap))
     by_id = {s["id"]: s for s in spans}
     out = []
     for length, start in gaps:
@@ -241,7 +183,7 @@ def idle_gaps_by_span(run, snap: dict, count: int = 10) -> List[list]:
         parent = by_id.get(s["parent"]) if s is not None else None
         name = None if s is None else (
             f"{s['name']} ({s['attrs']['program']})" if "program" in s["attrs"] else s["name"])
-        label = "outside the horizons" if s is None else (
+        label = "outside the requests" if s is None else (
             name if parent is None else f"{name} in {parent['name']}")
         out.append([label, length])
     return out
@@ -261,7 +203,7 @@ def checks(run, snap: dict) -> List[str]:
         notes.append(f"spans: untraced ms/iter over {split['iterations']} iterations: line search "
                      f"{split['linesearch']}, gradient {split['grad']}, boundary {split['boundary']}, host loop "
                      f"{split['host_loop']}; sum {total} against the wall {wall}")
-        spans = of_requests(snap, untraced_horizons(run, snap))
+        spans = of_requests(snap, untraced_requests(run, snap))
         dev = replay_ms(spans)
         if dev is not None and run.trace is not None and run.traced_iters:
             notes.append(f"spans: replays' device ms/iter {dev / split['iterations']} against the traced busy "

@@ -3,5 +3,5 @@
 
 
 def read(run):
-    parts = [p[k] for p in run.programs for k in ("warmup_s", "capture_s", "instantiate_s") if p[k] is not None]
+    parts = [p[k] for p in run.programs for k in ("warmup_s", "capture_s", "instantiate_s") if p.get(k) is not None]
     return sum(parts) if parts else None

@@ -4,19 +4,16 @@ which nothing ran on the device.
 The profiler's own cost per graph node stretches the traced window, so the
 traced window's idle share reads the tracer.  Instead the device's busy
 time per unit of work is taken from the trace (the union of the device
-intervals over the census's flops of the traced evaluations), and charged
-to the evaluations that ran after the profiler stopped:
+intervals over the flops of the traced evaluations, each charged the work
+its runner gives its kind in ``run.work``), and charged to the evaluations
+that ran after the profiler stopped:
 1 - (busy per flop x untraced flops) / (the untraced wall)."""
-
-from work import census as W
 
 
 def read(run):
-    if run.trace is None or run.untraced_s <= 0:
+    if run.trace is None or run.untraced_s <= 0 or not run.work:
         return None
-    cfg = run.spec.config
-    work = W.evaluation_work(W.decomposition_census(int(cfg["num_qubits"]), int(cfg["num_layers"]),
-                                                    int(cfg["chi"]), bool(cfg["second_order"])))
+    work = run.work
     traced = sum(run.traced_evals.get(k, 0) * work[k][0] for k in work)
     untraced = sum(run.untraced_evals.get(k, 0) * work[k][0] for k in work)
     busy = run.trace.busy_s()

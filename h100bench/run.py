@@ -4,11 +4,12 @@
 
 from the root of a checkout.  One process is one run of one cell of
 ``BENCHMARK.json``: set-up (the kernel library from the port's build cache,
-the target, the cell's captured programs), a window of ASP horizons of
-``--seconds``, the check against the plain reference, and one JSON line on
-standard output.  With ``--trace 0`` the line holds the cell's end-to-end
-metrics; with ``--trace 1`` its per-layer metrics, read from a profiler
-trace of the window's first horizons.  The numbers that decide ``correct``
+then the set-up of the cell's runner, ``runners/<runner>.py``), a window of
+the runner's requests of ``--seconds``, the check against the plain
+reference, and one JSON line on standard output.  With ``--trace 0`` the
+line holds the cell's end-to-end metrics; with ``--trace 1`` its per-layer
+metrics, read from a profiler trace of the window's first requests and
+from the program's spans.  The numbers that decide ``correct``
 are printed last on standard error and last in the line.
 
 It exits non-zero and prints no result without the CUDA cards the cell
@@ -84,7 +85,7 @@ def main(argv=None) -> int:
     run = cell.execute(spec, args.seed, args.seconds, bool(args.trace), dev)
     card = _card_state()
     tic = time.perf_counter()
-    numbers = check.readings(run, dev)
+    numbers = spec.runner.readings(run, dev)
     run.notes.append(f"setup {run.setup_s:.3f} s (kernel library {'built' if run.built_kernels else 'loaded'} "
                      f"in {run.library_s:.3f} s), window {run.window_s:.3f} s, {len(run.horizons)} horizons, "
                      f"iterations {[h.iters for h in run.horizons]}, check {time.perf_counter() - tic:.3f} s")

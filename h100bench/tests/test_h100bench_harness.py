@@ -1,6 +1,7 @@
 """The harness's pieces on the CPU: BENCHMARK.json against the contract's
-shape, the traffic generator, the frozen census, the readers on a recorded
-profiler table, the data-driven lookup of a metric, and the JAX check."""
+shape, the traffic generator, the frozen census and the runner's work from
+it, the readers on a recorded profiler table, the data-driven lookup of a
+metric, and the JAX check."""
 
 import json
 import math
@@ -111,6 +112,17 @@ def test_frozen_census_equals_the_programs(n, chi):
         assert W.decomposition_census(n, layers, chi, True) == roofline.decomposition_census(circ, chi)
 
 
+@pytest.mark.parametrize("config", ["asp28_chi128", "asp20_chi64"])
+def test_runner_work_is_the_census(config):
+    """The one-lane MPS runner charges each evaluation the frozen census's
+    work at the configuration's circuit and chi, exactly."""
+    cfg = spec.load_json(spec.HERE / "configs" / f"{config}.json")
+    s = spec.CellSpec(config, 1, cfg, {}, None, [], [], spec.runner("horizon_mps"))
+    census = W.decomposition_census(cfg["num_qubits"], cfg["num_layers"], cfg["chi"], cfg["second_order"])
+    assert s.runner.work(s) == W.evaluation_work(census)
+    assert set(s.runner.work(s)) == {"value", "obj_grad"}
+
+
 def test_work_counts():
     assert W.pair_flops(256) == 8 * (4 * 128**3 + 16 * 128**2) + 84 * 256**3 + 32 * 128**3
     assert W.pair_bytes(256) == 4 * 2 * 128 * 128 * 8 + 4 * 128 * 4 + 128
@@ -134,7 +146,9 @@ def _table():
 def _recorded_run():
     cfg = spec.load_json(spec.ROOT / "h100bench/configs/asp28_chi128.json")
     trf = spec.load_json(spec.HERE / "traffic/restarts_rand.json")
-    run = cell.Run(spec.CellSpec("asp28-rand-restarts", 1, cfg, trf, None, [], []), 1, None)
+    s = spec.CellSpec("asp28-rand-restarts", 1, cfg, trf, None, [], [], spec.runner("horizon_mps"))
+    run = cell.Run(s, 1, None)
+    run.work = s.runner.work(s)
     run.trace = TraceTable.from_rows(json.loads(json.dumps(_table().to_rows())))
     run.traced_iters = 2
     run.traced_evals = {"value": 1, "obj_grad": 2}
@@ -193,21 +207,19 @@ def test_a_new_metric_is_a_new_file(tmp_path):
     and no file it has changes."""
     metrics = tmp_path / "metrics"
     metrics.mkdir()
-    for f in os.listdir(os.path.join(HERE, "metrics")):
-        if f.endswith(".py"):
-            (metrics / f).write_text(open(os.path.join(HERE, "metrics", f)).read())
     (metrics / "horizons_done.py").write_text("def read(run):\n    return float(len(run.horizons))\n")
+    folders = (tmp_path, spec.HERE)
     bench = _bench()
     bench["per_layer"].append({"name": "horizons_done", "unit": "horizons", "better": "higher",
                                "source": "program_counter", "layer": "optimizer", "moves": "iter_s",
                                "workloads": ["asp28-jacobi-restarts"]})
     path = tmp_path / "BENCHMARK.json"
     path.write_text(json.dumps(bench))
-    s = spec.cell_spec("asp28-jacobi-restarts", bench_path=path, metrics_dir=metrics)
+    s = spec.cell_spec("asp28-jacobi-restarts", bench_path=path, folders=folders)
     extra = [m for m in s.per_layer if m.name == "horizons_done"]
     assert len(extra) == 1 and extra[0].read(_recorded_run()) == 2.0
     assert "horizons_done" not in {m.name for m in spec.cell_spec("asp28-rand-restarts", bench_path=path,
-                                                                  metrics_dir=metrics).per_layer}
+                                                                  folders=folders).per_layer}
     assert {m.name for m in s.end_to_end} == {"setup_s", "iter_s"}
 
 

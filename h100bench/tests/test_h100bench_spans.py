@@ -1,8 +1,8 @@
 """The span readers and ``harness/spans.py`` on the CPU: the six readers on
 a recorded run with hand-computed values, the readers of the earlier
 metrics unchanged by a run's spans, nothing read where the program recorded
-nothing, the switch that only a traced ``run.py`` process throws, and a
-small run of the harness with spans on."""
+nothing, ``cell.execute`` switching the recorder on for a traced run only,
+and a small run of the harness with spans on."""
 
 import json
 import os
@@ -77,7 +77,12 @@ def _snapshot():
 def _run(with_spans=True):
     cfg = spec.load_json(spec.ROOT / "h100bench/configs/asp28_chi128.json")
     trf = spec.load_json(spec.HERE / "traffic/restarts_rand.json")
-    run = cell.Run(spec.CellSpec("asp28-rand-restarts", 1, cfg, trf, None, [], []), 1, None)
+    s = spec.CellSpec("asp28-rand-restarts", 1, cfg, trf, None, [], [], spec.runner("horizon_mps"))
+    run = cell.Run(s, 1, None)
+    run.work = s.runner.work(s)
+    # The window from 9 s (after the warm horizon), untraced from 15 s, to
+    # 25 s (before the check's replay).
+    run.window_start_ns, run.untraced_start_ns, run.window_end_ns = 9 * 10**9, 15 * 10**9, 25 * 10**9
     # The traced window (1 s from 10 s - 0.1 ms on the spans' clock): busy
     # but for 0.19-0.31 s, where the traced horizon's replay was open.
     dev = [("void fused_pair_cluster_kernel(float const*, int)", 0.0, 0.19),
@@ -116,9 +121,12 @@ def test_span_readers_on_a_recorded_run():
 def test_span_arithmetic():
     snap = _snapshot()
     run = _run()
-    assert [h["id"] for h in S.window_horizons(run, snap)] == [10, 20]
-    assert [h["id"] for h in S.untraced_horizons(run, snap)] == [20]
-    assert [h["id"] for h in S.traced_horizons(run, snap)] == [10]
+    assert [h["id"] for h in S.untraced_requests(run, snap)] == [20]
+    assert [h["id"] for h in S.traced_requests(run, snap)] == [10]
+    # A run without a trace: the whole window is untraced.
+    run.untraced_start_ns = run.window_start_ns
+    assert [h["id"] for h in S.untraced_requests(run, snap)] == [10, 20] and S.traced_requests(run, snap) == []
+    run = _run()
     by_id = {s["id"]: s for s in snap["spans"]}
     h, its = by_id[20], [by_id[24], by_id[33]]
     assert S.cover_ns(h, its) == 70 * MS and S.self_ns(h, its) == 30 * MS
@@ -150,45 +158,67 @@ def test_nothing_read_without_spans():
         assert spec.reader(name)(run) is None, name
 
 
-def test_only_a_traced_run_switches_spans_on():
-    assert S.traced_benchmark_run(["h100bench/run.py", "--workload", "c", "--seed", "3", "--trace", "1"])
-    assert S.traced_benchmark_run(["/x/run.py", "--trace=1", "--seed", "3"])
-    assert not S.traced_benchmark_run(["h100bench/run.py", "--workload", "c", "--trace", "0"])
-    assert not S.traced_benchmark_run(["h100bench/run.py", "--workload", "c"])
-    assert not S.traced_benchmark_run(["pytest", "--trace", "1"])
-    assert not S.traced_benchmark_run([])
+def _tiny(**traffic):
+    cfg = spec.load_json(spec.HERE / "tests" / "tiny_asp8.json")
+    trf = dict(spec.load_json(spec.HERE / "traffic" / "restarts_jacobi.json"), **traffic)
+    return spec.CellSpec("tiny", 1, cfg, trf, None, [], [], spec.runner("horizon_mps"))
+
+
+@pytest.fixture
+def _restore_config():
+    """A run's set-up pins the precision and the route for the process."""
+    from aqc_research_tpu_torch import config
+
+    precision = config.precision()
+    yield
+    config.set_svd_impl(None)
+    config.set_precision(precision)
+
+
+def test_execute_switches_spans_on(_restore_config):
+    """``cell.execute`` records spans in a traced run, from the set-up's
+    target to the window's close, and turns the recorder off again; a run
+    without a trace records none.  The traced and untraced requests are
+    the window's, split where the profiler stopped."""
     from aqc_research_tpu_torch.utils import profiling
 
+    cpu = torch.device("cpu")
+    short = _tiny(maxiter=2, warm_iters=1)   # the profiler slows the CPU's many small ops
+    run = cell.execute(short, 11, 0.0, True, cpu)
+    assert not profiling.spans_on()
+    snap = S.recorded(run)
+    assert snap is not None and run.trace is not None and run.trace.window_s >= cell.TRACE_MIN_S
+    traced, untraced = S.traced_requests(run, snap), S.untraced_requests(run, snap)
+    assert len(traced) >= 1 and len(untraced) >= 1 and len(traced) + len(untraced) == len(run.horizons)
+    assert len(S.iterations(snap, untraced)) == run.untraced_iters > 0
+    assert spec.reader("target_s")(run) > 0 and spec.reader("boundary_ms_per_iter")(run) > 0
+    assert any(n.startswith("spans: untraced ms/iter") for n in run.notes)
+    assert cell.execute(short, 12, 0.0, False, cpu).spans is None
     assert not profiling.spans_on()
 
 
-def test_a_small_run_with_spans_on():
+def test_a_small_run_with_spans_on(_restore_config):
     """The tiny cell on the CPU with the recorder on: every span reader but
     the device-timed ones reads, and the warm horizon and the check stay
-    out of the window's horizons."""
-    from aqc_research_tpu_torch import config
+    out of the window's requests."""
     from aqc_research_tpu_torch.utils import profiling
 
-    cfg = spec.load_json(spec.HERE / "tests" / "tiny_asp8.json")
-    trf = spec.load_json(spec.HERE / "traffic" / "restarts_jacobi.json")
-    s = spec.CellSpec("tiny", 1, cfg, trf, None, [], [])
+    s = _tiny()
     cpu = torch.device("cpu")
-    precision = config.precision()
     profiling.enable_spans()
     try:
-        prog = cell.setup(s, cpu)
+        state = s.runner.setup(s, cpu)
         run = cell.Run(s, 5, cpu)
-        cell.program_outputs(run, prog, cell.window(run, prog, 0.0, False, 2))
-        cell.release(prog)
+        cell.window(run, state, 0.0, False, 2)
+        s.runner.outputs(state, run)
+        s.runner.release(state)
         read = {name: spec.reader(name)(run) for name in NEW}
     finally:
         profiling.disable_spans()
         profiling.reset_spans()
-        config.set_svd_impl(None)
-        config.set_precision(precision)
     iters = sum(h.iters for h in run.horizons)
-    assert len(S.window_horizons(run, run.spans)) == len(run.horizons) == 2
-    assert len(S.iterations(run.spans, S.untraced_horizons(run, run.spans))) == iters > 0
+    assert len(S.untraced_requests(run, run.spans)) == len(run.horizons) == 2
+    assert len(S.iterations(run.spans, S.untraced_requests(run, run.spans))) == iters > 0
     assert read["boundary_ms_per_iter"] > 0 and read["target_s"] > 0
     assert read["host_reads_per_iter"] >= 2
     # The CPU has no device time.
