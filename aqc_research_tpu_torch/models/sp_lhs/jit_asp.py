@@ -2,12 +2,12 @@
 ``aqc_research_tpu/models/sp_lhs/jit_asp.py``): one horizon is a compact
 L-BFGS (optim/lbfgs.py) over a surrogate objective, on the tensors' device.
 The ``_jit`` names keep the JAX twins findable; the loops run on the host.
-The one-lane MPS horizon evaluates through device programs, the JAX
-package's jitted ``_mps_value_program`` and ``_mps_chunk_cache``: on CUDA
-each value and obj+grad is the replay of a CUDA graph captured at its first
-call, cached per (circuit, base bits, trunc_thr, route, shapes, policy) and
-pinned to its route (ops/cuda_graphs.py); on the CPU they are the eager
-functions.
+The MPS horizons, one lane and the fleet, evaluate through device
+programs, the JAX package's jitted ``_mps_value_program`` and
+``_mps_chunk_cache``: on CUDA each value and obj+grad is the replay of a
+CUDA graph captured at its first call, cached per (circuit, base bits,
+trunc_thr, route, shapes, policy) and pinned to its route
+(ops/cuda_graphs.py); on the CPU they are the eager functions.
 
 * **Dense** (full state vectors): :func:`make_surrogate_loss` is the
   stateless max-projection surrogate (fixed weight, hard argmax), optimized
@@ -26,7 +26,8 @@ The ``_timed`` runners run the same loops in chunks and check the wall
 clock between them.  The ``_multistart`` runners run L starts as one fleet
 (optim/lbfgs.py's lanes): the dense one through ``torch.func.vmap`` over
 the one-lane loss, the MPS one with the lanes folded into the batch of
-every pair update.
+every pair update, through the same device programs as one lane (a graph
+per running-lane count) and with the collapse watchdog per lane.
 """
 
 from __future__ import annotations
@@ -57,6 +58,7 @@ from ...ops.statevector import as_state, as_thetas, v_dagger_mul_vec
 from ...optim.lbfgs import (
     lane_objective,
     lbfgs_chunk_programs,
+    lbfgs_fleet_programs,
     minimize_lbfgs,
     minimize_lbfgs_compact,
     minimize_lbfgs_compact_lanes,
@@ -418,12 +420,13 @@ def _mps_value_fns(circ: Ansatz, base_bits: tuple, trunc_thr: float):
 # -----------------------------------------------------------------------------
 # The MPS objective's device programs (the JAX package's jitted
 # ``_mps_value_program`` and ``_mps_chunk_cache``): on CUDA every evaluation of
-# a one-lane horizon is the replay of a CUDA graph captured at its first call
+# a horizon is the replay of a CUDA graph captured at its first call
 # (ops/cuda_graphs.py), one graph per (circuit, base bits, trunc_thr, route,
 # θ shape and the target's χ, dtype and device, and the policy the pair
-# updates read); on the CPU a program is the eager function.  Each program is
-# pinned to its route, so flipping the ambient route between calls never
-# serves a stale graph.
+# updates read); on the CPU a program is the eager function.  θ's shape keys
+# the lane count: one lane's (P,), a fleet's running lanes (L', P).  Each
+# program is pinned to its route, so flipping the ambient route between calls
+# never serves a stale graph.
 # -----------------------------------------------------------------------------
 
 _PROGRAMS: dict = {}
@@ -500,16 +503,19 @@ def _mps_value_and_grad_program(circ: Ansatz, base_bits: tuple, trunc_thr: float
 
 
 def _mps_chunk_cache(circ: Ansatz, base_bits: tuple, trunc_thr: float, fobj_thr, maxiter: int,
-                     no_improve_iters, impl: str):
+                     no_improve_iters, impl: str, fleet: bool = False):
     """The L-BFGS loop's ``(init, chunk, extract)`` over the programs of
     ``impl``; the target rides in the loop's objective state, as the JAX
     package threads it through its chunk programs as data.  The loop stays on
-    the host: its scalar reads fall between replays."""
+    the host: its scalar reads fall between replays.  ``fleet``: the loop
+    over lanes (optim/lbfgs.lbfgs_fleet_programs), which evaluates the
+    running lanes' rows, so every running-lane count replays programs of its
+    own."""
 
     def build():
         value = _mps_value_program(circ, base_bits, trunc_thr, impl)
         value_and_grad = _mps_value_and_grad_program(circ, base_bits, trunc_thr, impl)
-        return lbfgs_chunk_programs(
+        return (lbfgs_fleet_programs if fleet else lbfgs_chunk_programs)(
             lambda x, tgt: (value(x, tgt), tgt),
             lambda x, tgt: value_and_grad(x, tgt) + (tgt,),
             maxiter=maxiter,
@@ -517,14 +523,21 @@ def _mps_chunk_cache(circ: Ansatz, base_bits: tuple, trunc_thr: float, fobj_thr,
             no_improve_iters=no_improve_iters,
         )
 
-    return _cached(("chunks", circ, base_bits, trunc_thr, fobj_thr, maxiter, no_improve_iters, impl), build)
+    kind = "fleet_chunks" if fleet else "chunks"
+    return _cached((kind, circ, base_bits, trunc_thr, fobj_thr, maxiter, no_improve_iters, impl), build)
 
 
 def mps_programs() -> list:
     """Every device program the cached MPS programs hold (their stats say
     what each capture cost)."""
-    return [p for prog in _PROGRAMS.values() if isinstance(prog, _MpsProgram)
-            for p in prog.cache.programs.values()]
+    return [p for _, p in mps_program_shapes()]
+
+
+def mps_program_shapes() -> list:
+    """``(θ shape, program)`` of every device program the cached MPS
+    programs hold: ``(P,)`` for one lane, ``(L', P)`` for L' lanes."""
+    return [(sig[0][0][0], p) for prog in _PROGRAMS.values() if isinstance(prog, _MpsProgram)
+            for sig, p in prog.cache.programs.items()]
 
 
 def release_mps_programs() -> int:
@@ -547,13 +560,31 @@ def _run_horizon(circ, x0, tgt, base_bits, trunc_thr, fobj_thr, maxiter, no_impr
     """The L-BFGS loop over the MPS objective's programs of ``impl`` (None:
     the route in effect for the target's device): in one run, or in chunks
     of ``chunk_iters`` iterations with the clock checked between them when
-    ``time_limit`` > 0.  Returns (JitHorizonResult, timed_out)."""
+    ``time_limit`` > 0.  ``x0`` of shape (L, P) runs L lanes as one fleet
+    (``num_iters`` and ``converged`` are then host arrays).  Returns
+    (JitHorizonResult, timed_out)."""
     impl = svd_impl(tgt.device) if impl is None else impl
-    programs = _mps_chunk_cache(circ, base_bits, trunc_thr, fobj_thr, maxiter, no_improve_iters, impl)
+    programs = _mps_chunk_cache(circ, base_bits, trunc_thr, fobj_thr, maxiter, no_improve_iters, impl,
+                                fleet=x0.dim() == 2)
     res, _, timed_out = run_lbfgs_chunked(
         programs, x0, tgt, maxiter=maxiter, time_limit=time_limit, chunk_iters=chunk_iters or max(maxiter, 1)
     )
     return JitHorizonResult(res.thetas, res.fobj, 1.0 - res.fobj, res.num_iters, res.converged), timed_out
+
+
+def _check_base_bits(circ: Ansatz, base_bits: Sequence[int]) -> tuple:
+    if len(base_bits) != circ.num_qubits:
+        raise ValueError(
+            f"base_bits must give one 0/1 occupation per site: got "
+            f"{len(base_bits)} for {circ.num_qubits} qubits"
+        )
+    return tuple(int(b) for b in base_bits)
+
+
+def _fleet_starts(thetas0_batch, target: MPS) -> torch.Tensor:
+    if isinstance(thetas0_batch, torch.Tensor):
+        return thetas0_batch.detach()
+    return torch.as_tensor(np.asarray(thetas0_batch), dtype=target.lambdas.dtype, device=target.device)
 
 
 def optimize_horizon_mps_multistart(
@@ -574,29 +605,54 @@ def optimize_horizon_mps_multistart(
     the batch of every pair update (each engine path takes lane axes): one
     evaluation decomposes each pair update of all running lanes in ONE
     launch of the route's kernels, as the JAX twin's vmapped program does.
-    No ansatz is evaluated lane by lane.  Like the JAX twin, the fleet has
-    no collapse watchdog.  Returns the lanes' results
+    No ansatz is evaluated lane by lane.  Every evaluation goes through the
+    device programs of the one-lane horizon, keyed by θ's shape: each
+    running-lane count L' replays graphs of its own at (L', P)
+    (:func:`capture_mps_fleet` captures them ahead).  Under a route other
+    than the watchdog's reference for the target's device, every lane
+    passes the collapse watchdog (:func:`_mps_fleet_watchdog`), which the
+    JAX twin does not have.  Returns the lanes' results
     (``num_iters``/``converged`` host arrays); the winner is
     ``argmin(res.fobj)``.
 
     On the "rand" route the sketch Ω is drawn per batch shape
     (ops/rand_svd.sketch), so a folded lane agrees with its one-lane run to
     the f32 sketch noise, not bit for bit."""
-    if len(base_bits) != circ.num_qubits:
-        raise ValueError(
-            f"base_bits must give one 0/1 occupation per site: got "
-            f"{len(base_bits)} for {circ.num_qubits} qubits"
-        )
-    base_t = tuple(int(b) for b in base_bits)
-    x0 = thetas0_batch if isinstance(thetas0_batch, torch.Tensor) else torch.as_tensor(
-        np.asarray(thetas0_batch), dtype=target.lambdas.dtype, device=target.device)
-    value, value_and_grad = _mps_value_fns(circ, base_t, float(trunc_thr))
-    res = minimize_lbfgs_compact_lanes(
-        lambda th: value(th, target), lambda th: value_and_grad(th, target), x0.detach(),
-        maxiter=int(maxiter), fobj_thr=_loss_thr(fidelity_thr),
-        no_improve_iters=None if no_improve_iters is None else int(no_improve_iters),
-    )
-    return JitHorizonResult(res.thetas, res.fobj, 1.0 - res.fobj, res.num_iters, res.converged)
+    base_t = _check_base_bits(circ, base_bits)
+    x0 = _fleet_starts(thetas0_batch, target)
+    fobj_thr = _loss_thr(fidelity_thr)
+    no_imp = None if no_improve_iters is None else int(no_improve_iters)
+    with request("asp.horizon", lanes=int(x0.shape[0])):
+        res, _ = _run_horizon(circ, x0, target, base_t, float(trunc_thr), fobj_thr, int(maxiter), no_imp)
+        with span("asp.watchdog"):
+            res = _mps_fleet_watchdog(
+                circ, x0, target, res, base_bits=base_t, trunc_thr=float(trunc_thr),
+                fobj_thr=fobj_thr, maxiter=int(maxiter), no_improve_iters=no_imp,
+            )
+    return res
+
+
+def capture_mps_fleet(circ: Ansatz, thetas0_batch, target: MPS, *, base_bits: Sequence[int],
+                      trunc_thr: float = 1e-6) -> list:
+    """Runs every program an L-lane fleet on ``target`` can replay once, so
+    that each is captured before the first fleet: the value and the
+    obj+grad of the route in effect at every running-lane count L' = 1..L
+    (at the first L' rows of ``thetas0_batch``), and the watchdog's
+    reference value at L lanes where the watchdog runs.  Returns those
+    programs (on the CPU, where each call is eager, the calls only
+    evaluate)."""
+    base_t = _check_base_bits(circ, base_bits)
+    x = _fleet_starts(thetas0_batch, target)
+    route, reference = svd_impl(target.device), _watchdog_reference_impl(target.device)
+    value = _mps_value_program(circ, base_t, float(trunc_thr), route)
+    value_and_grad = _mps_value_and_grad_program(circ, base_t, float(trunc_thr), route)
+    calls = [(prog, x[:lanes]) for lanes in range(1, x.shape[0] + 1) for prog in (value, value_and_grad)]
+    if mps_watchdog_enabled() and route != reference:
+        calls.append((_mps_value_program(circ, base_t, float(trunc_thr), reference), x))
+    with torch.no_grad():
+        for prog, th in calls:
+            prog(th, target)
+    return [prog.entry(th, target) for prog, th in calls]
 
 
 # -----------------------------------------------------------------------------
@@ -604,7 +660,8 @@ def optimize_horizon_mps_multistart(
 # optimized under a fast route, re-evaluate the returned iterate under the
 # reference decomposition; a gross disagreement flags the run (logger +
 # ``watchdog_events``) and re-optimizes the horizon under the reference.  One
-# extra objective evaluation per horizon.
+# extra objective evaluation per horizon; a fleet's lanes share one evaluation
+# and are flagged and re-optimized one by one.
 # -----------------------------------------------------------------------------
 
 _watchdog_logger = logging.getLogger(__name__)
@@ -627,37 +684,84 @@ def _watchdog_reference_impl(dev) -> str:
     return "jacobi" if dev.type == "cuda" else "native"
 
 
-def _mps_watchdog(circ, thetas0, target, res: JitHorizonResult, *, base_bits, trunc_thr,
-                  fobj_thr, maxiter, no_improve_iters) -> JitHorizonResult:
+def _watchdog_check(circ, target, thetas: torch.Tensor, fobj: torch.Tensor, base_bits, trunc_thr):
+    """The reference's value at the returned ``thetas`` (one replay of its
+    value program at their shape) against the optimized ``fobj``: returns
+    ``(route, reference, [(fobj_optimized, fobj_reference)])``, one pair
+    per lane, or None where the watchdog does not run."""
     route = svd_impl(target.device)
     reference = _watchdog_reference_impl(target.device)
     if not mps_watchdog_enabled() or route == reference:
-        return res
-    value_ref = _mps_value_program(circ, base_bits, trunc_thr, reference)(res.thetas, target)
+        return None
+    value_ref = _mps_value_program(circ, base_bits, trunc_thr, reference)(thetas, target)
     with span("host.read"):
         count("host_reads", 2)
-        fobj_ref = float(value_ref)
-        fobj_opt = float(res.fobj)
+        fobj_ref = value_ref.reshape(-1).tolist()
+        fobj_opt = fobj.reshape(-1).tolist()
+    return route, reference, list(zip(fobj_opt, fobj_ref))
+
+
+def _flagged(circ, route: str, reference: str, fobj_opt: float, fobj_ref: float, what: str, **where) -> bool:
+    """True where the two values disagree grossly; the event is then
+    recorded in ``watchdog_events`` (with ``where``) and logged."""
     diff = abs(fobj_opt - fobj_ref)
     scale = min(abs(fobj_opt), abs(fobj_ref))
     if diff <= max(_WATCHDOG_ABS, _WATCHDOG_REL * scale):
-        return res
+        return False
     event = {
         "fobj_optimized": fobj_opt,
         "fobj_reference": fobj_ref,
         "svd_impl": route,
         "reference_impl": reference,
         "num_qubits": circ.num_qubits,
+        **where,
     }
     watchdog_events.append(event)
     _watchdog_logger.warning(
         "MPS watchdog: optimized fobj %0.6g disagrees with the reference "
         "decomposition's %0.6g at the returned iterate (svd_impl=%s) — "
-        "re-optimizing this horizon under %s",
-        fobj_opt, fobj_ref, route, reference,
+        "re-optimizing %s under %s",
+        fobj_opt, fobj_ref, route, what, reference,
     )
+    return True
+
+
+def _mps_watchdog(circ, thetas0, target, res: JitHorizonResult, *, base_bits, trunc_thr,
+                  fobj_thr, maxiter, no_improve_iters) -> JitHorizonResult:
+    checked = _watchdog_check(circ, target, res.thetas, res.fobj, base_bits, trunc_thr)
+    if checked is None:
+        return res
+    route, reference, [(fobj_opt, fobj_ref)] = checked
+    if not _flagged(circ, route, reference, fobj_opt, fobj_ref, "this horizon"):
+        return res
     return _run_horizon(circ, thetas0, target, base_bits, trunc_thr, fobj_thr, maxiter, no_improve_iters,
                         impl=reference)[0]
+
+
+def _mps_fleet_watchdog(circ, thetas0, target, res: JitHorizonResult, *, base_bits, trunc_thr,
+                        fobj_thr, maxiter, no_improve_iters) -> JitHorizonResult:
+    """The collapse watchdog of a fleet, per lane: every lane's returned θ
+    re-evaluated in one replay of the reference's value program at (L, P);
+    a lane that disagrees grossly is flagged (its event carries ``lane``)
+    and re-optimized alone under the reference from its start, as
+    :func:`_mps_watchdog` re-runs a horizon.  The other lanes' results stay
+    as the fleet returned them."""
+    checked = _watchdog_check(circ, target, res.thetas, res.fobj, base_bits, trunc_thr)
+    if checked is None:
+        return res
+    route, reference, pairs = checked
+    lanes = [lane for lane, (fobj_opt, fobj_ref) in enumerate(pairs)
+             if _flagged(circ, route, reference, fobj_opt, fobj_ref, f"lane {lane}", lane=lane)]
+    if not lanes:
+        return res
+    thetas, fobj = res.thetas.clone(), res.fobj.clone()
+    num_iters, converged = res.num_iters.copy(), res.converged.copy()
+    for lane in lanes:
+        one = _run_horizon(circ, thetas0[lane], target, base_bits, trunc_thr, fobj_thr, maxiter, no_improve_iters,
+                           impl=reference)[0]
+        thetas[lane], fobj[lane] = one.thetas, one.fobj
+        num_iters[lane], converged[lane] = one.num_iters, one.converged
+    return JitHorizonResult(thetas, fobj, 1.0 - fobj, num_iters, converged)
 
 
 def optimize_horizon_mps_jit(
@@ -705,12 +809,7 @@ def optimize_horizon_mps_timed(
     The collapse watchdog runs here too; a flagged horizon recovers through
     the one-run reference-route runner, which does not honour
     ``time_limit`` again (a rare flagged event puts correctness first)."""
-    if len(base_bits) != circ.num_qubits:
-        raise ValueError(
-            f"base_bits must give one 0/1 occupation per site: got "
-            f"{len(base_bits)} for {circ.num_qubits} qubits"
-        )
-    base_t = tuple(int(b) for b in base_bits)
+    base_t = _check_base_bits(circ, base_bits)
     fobj_thr = _loss_thr(fidelity_thr)
     no_imp = None if no_improve_iters is None else int(no_improve_iters)
     with request("asp.horizon"):

@@ -40,7 +40,7 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..utils.profiling import count, span
+from ..utils.profiling import count, instant, span
 
 
 class JitMinimizeResult(NamedTuple):
@@ -543,10 +543,18 @@ def lbfgs_fleet_programs(
                 return c
             # One pass over the running lanes; its span closes after the
             # stop-mask read that ends it, so its wall holds the device time
-            # of the accepted point's gradient.
+            # of the accepted point's gradient.  The counters give the
+            # steps and the lanes each step ran.  The pass is an iteration
+            # of every running lane: its span stands for the first lane's,
+            # and each further lane's is an instant beside it, so that the
+            # spans count lane iterations and hold the pass's wall once.
             with span("lbfgs.iteration"):
+                count("fleet_steps")
+                count("fleet_lanes", int(act.size))
                 iterate(c, act)
                 c.stop_host = _read_mask(c.stop_mask)
+            for lane in act[1:]:
+                instant("lbfgs.iteration", lane=int(lane))
 
     def extract(c: FleetCarry) -> Tuple[FleetResult, Any]:
         return FleetResult(c.best_x, c.best_f, c.it_host.copy(), c.stop_host.copy(), c.x), c.ost

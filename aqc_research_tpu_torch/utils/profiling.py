@@ -17,8 +17,9 @@ The recorder is off by default and switched by a call
 records its name, an id, its parent's id (the innermost span open when it
 opened), its request id (the id of the innermost enclosing
 :func:`request` span: the horizon it belongs to), ``perf_counter_ns`` at
-its start and end, and its attributes; a counter's increment is added to
-the process's total and to the innermost open span's ``counts``.  A
+its start and end, and its attributes (an :func:`instant` is a span of
+no wall); a counter's increment is added to the process's total and to
+the innermost open span's ``counts``.  A
 :func:`device_span` on a CUDA device also records a pair of timing events
 on the current stream (from a pool), which :func:`snapshot` resolves to
 device milliseconds once the caller has synchronised: nothing waits on the
@@ -178,6 +179,18 @@ def request(name: str, **attrs):
     if not _ON:
         return _NO_SPAN
     return _Span(name, attrs, is_request=True)
+
+
+def instant(name: str, **attrs) -> None:
+    """Records a span of no wall at this instant, inside the innermost open
+    span, while spans are on: an event that a reader counts among the spans
+    of its name and that adds nothing to any wall."""
+    if not _ON:
+        return
+    sp = _Span(name, attrs)
+    with sp:
+        pass
+    sp.end = sp.start
 
 
 def device_span(name: str, device: torch.device, **attrs):

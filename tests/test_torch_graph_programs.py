@@ -10,7 +10,8 @@ path (cz) and the per-gate path (cp on a random non-adjacent layout):
   its route whatever route is in effect when it is called (the JAX
   docstring's stale-program case);
 * capture-clean evaluation: after a warm-up, one value and one obj+grad on
-  "native" and on "rand" make no device read (``aten._local_scalar_dense``,
+  "native" and on "rand", at one lane's θ and at a fleet's rows, make no
+  device read (``aten._local_scalar_dense``,
   ``.cpu()``, ``.numpy()``, ``.tolist()``, a boolean-mask index or
   ``nonzero``) and build no tensor from host data (``aten.lift_fresh``,
   ``torch.tensor``, ``torch.as_tensor``, ``torch.from_numpy``): what a CUDA
@@ -245,8 +246,10 @@ def _programs(tc):
     return (tja._mps_value_program(tc, BITS, THR, impl), tja._mps_value_and_grad_program(tc, BITS, THR, impl))
 
 
-def _spy_evaluations(kind, cdtype, monkeypatch):
+def _spy_evaluations(kind, cdtype, monkeypatch, lanes=None):
     _, tc, _, th, tgt = _case(kind, cdtype)
+    if lanes is not None:  # a fleet's rows (L, P)
+        th = th + 0.1 * torch.arange(lanes, dtype=th.dtype)[:, None]
     value, value_and_grad = _programs(tc)
     value(th, tgt)
     value_and_grad(th, tgt)  # warm-up: builds the tables, draws the sketch
@@ -286,6 +289,17 @@ def test_native_evaluation_is_capture_clean(kind, monkeypatch):
 def test_rand_evaluation_is_capture_clean(kind, rand_route, monkeypatch):
     with config.svd_impl_override("rand"):
         assert _spy_evaluations(kind, torch.complex64, monkeypatch)[0] == []
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("route", ["native", "rand"])
+def test_fleet_evaluation_is_capture_clean(kind, route, rand_route, monkeypatch):
+    """The programs at a fleet's rows (3, P), as the fleet replays them at
+    each running-lane count: no device read, no host data."""
+    cdtype = torch.complex128 if route == "native" else torch.complex64
+    with config.svd_impl_override(route):
+        hits, values = _spy_evaluations(kind, cdtype, monkeypatch, lanes=3)
+    assert hits == [] and values[0].shape == (3,) and values[2].shape[0] == 3
 
 
 def test_the_spy_sees_what_a_capture_refuses(monkeypatch):

@@ -4,7 +4,8 @@ records, on the CPU:
 * off (the default), a horizon leaves the recorder empty and makes no span,
   no timing event and no counter entry;
 * nesting: parent ids, request ids (the enclosing ``request``), counts on
-  the innermost span, attributes, snapshot and reset;
+  the innermost span, attributes, snapshot and reset; an ``instant``, a
+  span of no wall;
 * the clock: under ``torch.profiler`` a span around ``torch.mm``, carried to
   the profiler's clock by ``snapshot``, holds the ``aten::mm`` event;
 * the L-BFGS loop on a quadratic: one ``lbfgs.iteration`` per iteration, each
@@ -136,6 +137,21 @@ def test_nesting_parents_requests_and_counts():
     with profiling.span("off") as off:
         profiling.count("reads")
     assert off is None and profiling.snapshot() == {"spans": [], "counters": {}}
+
+
+def test_an_instant_is_a_span_of_no_wall():
+    profiling.instant("lbfgs.iteration", lane=1)
+    assert profiling.snapshot() == {"spans": [], "counters": {}}
+    profiling.enable_spans()
+    with profiling.request("asp.horizon") as h:
+        with profiling.span("lbfgs.iteration"):
+            profiling.count("fleet_lanes", 2)
+        profiling.instant("lbfgs.iteration", lane=1)
+    req, step, mark = profiling.snapshot()["spans"]
+    assert (req["name"], step["name"], mark["name"]) == ("asp.horizon", "lbfgs.iteration", "lbfgs.iteration")
+    assert mark["parent"] == mark["request"] == h.id and mark["attrs"] == {"lane": 1} and mark["counts"] == {}
+    assert step["end_ns"] <= mark["start_ns"] == mark["end_ns"] <= req["end_ns"]
+    assert profiling._REC.stack == []
 
 
 def test_spans_sit_on_the_profilers_clock():
