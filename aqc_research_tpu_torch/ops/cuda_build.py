@@ -58,8 +58,8 @@ _SIGNATURES = {
     "tile_probe_launch": ([_VP] * 6 + [_CI] * 2 + [ctypes.c_longlong] * 2 + [_VP], _CI),
     # the same, then passes (3: split 3xTF32, 1: one TF32 pass), stream
     "tile_probe_tc_launch": ([_VP] * 6 + [_CI] * 2 + [ctypes.c_longlong] * 2 + [_CI, _VP], _CI),
-    # y, q, batch, n, l, cluster, stream
-    "householder_qr_launch": ([_VP, _VP] + [_CI] * 4 + [_VP], _CI),
+    # y, q, batch, n, l, cluster, nb (panel width: 16 or 8), stream
+    "householder_qr_launch": ([_VP, _VP] + [_CI] * 5 + [_VP], _CI),
     # in, out, n, iters, a, b, stream
     "fma_chain_launch": ([_VP, _VP, ctypes.c_longlong, _CI, _CF, _CF, _VP], _CI),
     # in, out, n, passes, a, b, blocks, stream

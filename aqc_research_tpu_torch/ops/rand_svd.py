@@ -152,7 +152,15 @@ def _range_project(
     are stabilized by ``intermediate`` ("qr" or "lu"; None reads the
     module's ``_INTERMEDIATE``), except the last, which goes into the final
     basis (``final``: "qr", Householder); with ``q_iters == 0`` the sample
-    goes into the final basis at once."""
+    goes into the final basis at once.
+
+    In complex64, rows of B below 32 eps of its largest row (the
+    noise floor of the rand tail's hybrid Jacobi criterion,
+    csrc/cluster_sweeps.cuh) come out as zeros: on zero-padded pair
+    matrices the basis holds directions that A does not reach, and B's rows
+    for them are rounding residue that the Jacobi would otherwise rotate,
+    sweep after sweep.  complex128 keeps B as computed, as the JAX
+    package's ``_range_project`` does."""
     stab = _lu_stab if _intermediate(intermediate, final) == "lu" else _orth
     b, n = a.shape[0], a.shape[-1]
     if omega is None:
@@ -164,7 +172,12 @@ def _range_project(
         z = stab(torch.matmul(ah, y))
         y = torch.matmul(a, z)
         y = stab(y) if i < q_iters - 1 else _orth(y)
-    return torch.matmul(y.conj().transpose(-1, -2), a)
+    bm = torch.matmul(y.conj().transpose(-1, -2), a)
+    if bm.dtype != torch.complex64:
+        return bm
+    rows2 = (bm.real.square() + bm.imag.square()).sum(-1)
+    floor2 = (32 * torch.finfo(rows2.dtype).eps) ** 2 * rows2.amax(-1, keepdim=True)
+    return bm.masked_fill((rows2 <= floor2)[..., None], 0)
 
 
 def rand_svd_top_k(

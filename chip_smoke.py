@@ -48,11 +48,14 @@ Phases, one line each:
                 rows, where torch's batched CUDA QR returns NaN.
   2e. qr      — (after 2b) Q1, the batched Householder QR of the
                 range-finder (ops/householder_qr.py), at (14, 256, 136),
-                (14, 128, 72) and (80, 128, 72) on graded and zero-padded
-                samples: finite, orthonormal, spanning, columns against
-                cuSOLVER's; timed at every cluster size beside its twin and
-                torch.linalg.qr in chunks that cuSOLVER factors one matrix
-                at a time, with the card's bound ([qr] lines).
+                (56, 256, 136), (14, 128, 72) and (80, 128, 72), and off
+                the path at (14, 128, 5), (14, 128, 8), (14, 128, 12) and
+                (4, 256, 256), on graded and zero-padded samples: finite,
+                orthonormal, spanning, columns against cuSOLVER's and the
+                blocked twin's; timed at every cluster size and panel
+                width, beside its twins and torch.linalg.qr in chunks that
+                cuSOLVER factors one matrix at a time, with the card's
+                bound ([qr] lines).
   2c. fused   — K4 fused_pair vs its plain twin at B=10, χ in {8, 16, 32,
                 64} (planes in one block's shared memory), {96, 100, 128}
                 (the cluster path: planes in the distributed shared memory
@@ -3551,9 +3554,15 @@ KERNELS = (
 
 
 # The batched Householder QR (Q1) at the range-finder's shapes: a half-layer
-# at 28q χ=128 and at χ=64, and the folded fleet's batch.
-QR_SHAPES = ((PATH28_BATCH, 2 * PATH28_CHI, PATH28_CHI + 8), (PATH28_BATCH, 2 * PATH_CHI, PATH_CHI + 8),
-             (80, 2 * PATH_CHI, PATH_CHI + 8))
+# at 28q χ=128, the 28q fleet's batch of 4 lanes, a half-layer at χ=64, and
+# the folded fleet's batch at χ=64; then shapes off the path (the rand
+# route starts at n = 128, so l >= 72) at the rule's narrowest panel: l = 5
+# (one ragged panel of 8), l = 8 (one panel) and l = 12 (a panel and a
+# ragged one); and l = n = 256, where panels of 16 fit no cluster.
+QR_SHAPES = ((PATH28_BATCH, 2 * PATH28_CHI, PATH28_CHI + 8), (4 * PATH28_BATCH, 2 * PATH28_CHI, PATH28_CHI + 8),
+             (PATH28_BATCH, 2 * PATH_CHI, PATH_CHI + 8), (80, 2 * PATH_CHI, PATH_CHI + 8),
+             (PATH28_BATCH, 2 * PATH_CHI, 5), (PATH28_BATCH, 2 * PATH_CHI, 8), (PATH28_BATCH, 2 * PATH_CHI, 12),
+             (4, 2 * PATH28_CHI, 2 * PATH28_CHI))
 
 
 def qr_bound_ms(batch: int, n: int, ell: int) -> float:
@@ -3565,16 +3574,18 @@ def qr_bound_ms(batch: int, n: int, ell: int) -> float:
 
 
 def phase_qr(dev, card_line: str) -> None:
-    """Q1 against its twin and cuSOLVER (torch.linalg.qr in chunks of
+    """Q1 against its twins and cuSOLVER (torch.linalg.qr in chunks of
     max(2, n // 16) - 1 matrices, which cuSOLVER factors one at a time:
     cuBLAS's batched geqrf returns NaN on padded samples) on graded and
-    zero-padded samples, then timed: every cluster size, the twin, the
-    chunked cuSOLVER calls; one [qr] line per shape."""
+    zero-padded samples, then timed: every cluster size at every panel
+    width that fits, the twins, the chunked cuSOLVER calls; one [qr] line
+    per shape, the rule's choice starred."""
     from aqc_research_tpu_torch.kernel_checks import padded_pair_batch
     from aqc_research_tpu_torch.ops import cuda_build, rand_svd
     from aqc_research_tpu_torch.ops import householder_qr as hq
 
     rng = np.random.default_rng(21)
+    smem = cuda_build.max_smem(0)
     for batch, n, ell in QR_SHAPES:
         g = rng.standard_normal((batch, n, ell)) + 1j * rng.standard_normal((batch, n, ell))
         u, _, vh = np.linalg.svd(g, full_matrices=False)
@@ -3596,22 +3607,33 @@ def phase_qr(dev, card_line: str) -> None:
             check(bool(torch.isfinite(torch.view_as_real(q)).all()) and orth <= 2e-5 and span <= 2e-5,
                   f"qr {batch}x{n}x{ell} {label}: orthonormality {orth:.2e}, span {span:.2e}")
             errs[label] = f"orth {orth:.1e} span {span:.1e}"
-        d_ref = float((hq.householder_qr(graded) - cusolver(graded)).abs().max())
+        q_rule = hq.householder_qr(graded)
+        d_ref = float((q_rule - cusolver(graded)).abs().max())
         check(d_ref <= 1e-4, f"qr {batch}x{n}x{ell}: columns differ from cuSOLVER's by {d_ref:.2e}")
-        rule = hq.qr_cluster(n, ell, cuda_build.max_smem(0), batch, cuda_build.sm_count(0))
+        rule = hq.qr_plan(n, ell, smem, batch, cuda_build.sm_count(0))
+        d_twin = float((q_rule - hq.householder_qr_blocked_reference(graded, rule[1])).abs().max())
+        check(d_twin <= 1e-4, f"qr {batch}x{n}x{ell}: columns differ from the blocked twin's by {d_twin:.2e}")
         times = {}
         for cluster in hq.CLUSTERS:
-            if -(-n // cluster) <= hq.MAX_CTA_ROWS:
+            if -(-n // cluster) > hq.MAX_CTA_ROWS:
+                continue
+            for nb in hq.PANELS:
+                if nb > max(ell, hq.PANELS[-1]) or hq.qr_blocked_smem_bytes(n, ell, cluster, nb) > smem:
+                    continue
                 for label, y in (("graded", graded), ("padded", padded)):
-                    times[(cluster, label)] = timings(lambda y=y, c=cluster: hq.householder_qr(y, cluster=c))
+                    times[(cluster, nb, label)] = timings(
+                        lambda y=y, c=cluster, b=nb: hq.householder_qr(y, cluster=c, blocked=b))
         twin = median_ms(lambda: hq.householder_qr_reference(graded), runs=5, warmup=1)
+        twin_b = median_ms(lambda: hq.householder_qr_blocked_reference(graded, rule[1]), runs=5, warmup=1)
         lib = timings(lambda: cusolver(graded), calls=3, repeats=3, runs=5)
         bound = qr_bound_ms(batch, n, ell)
-        best = times[(rule, "graded")]["ms"]
-        per = " | ".join(f"{'*' if c == rule else ''}cluster {c} {label}: {fmt(t)}" for (c, label), t in times.items())
+        best = times[(*rule, "graded")]["ms"]
+        per = " | ".join(f"{'*' if (c, b) == rule else ''}cluster {c} nb {b} {label}: {fmt(t)}"
+                         for (c, b, label), t in times.items())
         print(f"[qr] {batch}x{n}x{ell} | {errs['graded']} (graded), {errs['padded']} (padded, rank {2 * PAD_RANK}) | "
-              f"vs cuSOLVER {d_ref:.1e} | {per} | twin {twin:.3f} ms per call | cuSOLVER chunks of {chunk}: "
-              f"{fmt(lib)} | bound {bound:.4f} ms, kernel {best / bound:.1f}x | {card_line}", flush=True)
+              f"vs cuSOLVER {d_ref:.1e}, vs blocked twin {d_twin:.1e} | {per} | twin {twin:.3f}, blocked twin "
+              f"{twin_b:.3f} ms per call | cuSOLVER chunks of {chunk}: {fmt(lib)} | bound {bound:.4f} ms, kernel "
+              f"{best / bound:.1f}x | {card_line}", flush=True)
 
 
 def main() -> int:

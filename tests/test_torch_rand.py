@@ -185,6 +185,94 @@ def test_range_project_on_zero_padded_pairs_matches_jax():
     assert np.abs(tg - jg).max() <= 1e-5 * js.max() ** 2
 
 
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_range_project_zeroes_rows_below_the_rand_tails_floor(dtype):
+    """On zero-padded pairs the basis holds directions A does not reach: in
+    complex64 B's rows for them, rounding residue, come out as exact zeros,
+    and every other row lies above 32 eps of the largest (the floor of the
+    rand tail's hybrid criterion); the rows kept are B's as computed.  In
+    complex128 B is left as computed, as the JAX package leaves it."""
+    n, b = 2 * CHI, 3
+    ell = trs.rand_ell(n, CHI)
+    a = padded_pair_batch(np.random.default_rng(4), b, n, 2).to(dtype)
+    omega = torch.tensor(jax_sketch(b, n, ell)).to(dtype)
+    bm = trs._range_project(a, ell, trs._POWER_ITERS, omega=omega)
+    y = trs._orth(torch.matmul(a, omega))  # the same basis, B before the floor
+    for _ in range(trs._POWER_ITERS):
+        y = trs._orth(torch.matmul(a, trs._orth(torch.matmul(a.mH, y))))
+    raw = torch.matmul(y.mH, a)
+    if dtype == torch.complex128:
+        assert torch.equal(bm, raw)
+        return
+    rows2 = (bm.real.square() + bm.imag.square()).sum(-1)
+    floor2 = (32 * torch.finfo(rows2.dtype).eps) ** 2 * rows2.amax(-1, keepdim=True)
+    zero = rows2 == 0
+    assert bool(((rows2 > floor2) | zero).all())
+    assert int(zero.sum(-1).min()) >= ell - 4  # rank 4: every row past the range is zero
+    raw2 = (raw.real.square() + raw.imag.square()).sum(-1)
+    assert torch.equal(bm[~zero], raw[~zero]) and bool((raw2[zero] <= floor2.expand_as(raw2)[zero]).all())
+
+
+def _reconstruct_kept(a, vh, lam):
+    """A V^H V over the kept rows of each matrix: the part of A the rand
+    tail's factors keep (U diag(lam) V^H, with U = A V^H / lam)."""
+    out = []
+    for i in range(a.shape[0]):
+        v = vh[i, lam[i] > 0]
+        out.append(a[i] @ (np.conj(v).T @ v))
+    return np.stack(out)
+
+
+@pytest.mark.parametrize("decades", [8.0, 12.0, 16.0])
+@pytest.mark.parametrize("trunc_thr", [1e-7, 1e-3])
+def test_range_project_through_the_floor_matches_the_jax_route(rand_route, decades, trunc_thr):
+    """Full-rank pair matrices whose spectrum falls through 32 eps (1 ..
+    10^-decades over 32 values), in complex64: the floor zeroes B's rows
+    below it, which hold real content here and not only rounding residue.
+    The port's route (its range-finder, then K3's twin) against the JAX
+    package's (its range-finder, then its rand tail): B's singular values
+    and Gram within 1e-5 s_max, λ within 1e-5 s_max with the same keep
+    masks (K3 keeps nothing below ~7e-6 s_max of its own), and the part of
+    A the factors keep, A V^H V, within 3e-5 max |A| (the pair update's
+    bar).  The vh rows of values near K3's floor are fixed only to f32
+    noise on either route (the route without the floor differs from JAX's
+    there by up to 5e-4 a projector entry), so U and V are held through
+    A V^H V."""
+    n, b = 2 * CHI, 3
+    ell = trs.rand_ell(n, CHI)
+    a = _graded_matrices(int(decades), b, n, decades).astype(np.complex64)
+    omega = jax_sketch(b, n, ell)
+    jb = np.asarray(jrs._range_project(jnp.asarray(a), ell, jrs._POWER_ITERS))
+    tb = trs._range_project(torch.tensor(a), ell, trs._POWER_ITERS, omega=torch.tensor(omega).to(torch.complex64))
+    tb = tb.numpy()
+    assert (np.abs(tb).sum(-1) == 0).sum(-1).min() >= 2  # the floor took rows in every matrix
+    js, ts = np.linalg.svd(jb, compute_uv=False), np.linalg.svd(tb, compute_uv=False)
+    smax = js.max()
+    assert np.abs(ts - js).max() <= 1e-5 * smax
+    jg = np.conj(np.swapaxes(jb, -1, -2)) @ jb
+    tg = np.conj(np.swapaxes(tb, -1, -2)) @ tb
+    assert np.abs(tg - jg).max() <= 1e-5 * smax**2
+    thr2 = trunc_thr**2
+    tot2 = (np.abs(a) ** 2).sum((-2, -1)).astype(np.float32)
+    planes = [np.ascontiguousarray(x.astype(np.float32)) for x in (jb.real, -jb.imag, tb.real, -tb.imag)]
+    jvh_re, jvh_im, jlam, _ = (
+        np.asarray(x)
+        for x in jfr._rand_tail_raw(
+            jnp.full((1, 1), thr2, jnp.float32), jnp.asarray(tot2[:, None]),
+            jnp.asarray(planes[0]), jnp.asarray(planes[1]), CHI, ell, 12, 1,
+        )
+    )
+    jlam = jlam[:, 0]
+    vh_re, vh_im, lam, _, _ = tfr.rand_tail(torch.tensor(planes[2]), torch.tensor(planes[3]), torch.tensor(tot2),
+                                            thr2, CHI, 12)
+    lam = lam.numpy()
+    assert np.abs(lam - jlam).max() <= 1e-5 * jlam.max()
+    np.testing.assert_array_equal(lam > 0, jlam > 0)
+    rec = _reconstruct_kept(a, vh_re.numpy() + 1j * vh_im.numpy(), lam)
+    jrec = _reconstruct_kept(a, jvh_re + 1j * jvh_im, jlam)
+    assert np.abs(rec - jrec).max() <= 3e-5 * np.abs(a).max()
+
+
 @pytest.mark.parametrize(
     "trunc_thr,extra,near",
     [
