@@ -439,8 +439,9 @@ __device__ __forceinline__ void householder_column(float2 (&x)[kPR], int j, int 
 // y[g], e the exponent householder_column takes for the column (of its
 // largest entry at rows >= j).  Each lane scales its own rows, and a pair
 // of lanes aligns its sums by powers of two, as the norm's reduction does.
-// With it the next column's w = v^H y is y[j] + conj(inv) dot, as the
-// plain twin (ops/householder_qr.householder_qr_reference) takes it.
+// With it the next column's w = v^H y is y[j] + conj(inv) dot (the plain
+// twin, ops/householder_qr.householder_qr_reference, forms v and takes
+// v^H y: equal to rounding).
 template <int kPR, int kS, int kC>
 __device__ __forceinline__ float2 scaled_dot(const float2* col, const float2 (&y)[kPR], int j, int lane) {
   constexpr int kSeg = panel_seg(kS, kC), kRows = 16 * kS * kC;

@@ -18,12 +18,12 @@ below f32's normal range keep their norm; a column whose largest entry lies
 below :data:`FLOOR` (2^-100) gets tau = 0 (H = I), as a zero column does in
 LAPACK.  Q is finite and orthonormal on rank-deficient samples too.
 
-Dispatch rule of :func:`householder_qr`: CPU tensors go to the plain twin
-:func:`householder_qr_reference`, CUDA tensors to the kernel — no fallback
-in between; the kernel route raises on anything it does not take and on a
-launch the card refuses.  The kernel is LAPACK's blocked cgeqrf + cungqr
-(compact WY, panels of 16 or 8 columns); :func:`householder_qr_blocked_reference`
-repeats its panel, T and block-update arithmetic.  Where a matrix lives
+The kernel and its twin are LAPACK's blocked cgeqrf + cungqr (compact WY,
+panels of 16 or 8 columns): :func:`householder_qr_reference` repeats the
+kernel's panel, T and block-update arithmetic.  Dispatch rule of
+:func:`householder_qr`: CPU tensors go to the twin, CUDA tensors to the
+kernel — no fallback in between; the kernel route raises on anything it
+does not take and on a launch the card refuses.  Where a matrix lives
 and how wide its panels are is :func:`qr_plan`'s rule, from (n, l), the
 batch and the card: the shared memory of a cluster of CTAs, rows dealt out
 cyclically — of four CTAs while the batch's clusters fit the card at once
@@ -74,44 +74,18 @@ def _reflector(col: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Ten
     return tau, inv, x
 
 
-def householder_qr_reference(y: torch.Tensor) -> torch.Tensor:
+def householder_qr_reference(y: torch.Tensor, nb: int = PANELS[0]) -> torch.Tensor:
     """Plain-torch twin of the kernel: the reduced Q (b, n, l) of each
     ``y`` (b, n, l) complex, l <= n, with the kernel's reflectors, scaling
-    and floor, in the input's precision.  Row j of the factor (R) is never
-    formed: Q is all the range-finder needs."""
-    b, n, ell = y.shape
-    a = y.clone()
-    taus = torch.zeros((b, ell), dtype=y.dtype, device=y.device)
-    for j in range(ell):
-        tau, inv, x = _reflector(a[:, j:, j])
-        v = x * inv[:, None]
-        # w_k = v^H a_k = a_jk + conj(inv) sum_{i > j} conj(x_i) a_ik
-        w = a[:, j, j + 1 :] + (x.conj()[..., None] * a[:, j + 1 :, j + 1 :]).sum(-2) * inv.conj()[:, None]
-        a[:, j + 1 :, j + 1 :] -= tau.conj()[:, None, None] * v[..., None] * w[:, None, :]
-        a[:, j + 1 :, j] = v
-        taus[:, j] = tau
-    q = torch.zeros_like(a)
-    for i in range(ell - 1, -1, -1):
-        v, tau = a[:, i + 1 :, i], taus[:, i]
-        # Row i of the trailing columns is still zero: the dot runs below it.
-        w = (v.conj()[..., None] * q[:, i + 1 :, i + 1 :]).sum(-2)
-        q[:, i + 1 :, i + 1 :] -= tau[:, None, None] * v[..., None] * w[:, None, :]
-        q[:, i, i + 1 :] = -tau[:, None] * w
-        q[:, i, i] = 1 - tau
-        q[:, i + 1 :, i] = -tau[:, None] * v
-    return q
-
-
-def householder_qr_blocked_reference(y: torch.Tensor, nb: int) -> torch.Tensor:
-    """Plain-torch twin of the blocked kernel: the reduced Q (b, n, l) of
-    each ``y`` (b, n, l) complex, l <= n, by panels of ``nb`` columns, in
-    the input's precision.  Per panel: the kernel's reflectors (as
-    :func:`householder_qr_reference`) on the panel, each applied to the
-    panel's later columns as H^H a = a - conj(tau) v (v^H a) with v explicit
-    (1 at its row, 0 above; the kernel takes the next column's v^H a as
-    a_j + conj(inv) x^H a, equal to rounding); T by clarft's recurrence from
-    V^H V; the trailing columns less V (T^H (V^H A)).  Then Q from
-    I[:, :l], the panels from the last: Q[:, j0:] less V (T (V^H Q[:, j0:]))."""
+    and floor, by panels of ``nb`` columns, in the input's precision.  Per
+    panel: the reflectors (:func:`_reflector`) on the panel, each applied
+    to the panel's later columns as H^H a = a - conj(tau) v (v^H a) with v
+    explicit (1 at its row, 0 above; the kernel takes the next column's
+    v^H a as a_j + conj(inv) x^H a, equal to rounding); T by clarft's
+    recurrence from V^H V; the trailing columns less V (T^H (V^H A)).  Then
+    Q from I[:, :l], the panels from the last: Q[:, j0:] less
+    V (T (V^H Q[:, j0:])).  The factor R is never formed: Q is all the
+    range-finder needs."""
     b, n, ell = y.shape
     a = y.clone()
     panels = []
@@ -217,13 +191,14 @@ def check_qr_args(y: torch.Tensor) -> None:
         raise ValueError(f"householder_qr needs 1 <= l <= n <= {MAX_ROWS}, got n={n} l={ell}")
 
 
-def householder_qr(y: torch.Tensor, *, cluster: int | None = None, blocked: int | None = None) -> torch.Tensor:
+def householder_qr(y: torch.Tensor, *, cluster: int | None = None, panel: int | None = None) -> torch.Tensor:
     """The reduced Q (b, n, l) of each ``y`` (b, n, l); see
     :func:`householder_qr_reference` for the contract.
 
-    CPU tensors run the plain twin; CUDA tensors launch the kernel as
-    :func:`qr_plan` says: its CTAs per matrix and its panel width.
-    ``cluster`` chooses another count and ``blocked`` another panel width
+    CPU tensors run the plain twin at panels of ``PANELS[0]`` columns;
+    CUDA tensors launch the kernel as :func:`qr_plan` says: its CTAs per
+    matrix and its panel width.
+    ``cluster`` chooses another count and ``panel`` another panel width
     (16 or 8), for A/B timings and the card tests; the range-finder passes
     neither.  Every launch adds one to ``householder_qr.launches``,
     ``householder_qr.launches_at[n]`` and
@@ -234,13 +209,13 @@ def householder_qr(y: torch.Tensor, *, cluster: int | None = None, blocked: int 
     if y.device.type != "cuda":
         raise ValueError(f"householder_qr: unsupported device {y.device}")
     check_qr_args(y)
-    if blocked is not None and blocked not in PANELS:
-        raise ValueError(f"householder_qr: panels of {PANELS} columns, got {blocked}")
+    if panel is not None and panel not in PANELS:
+        raise ValueError(f"householder_qr: panels of {PANELS} columns, got {panel}")
     dev = cuda_build.device_index(y)
     b, n, ell = y.shape
     smem = cuda_build.max_smem(dev)
     cluster = cluster or qr_cluster(n, ell, smem, b, cuda_build.sm_count(dev))
-    nb = qr_panel(n, ell, cluster, smem) if blocked is None else blocked
+    nb = qr_panel(n, ell, cluster, smem) if panel is None else panel
     q = torch.empty_like(y)
     if b == 0:
         return q

@@ -52,8 +52,8 @@ Phases, one line each:
                 the path at (14, 128, 5), (14, 128, 8), (14, 128, 12) and
                 (4, 256, 256), on graded and zero-padded samples: finite,
                 orthonormal, spanning, columns against cuSOLVER's and the
-                blocked twin's; timed at every cluster size and panel
-                width, beside its twins and torch.linalg.qr in chunks that
+                twin's; timed at every cluster size and panel width,
+                beside its twin and torch.linalg.qr in chunks that
                 cuSOLVER factors one matrix at a time, with the card's
                 bound ([qr] lines).
   2c. fused   — K4 fused_pair vs its plain twin at B=10, χ in {8, 16, 32,
@@ -3574,11 +3574,11 @@ def qr_bound_ms(batch: int, n: int, ell: int) -> float:
 
 
 def phase_qr(dev, card_line: str) -> None:
-    """Q1 against its twins and cuSOLVER (torch.linalg.qr in chunks of
+    """Q1 against its twin and cuSOLVER (torch.linalg.qr in chunks of
     max(2, n // 16) - 1 matrices, which cuSOLVER factors one at a time:
     cuBLAS's batched geqrf returns NaN on padded samples) on graded and
     zero-padded samples, then timed: every cluster size at every panel
-    width that fits, the twins, the chunked cuSOLVER calls; one [qr] line
+    width that fits, the twin, the chunked cuSOLVER calls; one [qr] line
     per shape, the rule's choice starred."""
     from aqc_research_tpu_torch.kernel_checks import padded_pair_batch
     from aqc_research_tpu_torch.ops import cuda_build, rand_svd
@@ -3611,8 +3611,8 @@ def phase_qr(dev, card_line: str) -> None:
         d_ref = float((q_rule - cusolver(graded)).abs().max())
         check(d_ref <= 1e-4, f"qr {batch}x{n}x{ell}: columns differ from cuSOLVER's by {d_ref:.2e}")
         rule = hq.qr_plan(n, ell, smem, batch, cuda_build.sm_count(0))
-        d_twin = float((q_rule - hq.householder_qr_blocked_reference(graded, rule[1])).abs().max())
-        check(d_twin <= 1e-4, f"qr {batch}x{n}x{ell}: columns differ from the blocked twin's by {d_twin:.2e}")
+        d_twin = float((q_rule - hq.householder_qr_reference(graded, rule[1])).abs().max())
+        check(d_twin <= 1e-4, f"qr {batch}x{n}x{ell}: columns differ from the twin's by {d_twin:.2e}")
         times = {}
         for cluster in hq.CLUSTERS:
             if -(-n // cluster) > hq.MAX_CTA_ROWS:
@@ -3622,18 +3622,17 @@ def phase_qr(dev, card_line: str) -> None:
                     continue
                 for label, y in (("graded", graded), ("padded", padded)):
                     times[(cluster, nb, label)] = timings(
-                        lambda y=y, c=cluster, b=nb: hq.householder_qr(y, cluster=c, blocked=b))
-        twin = median_ms(lambda: hq.householder_qr_reference(graded), runs=5, warmup=1)
-        twin_b = median_ms(lambda: hq.householder_qr_blocked_reference(graded, rule[1]), runs=5, warmup=1)
+                        lambda y=y, c=cluster, b=nb: hq.householder_qr(y, cluster=c, panel=b))
+        twin = median_ms(lambda: hq.householder_qr_reference(graded, rule[1]), runs=5, warmup=1)
         lib = timings(lambda: cusolver(graded), calls=3, repeats=3, runs=5)
         bound = qr_bound_ms(batch, n, ell)
         best = times[(*rule, "graded")]["ms"]
         per = " | ".join(f"{'*' if (c, b) == rule else ''}cluster {c} nb {b} {label}: {fmt(t)}"
                          for (c, b, label), t in times.items())
         print(f"[qr] {batch}x{n}x{ell} | {errs['graded']} (graded), {errs['padded']} (padded, rank {2 * PAD_RANK}) | "
-              f"vs cuSOLVER {d_ref:.1e}, vs blocked twin {d_twin:.1e} | {per} | twin {twin:.3f}, blocked twin "
-              f"{twin_b:.3f} ms per call | cuSOLVER chunks of {chunk}: {fmt(lib)} | bound {bound:.4f} ms, kernel "
-              f"{best / bound:.1f}x | {card_line}", flush=True)
+              f"vs cuSOLVER {d_ref:.1e}, vs twin {d_twin:.1e} | {per} | twin {twin:.3f} ms per call | cuSOLVER "
+              f"chunks of {chunk}: {fmt(lib)} | bound {bound:.4f} ms, kernel {best / bound:.1f}x | {card_line}",
+              flush=True)
 
 
 def main() -> int:

@@ -40,6 +40,7 @@ from aqc_research_tpu_torch.models.sketching import sk_core as tsk
 from aqc_research_tpu_torch.ops import coord_descent as tcd
 from aqc_research_tpu_torch.parallel.executor import run_jobs
 from aqc_research_tpu_torch.targets import generator as tgen
+from tests import _torch_threads  # noqa: F401
 
 j_sketching = importlib.import_module("aqc_research_tpu.models.sketching.aqc_sketching").aqc_sketching
 t_sketching = importlib.import_module("aqc_research_tpu_torch.models.sketching.aqc_sketching").aqc_sketching

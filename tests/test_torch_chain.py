@@ -37,6 +37,7 @@ from aqc_research_tpu.targets import trotter as jtrot
 from aqc_research_tpu_torch import config, interop
 from aqc_research_tpu_torch.optim.lbfgs import minimize_lbfgs_compact
 from tests._torch_gloo import GlooPool, assert_bitwise_same
+from tests import _torch_threads  # noqa: F401
 
 TOL = 1e-10
 WORLDS = (2, 4)

@@ -13,6 +13,7 @@ from aqc_research_tpu_torch.kernel_checks import lambda_check
 from aqc_research_tpu_torch.ops import fused_rand as tfr
 from aqc_research_tpu_torch.ops import jacobi_kernel as jk
 from aqc_research_tpu_torch.ops import rand_svd as trs
+from tests import _torch_threads  # noqa: F401
 
 SMEM_H100 = 232448  # opt-in shared memory of one H100 block
 

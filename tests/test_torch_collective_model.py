@@ -26,6 +26,7 @@ from aqc_research_tpu_torch.ops import mps as tm
 from aqc_research_tpu_torch.parallel import collective_model as cm
 from aqc_research_tpu_torch.targets import trotter as trotop
 from tests._torch_gloo import GlooPool
+from tests import _torch_threads  # noqa: F401
 
 TASKS = "tests._torch_dist_tasks"
 

@@ -50,6 +50,7 @@ from aqc_research_tpu_torch.models.sp_lhs import time_evol as tte
 from aqc_research_tpu_torch.models.sp_lhs.user_options import UserOptions
 from aqc_research_tpu_torch.optim import lbfgs as tlbfgs
 from aqc_research_tpu_torch.targets import trotter as ttrot
+from tests import _torch_threads  # noqa: F401
 
 TOL = 1e-10  # single evaluations
 TOL_RUN = 1e-8  # after an L-BFGS run

@@ -38,6 +38,7 @@ from aqc_research_tpu_torch import config
 from aqc_research_tpu_torch.kernel_checks import padded_pair_batch
 from aqc_research_tpu_torch.ops import mps as tm
 from aqc_research_tpu_torch.ops import rand_svd as trs
+from tests import _torch_threads  # noqa: F401
 
 MIN_N = 24  # RAND_MIN_N of both packages in these tests: chi 12 and 16 reach it, chi 8 does not
 TOL_S = 1e-5

@@ -56,6 +56,7 @@ from aqc_research_tpu_torch.models.sp_lhs.user_options import UserOptions
 from aqc_research_tpu_torch.ops import mps as tm
 from aqc_research_tpu_torch.optim import lbfgs as tlbfgs
 from aqc_research_tpu_torch.targets import trotter as ttrot
+from tests import _torch_threads  # noqa: F401
 
 TOL_RUN = 1e-8  # fidelities and thetas after 8 L-BFGS iterations in c128
 TOL_EXACT = 1e-10  # targets and states at no truncation in c128

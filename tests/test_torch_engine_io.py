@@ -31,6 +31,7 @@ from aqc_research_tpu_torch.circuit.program import ProgramBuilder
 from aqc_research_tpu_torch.io import checkpoint as tck
 from aqc_research_tpu_torch.models.sp_lhs import evol_utils as tev
 from aqc_research_tpu_torch.ops import mps as tm
+from tests import _torch_threads  # noqa: F401
 
 TOL = 1e-10
 N, CHI = 5, 16

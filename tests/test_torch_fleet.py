@@ -49,6 +49,7 @@ from aqc_research_tpu_torch.models.sp_lhs import jit_asp as tja
 from aqc_research_tpu_torch.ops.mps import MPS
 from aqc_research_tpu_torch.optim import lbfgs as tlbfgs
 from aqc_research_tpu_torch.parallel import multistart as tms
+from tests import _torch_threads  # noqa: F401
 
 TOL_LANE = 1e-10  # the fleet loop and Adam, per lane
 TOL_RUN = 1e-8  # zoom, the fleets, the drivers

@@ -43,6 +43,7 @@ from aqc_research_tpu_torch.ops import mps as tm
 from aqc_research_tpu_torch.ops import mps_gradient as tg
 
 from tests.test_torch_fleet import _AtenCount
+from tests import _torch_threads  # noqa: F401
 
 TOL = 1e-10  # c128, one evaluation
 TOL_RUN = 1e-8  # c128, a fleet run

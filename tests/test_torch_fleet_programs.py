@@ -38,6 +38,7 @@ from aqc_research_tpu_torch.circuit.structures import make_trotter_like_circuit
 from aqc_research_tpu_torch.models.sp_lhs import jit_asp as tja
 from aqc_research_tpu_torch.models.sp_lhs.target_states import first_horizon_mps_target
 from aqc_research_tpu_torch.utils import profiling
+from tests import _torch_threads  # noqa: F401
 
 BENCH = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "h100bench")
 if BENCH not in sys.path:

@@ -42,6 +42,7 @@ from aqc_research_tpu_torch.kernel_checks import near_threshold
 from aqc_research_tpu_torch.models.sp_lhs import jit_asp as tja
 from aqc_research_tpu_torch.ops import fused_pair as tfp
 from aqc_research_tpu_torch.ops import mps as tm
+from tests import _torch_threads  # noqa: F401
 
 BATCH = 3
 

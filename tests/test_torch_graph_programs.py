@@ -56,6 +56,7 @@ from aqc_research_tpu_torch.ops import jacobi_svd as tjs
 from aqc_research_tpu_torch.ops import mps as tm
 from aqc_research_tpu_torch.ops import rand_svd as trs
 from aqc_research_tpu_torch.optim.lbfgs import lbfgs_chunk_programs, run_lbfgs_chunked, stateless
+from tests import _torch_threads  # noqa: F401
 
 N, CHI, THR = 6, 8, 1e-6
 BITS = tuple(1 if q % 2 == 0 else 0 for q in range(N))

@@ -32,6 +32,7 @@ from aqc_research_tpu_torch.ops import mps as tm
 from aqc_research_tpu_torch.optim import optimizer as topt
 from aqc_research_tpu_torch.optim import stoppers as tst
 from aqc_research_tpu_torch.targets import trotter as ttrot
+from tests import _torch_threads  # noqa: F401
 
 TOL_SCALE = 1e-15
 TOL_X = 1e-10

@@ -9,13 +9,11 @@ file imports no JAX, so its card tests also run where JAX is not installed:
 Shapes: the range-finder's (b, 2χ, χ + 8) at χ = 128 and 64, b = 13-14 a
 half-layer, 40, 56 and 80 in the folded fleets; full-rank graded samples and
 ``kernel_checks.padded_pair_batch`` samples (θ's zero padding at bond ranks
-4, 20 and 64).  Tolerances: in complex128 the twin's columns equal
-LAPACK's to 1e-10 (graded to 1e-3: rounding times the condition); in f32
-Q is orthonormal and spans the sample to 2e-5 (rounding over 256 rows),
-and its columns equal LAPACK's to 1e-4 on samples graded to 1e-2.  The
-blocked twin (panels of 4, 8 and 16 columns) equals LAPACK's in complex128
-to 1e-12 and the unblocked twin in f32 to 1e-5 on samples graded to 1e-2
-(rounding times the condition)."""
+4, 20 and 64).  Tolerances: in complex128 the twin's columns (panels of
+4, 8 and 16 columns) equal LAPACK's to 1e-10 to 1e-12 (graded to 1e-3:
+rounding times the condition); in f32 Q is orthonormal and spans the
+sample to 2e-5 (rounding over 256 rows), and its columns equal LAPACK's
+to 1e-4 on samples graded to 1e-2."""
 
 import numpy as np
 import pytest
@@ -27,6 +25,7 @@ from aqc_research_tpu_torch.ops import fused_pair as tfp
 from aqc_research_tpu_torch.ops import fused_rand as tfr
 from aqc_research_tpu_torch.ops import householder_qr as hq
 from aqc_research_tpu_torch.ops import rand_svd as trs
+from tests import _torch_threads  # noqa: F401
 
 # The range-finder's shapes on the card (b, n = 2χ, l = χ + 8).
 PATH_SHAPES = [(14, 256, 136), (13, 256, 136), (14, 128, 72), (13, 128, 72), (40, 128, 72), (80, 128, 72),
@@ -151,8 +150,8 @@ def test_qr_cluster_raises_where_no_cluster_holds_a_panel():
         hq.qr_cluster(256, 136, 100_000, 14, H100[1])
 
 
-# Shapes for the blocked twin: the path's, a ragged last panel (l not a
-# multiple of the panel), l below one panel, l = n.
+# Shapes for the twin at every panel width: the path's, a ragged last panel
+# (l not a multiple of the panel), l below one panel, l = n.
 BLOCKED_SHAPES = [(2, 256, 136), (3, 128, 72), (2, 100, 37), (3, 40, 7), (2, 64, 64)]
 
 
@@ -160,7 +159,7 @@ BLOCKED_SHAPES = [(2, 256, 136), (3, 128, 72), (2, 100, 37), (3, 40, 7), (2, 64,
 @pytest.mark.parametrize("batch,n,ell", BLOCKED_SHAPES)
 def test_blocked_twin_matches_lapack_in_c128(batch, n, ell, nb):
     y = graded(batch * n + ell + nb, batch, n, ell, 3.0)
-    q = hq.householder_qr_blocked_reference(y, nb)
+    q = hq.householder_qr_reference(y, nb)
     want = torch.linalg.qr(y, mode="reduced")[0]
     cols = min(ell, n - 1)  # at l = n the last column's phase is LAPACK's own choice
     assert float((q - want)[..., :cols].abs().max()) <= 1e-12
@@ -170,9 +169,13 @@ def test_blocked_twin_matches_lapack_in_c128(batch, n, ell, nb):
 @pytest.mark.parametrize("nb", [4, 8, 16])
 @pytest.mark.parametrize("batch,n,ell", BLOCKED_SHAPES)
 def test_blocked_twin_matches_the_unblocked_twin_in_f32(batch, n, ell, nb):
+    """In f32 the twin's columns equal LAPACK's (complex128) to 1e-4 on
+    samples graded to 1e-2, and Q is orthonormal and spans the sample."""
     y = graded(batch * n + ell + nb + 1, batch, n, ell, 2.0, torch.complex64)
-    q = hq.householder_qr_blocked_reference(y, nb)
-    assert float((q - hq.householder_qr_reference(y)).abs().max()) <= 1e-5
+    q = hq.householder_qr_reference(y, nb)
+    want = torch.linalg.qr(y.to(C128), mode="reduced")[0]
+    cols = min(ell, n - 1)  # at l = n the last column's phase is LAPACK's own choice
+    assert float((q.to(C128) - want)[..., :cols].abs().max()) <= 1e-4
     assert orth_err(q) <= 2e-5 and span_err(q, y) <= 2e-5
 
 
@@ -181,20 +184,20 @@ def test_blocked_twin_matches_the_unblocked_twin_in_f32(batch, n, ell, nb):
 def test_blocked_twin_on_padded_pair_samples(n, rank, nb):
     """Whole panels of tau = 0 past rank 2 rank: the leading columns equal
     LAPACK's in complex128; in f32 Q is finite and orthonormal and spans
-    the sample, and its leading columns lie as close to LAPACK's as the
-    unblocked twin's (within a factor 2: the samples' condition, up to
-    ~3e3 at rank 64, lets both be 1e-4 off)."""
+    the sample, and its leading columns lie within 1.61e-4 of LAPACK's:
+    twice the largest error (8.04e-5, at rank 64, measured once) that an
+    unblocked Householder QR with the same reflectors gives in f32 on these
+    samples, whose condition (up to ~3e3 at rank 64) lets any f32 QR be
+    1e-4 off."""
     y = padded_samples(n + rank + nb, 3, n, rank)
-    q = hq.householder_qr_blocked_reference(y, nb)
+    q = hq.householder_qr_reference(y, nb)
     want = torch.linalg.qr(y, mode="reduced")[0][..., : 2 * rank]
     assert finite(q) and orth_err(q) <= 1e-12 and span_err(q, y) <= 1e-12
     assert float((q[..., : 2 * rank] - want).abs().max()) <= 1e-8
     y32 = y.to(torch.complex64)
-    q32 = hq.householder_qr_blocked_reference(y32, nb)
+    q32 = hq.householder_qr_reference(y32, nb)
     assert finite(q32) and orth_err(q32) <= 2e-5 and span_err(q32, y32) <= 2e-5
-    twin = hq.householder_qr_reference(y32)
-    err, err_twin = ((got[..., : 2 * rank].to(C128) - want).abs().max() for got in (q32, twin))
-    assert float(err) <= 2 * float(err_twin) + 1e-6
+    assert float((q32[..., : 2 * rank].to(C128) - want).abs().max()) <= 1.61e-4
 
 
 def near_floor_samples(seed: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -212,13 +215,12 @@ def near_floor_samples(seed: int) -> tuple[torch.Tensor, torch.Tensor]:
 @pytest.mark.parametrize("nb", [8, 16])
 def test_blocked_twin_gives_identity_reflectors_below_the_floor(nb):
     """The columns above the floor keep LAPACK's columns, those below get
-    tau = 0 as in the unblocked twin, and Q stays finite and orthonormal."""
+    tau = 0, and Q stays finite and orthonormal."""
     y, ys = near_floor_samples(11)
-    q = hq.householder_qr_blocked_reference(ys, nb)
+    q = hq.householder_qr_reference(ys, nb)
     want = torch.linalg.qr(y[..., :50], mode="reduced")[0]
     assert finite(q) and orth_err(q) <= 2e-5
     assert float((q[..., :50].to(C128) - want).abs().max()) <= 1e-4
-    assert float((q - hq.householder_qr_reference(ys)).abs().max()) <= 1e-5
 
 
 @pytest.mark.parametrize("batch,n,ell,plan", [
@@ -279,9 +281,9 @@ def chunked_qr(y: torch.Tensor) -> torch.Tensor:
     return torch.cat([torch.linalg.qr(c, mode="reduced")[0] for c in y.split(max(1, max(2, y.shape[-2] // 16) - 1))])
 
 
-def kernel_q(y: torch.Tensor, dev, cluster=None, blocked=None) -> torch.Tensor:
+def kernel_q(y: torch.Tensor, dev, cluster=None, panel=None) -> torch.Tensor:
     before = (hq.householder_qr.launches, hq.householder_qr.launches_at.get(y.shape[-2], 0))
-    q = hq.householder_qr(y.to(dev), cluster=cluster, blocked=blocked)
+    q = hq.householder_qr(y.to(dev), cluster=cluster, panel=panel)
     torch.cuda.synchronize()
     assert (hq.householder_qr.launches, hq.householder_qr.launches_at[y.shape[-2]]) == (before[0] + 1, before[1] + 1)
     return q.cpu()
@@ -311,7 +313,7 @@ def test_kernel_matches_twin_and_cusolver_on_graded_samples_on_card(cuda_device,
 ])
 def test_blocked_kernel_matches_lapack_twins_and_cusolver_on_card(cuda_device, batch, n, ell, nb):
     """The blocked kernel at both panel widths, on the rule's CTAs: its
-    columns equal LAPACK's (complex128), both twins' and cuSOLVER's to 1e-4
+    columns equal LAPACK's (complex128), the twin's and cuSOLVER's to 1e-4
     (at l = n the last column's phase is each library's own choice), Q is
     orthonormal and spans the sample, and the launch counts as blocked."""
     from aqc_research_tpu_torch.ops import cuda_build
@@ -322,12 +324,12 @@ def test_blocked_kernel_matches_lapack_twins_and_cusolver_on_card(cuda_device, b
         pytest.skip(f"panels of {nb} columns do not fit {cluster} CTAs' shared memory at ({n}, {ell})")
     y = graded(batch + n + ell + nb, batch, n, ell, 2.0, torch.complex64)
     blocked = hq.householder_qr.launches_home.get("blocked", 0)
-    q = kernel_q(y, cuda_device, blocked=nb)
+    q = kernel_q(y, cuda_device, panel=nb)
     assert hq.householder_qr.launches_home["blocked"] == blocked + 1
     assert finite(q) and orth_err(q) <= 2e-5 and span_err(q, y) <= 2e-5
     cols = min(ell, n - 1)
-    for want in (torch.linalg.qr(y.to(C128), mode="reduced")[0], hq.householder_qr_reference(y),
-                 hq.householder_qr_blocked_reference(y, nb), chunked_qr(y.to(cuda_device)).cpu()):
+    for want in (torch.linalg.qr(y.to(C128), mode="reduced")[0], hq.householder_qr_reference(y, nb),
+                 chunked_qr(y.to(cuda_device)).cpu()):
         assert float((q.to(C128) - want.to(C128))[..., :cols].abs().max()) <= 1e-4
 
 
@@ -340,20 +342,20 @@ def test_kernel_near_the_floor_on_card(cuda_device):
     assert finite(q) and orth_err(q) <= 2e-5
     want = torch.linalg.qr(y[..., :50], mode="reduced")[0]
     assert float((q[..., :50].to(C128) - want).abs().max()) <= 1e-4
-    assert float((q - hq.householder_qr_blocked_reference(ys, hq.PANELS[0])).abs().max()) <= 1e-4
+    assert float((q - hq.householder_qr_reference(ys)).abs().max()) <= 1e-4
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("batch,n,ell", [(14, 256, 136), (56, 256, 136), (14, 128, 72), (80, 128, 72)])
-@pytest.mark.parametrize("blocked", [None, 8])
-def test_two_launches_give_the_same_bits_on_card(cuda_device, batch, n, ell, blocked):
+@pytest.mark.parametrize("panel", [None, 8])
+def test_two_launches_give_the_same_bits_on_card(cuda_device, batch, n, ell, panel):
     """No atomics: the same input gives the same Q bit for bit, graded and
     padded, so a graph's replay equals its eager call."""
     for y in (graded(n + 3, batch, n, ell, 2.0, torch.complex64),
               padded_samples(n + 4, batch, n, 20, torch.complex64)):
         y = y.to(cuda_device)
-        first = hq.householder_qr(y, blocked=blocked)
-        second = hq.householder_qr(y, blocked=blocked)
+        first = hq.householder_qr(y, panel=panel)
+        second = hq.householder_qr(y, panel=panel)
         torch.cuda.synchronize()
         assert torch.equal(first, second)
 
@@ -367,8 +369,7 @@ def test_kernel_on_padded_pair_samples_on_card(cuda_device, batch, n, ell, rank)
     sample."""
     y = padded_samples(batch + n + rank, batch, n, rank, torch.complex64)
     q = kernel_q(y, cuda_device)
-    for got in (q, hq.householder_qr_reference(y), hq.householder_qr_blocked_reference(y, hq.PANELS[0]),
-                chunked_qr(y.to(cuda_device)).cpu()):
+    for got in (q, hq.householder_qr_reference(y), chunked_qr(y.to(cuda_device)).cpu()):
         assert finite(got) and orth_err(got) <= 2e-5 and span_err(got, y) <= 2e-5
 
 
@@ -383,7 +384,7 @@ def test_kernel_at_every_cluster_size_on_card(cuda_device, n, ell, clusters):
     smem = cuda_build.max_smem(cuda_build.device_index(torch.empty(0, device=cuda_device)))
     y = graded(n, 14, n, ell, 2.0, torch.complex64)
     pad = padded_samples(n + 1, 14, n, 20, torch.complex64)
-    want = hq.householder_qr_reference(y)
+    want = {nb: hq.householder_qr_reference(y, nb) for nb in hq.PANELS}
     home = hq.householder_qr.launches_home.copy()
     runs = 0
     for cluster in clusters:
@@ -391,7 +392,7 @@ def test_kernel_at_every_cluster_size_on_card(cuda_device, n, ell, clusters):
             if hq.qr_blocked_smem_bytes(n, ell, cluster, nb) > smem:
                 continue
             q = kernel_q(y, cuda_device, cluster, nb)
-            assert float((q - want).abs().max()) <= 1e-4
+            assert float((q - want[nb]).abs().max()) <= 1e-4
             qp = kernel_q(pad, cuda_device, cluster, nb)
             assert finite(qp) and orth_err(qp) <= 2e-5 and span_err(qp, pad) <= 2e-5
             runs += 2
@@ -406,13 +407,13 @@ def test_kernel_raises_on_a_refused_launch_on_card(cuda_device):
     with pytest.raises(RuntimeError, match="householder_qr_launch"):
         hq.householder_qr(y, cluster=1)  # 256 rows on one CTA: past its 128
     with pytest.raises(RuntimeError, match="householder_qr_launch"):
-        hq.householder_qr(y, cluster=1, blocked=16)
+        hq.householder_qr(y, cluster=1, panel=16)
     with pytest.raises(ValueError):
         hq.householder_qr(y.to(C128))
     with pytest.raises(ValueError):
-        hq.householder_qr(y, blocked=12)
+        hq.householder_qr(y, panel=12)
     with pytest.raises(ValueError):
-        hq.householder_qr(y, blocked=0)
+        hq.householder_qr(y, panel=0)
 
 
 @pytest.mark.cuda

@@ -37,6 +37,7 @@ from aqc_research_tpu_torch.io import native as tnative
 from aqc_research_tpu_torch.ops import mps as tm
 from aqc_research_tpu_torch.utils import profiling
 from tests._torch_gloo import GlooPool
+from tests import _torch_threads  # noqa: F401
 
 TOL = 1e-12
 

@@ -26,6 +26,7 @@ from aqc_research_tpu_torch.circuit import structures as tstruct
 from aqc_research_tpu_torch.circuit.ansatz import Ansatz, TrotterAnsatz
 from aqc_research_tpu_torch.ops import statevector as tsv
 from aqc_research_tpu_torch.targets import trotter as ttrot
+from tests import _torch_threads  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")

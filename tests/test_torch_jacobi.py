@@ -23,6 +23,7 @@ from aqc_research_tpu_torch import config
 from aqc_research_tpu_torch.ops import cuda_build
 from aqc_research_tpu_torch.ops import jacobi_kernel as jk
 from aqc_research_tpu_torch.ops import jacobi_svd as tspec
+from tests import _torch_threads  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -41,6 +41,7 @@ from aqc_research_tpu_torch.targets.trotter import (
     neel_init_state,
     trotter_alphas,
 )
+from tests import _torch_threads  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")

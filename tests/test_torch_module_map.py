@@ -21,6 +21,8 @@ import re
 
 import pytest
 
+from tests import _torch_threads  # noqa: F401
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 JAX = ROOT / "aqc_research_tpu"
 PORT = ROOT / "aqc_research_tpu_torch"

@@ -29,6 +29,7 @@ from aqc_research_tpu_torch.models.sp_lhs import jit_asp as tja
 from aqc_research_tpu_torch.ops import mps as tm
 from aqc_research_tpu_torch.ops import mps_gradient as tg
 from aqc_research_tpu_torch.targets import trotter as ttrot
+from tests import _torch_threads  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")

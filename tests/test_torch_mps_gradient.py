@@ -33,6 +33,7 @@ from aqc_research_tpu_torch.models.sp_lhs import jit_asp as tja
 from aqc_research_tpu_torch.ops import mps as tm
 from aqc_research_tpu_torch.ops import mps_gradient as tg
 from aqc_research_tpu_torch.ops.gradients import grad_of_dot_product
+from tests import _torch_threads  # noqa: F401
 
 TOL = 1e-10
 

@@ -32,6 +32,7 @@ from aqc_research_tpu_torch.models.sp_lhs import sur_max as tsm
 from aqc_research_tpu_torch.ops import mps as tm
 from aqc_research_tpu_torch.optim.stoppers import GradientAmplifier
 from aqc_research_tpu_torch.targets import trotter as ttrot
+from tests import _torch_threads  # noqa: F401
 
 TOL = 1e-10
 N = 6

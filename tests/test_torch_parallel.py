@@ -45,6 +45,7 @@ from aqc_research_tpu_torch import config, interop
 from aqc_research_tpu_torch.parallel import distributed as td
 from aqc_research_tpu_torch.parallel import multistart as tms
 from tests._torch_gloo import GlooPool, assert_bitwise_same, run_from_env
+from tests import _torch_threads  # noqa: F401
 
 TOL = 1e-10
 TOL_RUN = 1e-8  # an L-BFGS run of either package (tests/test_torch_fleet.py)

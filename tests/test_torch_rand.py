@@ -41,6 +41,7 @@ from aqc_research_tpu_torch.ops import fused_pair as tfp
 from aqc_research_tpu_torch.ops import fused_rand as tfr
 from aqc_research_tpu_torch.ops import mps as tm
 from aqc_research_tpu_torch.ops import rand_svd as trs
+from tests import _torch_threads  # noqa: F401
 
 CHI = 16
 SMEM_H100 = 232448  # opt-in shared memory of one H100 block

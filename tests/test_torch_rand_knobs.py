@@ -46,6 +46,7 @@ from aqc_research_tpu_torch.ops import jacobi_svd as tjs
 from aqc_research_tpu_torch.ops import mps as tm
 from aqc_research_tpu_torch.ops import rand_svd as trs
 from aqc_research_tpu_torch.optim import lbfgs as tlbfgs
+from tests import _torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL_S = 1e-5

@@ -35,6 +35,7 @@ from aqc_research_tpu_torch.ops import jacobi_svd as tjs
 from aqc_research_tpu_torch.ops import mps as tm
 from aqc_research_tpu_torch.ops import rand_svd as trs
 from aqc_research_tpu_torch.ops import roofline as trl
+from tests import _torch_threads  # noqa: F401
 
 ATT = {"vpu_gflops": 5000.0, "mxu_gflops": 40000.0, "hbm_gbps": 2500.0}
 SWEEPS = {"vdag": 7.5, "grad": 4.25, "value": 3.0}

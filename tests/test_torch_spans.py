@@ -32,6 +32,7 @@ from aqc_research_tpu_torch.models.sp_lhs import target_states as ts
 from aqc_research_tpu_torch.ops import cuda_graphs as cg
 from aqc_research_tpu_torch.optim import lbfgs
 from aqc_research_tpu_torch.utils import profiling
+from tests import _torch_threads  # noqa: F401
 
 N, CHI, THR = 4, 4, 1e-6
 BITS = tuple(1 if q % 2 == 0 else 0 for q in range(N))

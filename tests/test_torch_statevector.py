@@ -30,6 +30,7 @@ from aqc_research_tpu_torch import config, interop
 from aqc_research_tpu_torch.circuit import program as tprog
 from aqc_research_tpu_torch.ops import gradients as tgrad
 from aqc_research_tpu_torch.ops import statevector as tsv
+from tests import _torch_threads  # noqa: F401
 
 TOL = 1e-10
 C128 = torch.complex128

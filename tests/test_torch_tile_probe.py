@@ -25,6 +25,7 @@ import torch
 
 from aqc_research_tpu_torch import config
 from aqc_research_tpu_torch.ops import tile_probes as tp
+from tests import _torch_threads  # noqa: F401
 
 TOL = 1e-5
 
