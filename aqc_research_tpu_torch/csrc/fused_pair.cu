@@ -9,8 +9,9 @@
 //   1. W0 = θᵀ (2chi, 2chi) from the λ-scaled Γ planes and the gate
 //      (theta_tiles.cuh, K2's tile loop), kept in device memory for step 5;
 //   2. the adaptive Jacobi on a working copy of W0, with L = rows 0..chi-1
-//      and R = rows chi..2chi-1 (the JAX seating): row j of the rotated
-//      planes is (s_j u_j)^T;
+//      and R = rows chi..2chi-1 (the JAX seating; on the cluster home the
+//      block-cyclic order of block_sweeps.cuh): row j of the rotated planes
+//      is (s_j u_j)^T;
 //   3. the epilogue shared with K3 (rank_truncate.cuh): row norms, the
 //      stable top-chi selection, the 32 eps guard and the discarded-weight
 //      rule against the rows' own total weight, lambda and 1/s;
@@ -30,18 +31,18 @@
 //   * shared (2chi <= 160 on an H100): one block of 256 threads per matrix
 //     holds the planes in its shared memory and runs seat_sweeps.cuh;
 //   * cluster (176 <= 2chi <= 256, every 28-qubit pair update at chi = 128):
-//     a thread-block cluster of ``cluster`` CTAs per matrix (8,
-//     ops/fused_pair.FUSED_CLUSTER: 14 clusters fill 112 SMs) holds the
-//     planes in its shared memory, seats by home CTA (16 seats of each side,
-//     double-buffered, 128 KB per CTA at 2chi = 256), and runs
-//     cluster_sweeps.cuh: a warp per pair reads both rows locally and writes
-//     them into their next seats, which lie in another CTA only at the CTA's
-//     edges; one cluster barrier per phase.  The θ tiles and the vh tiles
-//     go to the CTAs' tile groups in turn; each CTA computes its rows'
-//     norms, gathers the others' and runs the same selection and rule; the
-//     kept uᵀ rows are written by the CTAs that hold them.  W0 and uᵀ pass
-//     between CTAs through device memory, behind __threadfence() and a
-//     cluster barrier;
+//     a thread-block cluster of P = ceil(2chi / 32) CTAs per matrix
+//     (ops/fused_pair.fused_cluster_size: 8 at chi = 128, so 14 clusters
+//     fill 112 SMs) holds the planes in its shared memory, two blocks of 16
+//     rows per CTA (zero rows pad 2chi to 32 P; three block buffers, 96 KB
+//     per CTA at 2chi = 256), and runs block_sweeps.cuh: a block-cyclic
+//     sweep whose local phases need only a CTA barrier and whose 2P - 1
+//     block rounds end in one cluster barrier each.  The θ tiles and the vh
+//     tiles go to the CTAs' tile groups in turn; each CTA computes the norms
+//     of the rows it holds (pad rows left out), gathers the others' and runs
+//     the same selection and rule; the kept uᵀ rows are written by the CTAs
+//     that hold them.  W0 and uᵀ pass between CTAs through device memory,
+//     behind __threadfence() and a cluster barrier;
 //   * global (2chi > 256): one block of 1024 threads per matrix rotates the
 //     planes in a scratch pair in device memory (seat_sweeps.cuh).
 // Tile groups are 256 threads; their buffers share the dynamic shared
@@ -49,14 +50,15 @@
 //
 // Bounds.  The sweeps dominate: 18 n (n-1) n flop per sweep (n = 2chi,
 // 0.3 GFLOP per sweep at chi = 128) on the CUDA cores, against each phase's
-// latency: a block barrier (one block per matrix) or a cluster barrier,
-// local seat traffic and two remote rows per CTA (cluster).  Steps 1 and 5
-// are 32chi^3 + 8chi(2chi)^2 flop per matrix (~134 MFLOP at chi = 128).
+// latency: a block barrier and the phase's shared-memory traffic, and on the
+// cluster home a cluster barrier and 16 rows sent per CTA every 16 phases.
+// Steps 1 and 5 are 32chi^3 + 8chi(2chi)^2 flop per matrix (~134 MFLOP at
+// chi = 128).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-#include "cluster_sweeps.cuh"
+#include "block_sweeps.cuh"
 #include "rank_truncate.cuh"
 #include "seat_sweeps.cuh"
 #include "theta_tiles.cuh"
@@ -66,7 +68,7 @@ namespace {
 namespace cg = cooperative_groups;
 
 constexpr int kT = 16;                                // vh tile edge and contraction step
-constexpr int kClusterQ = aqc::kClusterMaxRows / 32;  // row entries per lane on the cluster path
+constexpr int kClusterQ = aqc::kBlockMaxLanes / 32;  // row entries per lane on the cluster path
 constexpr int kHomeShared = 0, kHomeCluster = 1, kHomeGlobal = 2;
 
 struct VhTileBuf {
@@ -89,11 +91,9 @@ __host__ __device__ constexpr int head_floats(int stats, int n, int chi) {
 
 __host__ __device__ constexpr int max_int(int a, int b) { return a > b ? a : b; }
 
-// Threads of one CTA of the cluster path: the loop's (a warp per pair and
-// the stats warp), at least one 256-thread tile group.
-__host__ __device__ constexpr int fused_cluster_threads(int chi, int cluster) {
-  return max_int(aqc::cluster_threads(2 * chi, cluster), aqc::kTileThreads);
-}
+// Threads of one CTA of the cluster path: the loop's 16 pair warps, two
+// 256-thread tile groups.
+constexpr int kClusterThreads = aqc::kBlockThreads;
 
 // Dynamic shared floats of one block per matrix (shared or global home).
 __host__ __device__ constexpr int block_smem_floats(int chi, bool smem_planes, int threads) {
@@ -102,11 +102,12 @@ __host__ __device__ constexpr int block_smem_floats(int chi, bool smem_planes, i
                  threads / aqc::kTileThreads * kTileBufFloats);
 }
 
-// Dynamic shared floats of one CTA of the cluster path.
-__host__ __device__ constexpr int cluster_smem_floats(int chi, int cluster) {
-  return head_floats(aqc::cluster_stats_floats(2 * chi, cluster), 2 * chi, chi) +
-         max_int(aqc::cluster_seat_floats(2 * chi, 2 * chi, cluster),
-                 fused_cluster_threads(chi, cluster) / aqc::kTileThreads * kTileBufFloats);
+// Dynamic shared floats of one CTA of the cluster path: the loop's
+// statistics and the epilogue's arrays, then the larger of the block
+// buffers (re and im) and the tile groups' buffers.
+__host__ __device__ constexpr int cluster_smem_floats(int chi) {
+  return head_floats(aqc::kBlockStatsFloats, 2 * chi, chi) +
+         max_int(2 * aqc::block_plane_floats(2 * chi), kClusterThreads / aqc::kTileThreads * kTileBufFloats);
 }
 
 // Step 1 for one matrix: its θ tiles, taken in turn by the ``groups`` tile
@@ -246,78 +247,84 @@ fused_pair_kernel(const float* __restrict__ gate, const float* __restrict__ a_re
           true, t, buf);
 }
 
-// A cluster of ``cluster`` CTAs per matrix (blocks mat * cluster ..), the
-// planes in their distributed shared memory (the file comment).
-__global__ void __launch_bounds__(aqc::kClusterMaxThreads)
+// A cluster of ``cluster`` = block_ctas(2chi) CTAs per matrix (blocks
+// mat * cluster ..), the planes in their distributed shared memory (the file
+// comment).  kStamp: the instantiation that writes block_sweeps.cuh's clock64
+// stamps to ``stamps`` (timing only; the path launches the other).
+template <bool kStamp>
+__global__ void __launch_bounds__(kClusterThreads, 1)
 fused_pair_cluster_kernel(const float* __restrict__ gate, const float* __restrict__ a_re,
                           const float* __restrict__ a_im, const float* __restrict__ b_re,
                           const float* __restrict__ b_im, float* w0_re, float* w0_im,
                           float* ut_re, float* ut_im, float* __restrict__ vh_re,
                           float* __restrict__ vh_im, float* __restrict__ lam_out,
                           int* __restrict__ sweeps_out, int chi, int cluster, int max_sweeps,
-                          int hybrid, float thr2) {
+                          int hybrid, float thr2, long long* stamps) {
   cg::cluster_group grp = cg::this_cluster();
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  __shared__ int s_go;
   __shared__ float s_gate[32];
 
   const int n = 2 * chi;
   const size_t nn = static_cast<size_t>(n) * n;
   const int me = static_cast<int>(grp.block_rank());
   const int mat = blockIdx.x / cluster;
-  const int pairs_per = aqc::cluster_pairs_per_cta(n, cluster);  // seats of each side held here
-  const int seat0 = me * pairs_per;
-  const int groups = blockDim.x / aqc::kTileThreads;  // full tile groups per CTA
+  const int groups = blockDim.x / aqc::kTileThreads;  // tile groups per CTA
   const int group = threadIdx.x / aqc::kTileThreads;
-  const bool full = group < groups;
   const int t = threadIdx.x % aqc::kTileThreads;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
   float* w0r = w0_re + mat * nn;
   float* w0i = w0_im + mat * nn;
   float* stats = smem;
-  const int stats_floats = aqc::cluster_stats_floats(n, cluster);
-  const aqc::RankScratch rs(stats + stats_floats, n, chi);
-  float* region = smem + head_floats(stats_floats, n, chi);
-  TileBuf* buf = reinterpret_cast<TileBuf*>(region) + (full ? group : 0);
-  float* w_re = region;  // seat buffers [2][side][pairs_per][n], re then im
-  float* w_im = region + aqc::cluster_seat_floats(n, n, cluster) / 2;
-  // At every sweep boundary the seats of one side hold contiguous rows:
-  // side * chi + seat0 .. + held.
-  const int held = max(0, min(pairs_per, chi - seat0));
+  const aqc::RankScratch rs(stats + aqc::kBlockStatsFloats, n, chi);
+  float* region = smem + head_floats(aqc::kBlockStatsFloats, n, chi);
+  TileBuf* buf = reinterpret_cast<TileBuf*>(region) + group;
+  float* w_re = region;  // block buffers [3][16][n], re then im
+  float* w_im = region + aqc::block_plane_floats(n);
+  constexpr int kR = aqc::kBlockRows;
 
   // ---- 1. θ tiles over the cluster's tile groups, into W0 ----
   if (threadIdx.x < 32) s_gate[threadIdx.x] = gate[static_cast<size_t>(mat) * 32 + threadIdx.x];
   const size_t in_base = static_cast<size_t>(mat) * 2 * chi * chi;
   theta_step(s_gate, a_re + in_base, a_im + in_base, b_re + in_base, b_im + in_base, w0r, w0i,
-             chi, me * groups + group, cluster * groups, full, t, buf);
+             chi, me * groups + group, cluster * groups, true, t, buf);
   __threadfence();
   grp.sync();  // W0 complete and visible to the cluster
 
-  // ---- 2. the rows of this CTA's seats from W0; the sweeps ----
+  // ---- 2. this CTA's two blocks of W0 (zero rows past n); the sweeps ----
+  int round = 0;
+  const aqc::BlockPair first = aqc::block_pair(me, round, cluster);
   for (int side = 0; side < 2; ++side) {
-    const size_t src = static_cast<size_t>(side * chi + seat0) * n;
-    float* dre = aqc::seat_slot(w_re, 0, side, 0, pairs_per, n);
-    float* dim = aqc::seat_slot(w_im, 0, side, 0, pairs_per, n);
-    for (int i = threadIdx.x; i < held * n; i += blockDim.x) {
-      dre[i] = w0r[src + i];
-      dim[i] = w0i[src + i];
+    const int blk = side ? first.b : first.a;
+    const int b = side ? aqc::block_buf_b(me, round) : aqc::block_buf_a(me, round);
+    float* dre = aqc::block_row(w_re, b, 0, n);
+    float* dim = aqc::block_row(w_im, b, 0, n);
+    for (int i = threadIdx.x; i < kR * n; i += blockDim.x) {
+      const int row = blk * kR + i / n;
+      dre[i] = row < n ? w0r[static_cast<size_t>(row) * n + i % n] : 0.f;
+      dim[i] = row < n ? w0i[static_cast<size_t>(row) * n + i % n] : 0.f;
     }
   }
   grp.sync();
-  int cur = 0;
-  const int k = aqc::cluster_seat_sweeps<kClusterQ>(w_re, w_im, stats, &s_go, n, n, cluster,
-                                                    max_sweeps, hybrid, cur);
+  const int k = aqc::block_sweeps<kClusterQ, kStamp>(
+      w_re, w_im, stats, n, cluster, max_sweeps, hybrid, round,
+      kStamp ? stamps + static_cast<size_t>(mat) * max_sweeps * aqc::kStampsPerSweep : nullptr);
 
-  // ---- 3. the norms of the rows held here, then of all rows: every CTA
-  //         ranks the same numbers and applies the same rule ----
+  // ---- 3. the norms of the rows held here (pad rows left out), then of
+  //         all rows: every CTA ranks the same numbers and applies the same
+  //         rule ----
+  const aqc::BlockPair held = aqc::block_pair(me, round, cluster);
+  const int buf_a = aqc::block_buf_a(me, round), buf_b = aqc::block_buf_b(me, round);
   for (int side = 0; side < 2; ++side) {
-    aqc::row_norms(aqc::seat_slot(w_re, cur, side, 0, pairs_per, n),
-                   aqc::seat_slot(w_im, cur, side, 0, pairs_per, n), held, n,
-                   rs.s2 + side * chi + seat0);
+    const int blk = side ? held.b : held.a;
+    const int b = side ? buf_b : buf_a;
+    aqc::row_norms(aqc::block_row(w_re, b, 0, n), aqc::block_row(w_im, b, 0, n),
+                   max(0, min(kR, n - blk * kR)), n, rs.s2 + blk * kR);
   }
-  grp.sync();  // also ends the stats warps' last reads of the statistics
+  grp.sync();  // also ends the other CTAs' reads of the sweeps' statistics
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int owner = (i % chi) / pairs_per;
+    bool as_a;
+    const int owner = aqc::block_owner(i / kR, round, cluster, as_a);
     if (owner != me) rs.s2[i] = *grp.map_shared_rank(rs.s2 + i, owner);
   }
   __syncthreads();
@@ -325,19 +332,20 @@ fused_pair_cluster_kernel(const float* __restrict__ gate, const float* __restric
                        me == 0 ? lam_out + static_cast<size_t>(mat) * chi : nullptr, nullptr);
   if (me == 0 && threadIdx.x == 0) sweeps_out[mat] = k;
 
-  // ---- 4. the kept uᵀ rows, each from the CTA that holds it ----
+  // ---- 4. the kept uᵀ rows, each from the CTA that holds it (a warp a row) ----
   const size_t out_base = static_cast<size_t>(mat) * chi * n;
   float* utr = ut_re + out_base;
   float* uti = ut_im + out_base;
-  for (int i = threadIdx.x; i < chi * n; i += blockDim.x) {
-    const int row = i / n, e = i - row * n;
+  for (int row = warp; row < chi; row += nwarps) {
     const int src = rs.sel[row];
-    const int seat = src % chi;
-    if (seat / pairs_per == me) {
-      const float inv = rs.inv[row];
-      const int side = src / chi, slot = seat % pairs_per;
-      utr[i] = aqc::seat_slot(w_re, cur, side, slot, pairs_per, n)[e] * inv;
-      uti[i] = aqc::seat_slot(w_im, cur, side, slot, pairs_per, n)[e] * inv;
+    bool as_a;
+    if (aqc::block_owner(src / kR, round, cluster, as_a) != me) continue;
+    const float* re = aqc::block_row(w_re, as_a ? buf_a : buf_b, src % kR, n);
+    const float* im = aqc::block_row(w_im, as_a ? buf_a : buf_b, src % kR, n);
+    const float inv = rs.inv[row];
+    for (int e = lane; e < n; e += 32) {
+      utr[static_cast<size_t>(row) * n + e] = re[e] * inv;
+      uti[static_cast<size_t>(row) * n + e] = im[e] * inv;
     }
   }
   __threadfence();
@@ -345,32 +353,39 @@ fused_pair_cluster_kernel(const float* __restrict__ gate, const float* __restric
 
   // ---- 5. vh tiles over the cluster's tile groups ----
   vh_step(utr, uti, w0r, w0i, rs.inv, vh_re + out_base, vh_im + out_base, chi,
-          me * groups + group, cluster * groups, full, t, buf);
+          me * groups + group, cluster * groups, true, t, buf);
 }
 
 cudaLaunchConfig_t cluster_config(int batch, int chi, int cluster, cudaStream_t stream,
                                   cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(batch * cluster);
-  cfg.blockDim = dim3(fused_cluster_threads(chi, cluster));
-  cfg.dynamicSmemBytes = sizeof(float) * cluster_smem_floats(chi, cluster);
-  cfg.stream = stream;
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
+  return aqc::cluster_launch_config(batch, cluster, kClusterThreads,
+                                    sizeof(float) * cluster_smem_floats(chi), stream, attr);
 }
 
 // Validates a cluster-path shape and opts the kernel into its shared memory.
+template <bool kStamp>
 cudaError_t prepare_cluster(int chi, int cluster) {
   const int n = 2 * chi;
-  if (!aqc::cluster_shape_ok(n, n, cluster)) return cudaErrorInvalidValue;
-  return cudaFuncSetAttribute(fused_pair_cluster_kernel,
+  if (!aqc::block_shape_ok(n, n, cluster)) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(fused_pair_cluster_kernel<kStamp>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(sizeof(float) * cluster_smem_floats(chi, cluster)));
+                              static_cast<int>(sizeof(float) * cluster_smem_floats(chi)));
+}
+
+template <bool kStamp>
+cudaError_t launch_cluster(const float* gate, const float* a_re, const float* a_im,
+                           const float* b_re, const float* b_im, float* w0_re, float* w0_im,
+                           float* ut_re, float* ut_im, float* vh_re, float* vh_im, float* lam,
+                           int* sweeps, int batch, int chi, int cluster, int max_sweeps, int hybrid,
+                           float thr2, long long* stamps, cudaStream_t stream) {
+  cudaError_t err = prepare_cluster<kStamp>(chi, cluster);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(batch, chi, cluster, stream, attr);
+  err = cudaLaunchKernelEx(&cfg, fused_pair_cluster_kernel<kStamp>, gate, a_re, a_im, b_re, b_im,
+                           w0_re, w0_im, ut_re, ut_im, vh_re, vh_im, lam, sweeps, chi, cluster,
+                           max_sweeps, hybrid, thr2, stamps);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 }  // namespace
@@ -382,27 +397,26 @@ extern "C" {
 // 32), a/b planes (batch, 2, chi, chi); scratch w0 (batch, 2chi, 2chi) and,
 // for the global home, wk (batch, 2chi, 2chi); outputs uᵀ and vh planes
 // (batch, chi, 2chi), lam (batch, chi), sweeps (batch,) int32.  ``home``:
-// 0 shared (a block per matrix), 1 cluster (``cluster`` CTAs per matrix),
-// 2 global.
+// 0 shared (a block per matrix), 1 cluster (``cluster`` = ceil(2chi / 32)
+// CTAs per matrix), 2 global.  ``stamps``: null, or on the cluster home
+// (batch, max_sweeps, kStampsPerSweep) int64 that the stamped instantiation
+// fills (block_sweeps.cuh).
 int fused_pair_launch(const float* gate, const float* a_re, const float* a_im,
                       const float* b_re, const float* b_im, float* w0_re, float* w0_im,
                       float* wk_re, float* wk_im, float* ut_re, float* ut_im, float* vh_re,
                       float* vh_im, float* lam, int* sweeps, int batch, int chi, int max_sweeps,
-                      int hybrid, float thr2, int home, int cluster, void* stream) {
+                      int hybrid, float thr2, int home, int cluster, long long* stamps,
+                      void* stream) {
   if (chi < 1 || batch < 1) return cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
   if (home == kHomeCluster) {
-    cudaError_t err = prepare_cluster(chi, cluster);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    cudaLaunchAttribute attr[1];
-    const cudaLaunchConfig_t cfg = cluster_config(batch, chi, cluster, s, attr);
-    err = cudaLaunchKernelEx(&cfg, fused_pair_cluster_kernel, gate, a_re, a_im, b_re, b_im,
-                             w0_re, w0_im, ut_re, ut_im, vh_re, vh_im, lam, sweeps, chi, cluster,
-                             max_sweeps, hybrid, thr2);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    return static_cast<int>(cudaGetLastError());
+    auto launch = stamps == nullptr ? launch_cluster<false> : launch_cluster<true>;
+    return static_cast<int>(launch(gate, a_re, a_im, b_re, b_im, w0_re, w0_im, ut_re, ut_im, vh_re,
+                                   vh_im, lam, sweeps, batch, chi, cluster, max_sweeps, hybrid,
+                                   thr2, stamps, s));
   }
   if (home != kHomeShared && home != kHomeGlobal) return cudaErrorInvalidValue;
+  if (stamps != nullptr) return cudaErrorInvalidValue;
   const bool smem_planes = home == kHomeShared;
   if (!smem_planes && (wk_re == nullptr || wk_im == nullptr)) return cudaErrorInvalidValue;
   const int threads = smem_planes ? aqc::kSmemThreads : aqc::kMaxThreads;
@@ -420,12 +434,12 @@ int fused_pair_launch(const float* gate, const float* a_re, const float* a_im,
 // How many clusters of the cluster path at ``chi`` the card keeps resident
 // at once (cudaOccupancyMaxActiveClusters), or minus the CUDA error code.
 int fused_pair_cluster_occupancy(int chi, int cluster) {
-  cudaError_t err = prepare_cluster(chi, cluster);
+  cudaError_t err = prepare_cluster<false>(chi, cluster);
   if (err != cudaSuccess) return -static_cast<int>(err);
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = cluster_config(1, chi, cluster, nullptr, attr);
   int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, fused_pair_cluster_kernel, &cfg);
+  err = cudaOccupancyMaxActiveClusters(&clusters, fused_pair_cluster_kernel<false>, &cfg);
   return err != cudaSuccess ? -static_cast<int>(err) : clusters;
 }
 

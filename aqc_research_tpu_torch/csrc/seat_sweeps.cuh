@@ -43,10 +43,11 @@
 // so the CPU tests see the rule.
 //
 // cluster_sweeps.cuh runs this loop on a thread-block cluster with the
-// planes in distributed shared memory (a cluster barrier per phase); K4
-// takes it at 176 <= 2chi <= 256, K1 and K3 wherever their home rules say
-// "cluster" (the path shapes among them), so this loop keeps the heads the
-// rules leave on one block and the shapes past the cluster's.
+// planes in distributed shared memory (a cluster barrier per phase), for K1
+// and K3 wherever their home rules say "cluster" (the path shapes among
+// them); block_sweeps.cuh runs its rotations in a block-cyclic order for K4
+// at 176 <= 2chi <= 256.  So this loop keeps the heads the rules leave on
+// one block and the shapes past the cluster's.
 //
 // Bounds.  At the shared-memory shapes (c <= 128 rows of r <= 128 lanes)
 // the loop is bound by shared-memory traffic (every phase reads both planes

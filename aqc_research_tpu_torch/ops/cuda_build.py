@@ -50,8 +50,8 @@ _SIGNATURES = {
     "rand_tail_cluster_occupancy": ([_CI] * 4, _CI),
     # gate, a_re, a_im, b_re, b_im, w0_re, w0_im, wk_re, wk_im, ut_re, ut_im,
     # vh_re, vh_im, lam, sweeps, batch, chi, max_sweeps, hybrid, thr2,
-    # home, cluster, stream
-    "fused_pair_launch": ([_VP] * 15 + [_CI] * 4 + [_CF, _CI, _CI, _VP], _CI),
+    # home, cluster, stamps (null on the path), stream
+    "fused_pair_launch": ([_VP] * 15 + [_CI] * 4 + [_CF, _CI, _CI, _VP, _VP], _CI),
     # chi, cluster
     "fused_pair_cluster_occupancy": ([_CI, _CI], _CI),
     # a, b, scale, o_dot, o_dgt, o_tr, batch, n, a_stride, b_stride, stream

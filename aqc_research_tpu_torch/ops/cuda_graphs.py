@@ -52,9 +52,10 @@ _TRACING = 0
 _EAGER = 0
 
 #: Kernel launches recorded into graphs at capture (they run only on
-#: replay), keyed ``(wrapper,)``, ``(wrapper, "at", n)`` and ``(wrapper,
-#: "home", home)`` like the wrappers' ``launches``, ``launches_at`` and
-#: ``launches_home``.
+#: replay), keyed ``(wrapper,)``, ``(wrapper, "at", n)``, ``(wrapper,
+#: "home", home)`` and ``(wrapper, "schedule", schedule)`` like the
+#: wrappers' ``launches``, ``launches_at``, ``launches_home`` and
+#: ``launches_by_schedule``.
 captured: Counter = Counter()
 #: Kernel launches made by graph replays, keyed as :data:`captured`.
 replayed: Counter = Counter()
@@ -125,6 +126,8 @@ def _launch_snapshot() -> Counter:
             snap[(name, "at", n)] = count
         for home, count in getattr(fn, "launches_home", {}).items():
             snap[(name, "home", home)] = count
+        for schedule, count in getattr(fn, "launches_by_schedule", {}).items():
+            snap[(name, "schedule", schedule)] = count
     return snap
 
 

@@ -24,7 +24,13 @@ import torch
 
 from ..config import jacobi_criterion
 from . import cuda_build
-from .jacobi_kernel import jacobi_rows_reference, rank_truncate_reference
+from .jacobi_kernel import (
+    BLOCK_ROWS,
+    block_ctas,
+    block_jacobi_rows_reference,
+    jacobi_rows_reference,
+    rank_truncate_reference,
+)
 from .jacobi_svd import DEFAULT_SWEEPS
 
 
@@ -155,11 +161,20 @@ _FUSED_STATIC_SMEM = 256
 # of a 32-wide θ k-tile, csrc/theta_tiles.cuh), in floats.
 _TILE_BUF_FLOATS = 2 * 4 * 16 * (32 + 2) + 2 * 4 * 16 * 32
 _TILE_THREADS = 256
-# K4's cluster path (csrc/cluster_sweeps.cuh): CTAs per matrix, and the
-# largest matrix it takes (2chi rows of 2chi lanes, 8 entries per lane).
-FUSED_CLUSTER = 8
+# K4's cluster path (csrc/block_sweeps.cuh): the largest matrix it takes
+# (2chi rows of 2chi lanes, 8 entries per lane), a warp per row of a block
+# (two 256-thread tile groups) and three block buffers per CTA.
 FUSED_CLUSTER_MAX_ROWS = 256
+FUSED_CLUSTER_THREADS = 32 * BLOCK_ROWS
+_BLOCK_BUFFERS = 3
+_BLOCK_STATS_FLOATS = 2 * BLOCK_ROWS + 2
+# Dynamic shared memory one block may use on an H100: the card the CPU twin
+# stands in for when it picks K4's schedule (fused_schedule).
+H100_MAX_SMEM = 232448
 _HOME_CODES = {"shared": 0, "cluster": 1, "global": 2}
+# The order of K4's sweeps on each home: csrc/block_sweeps.cuh on the
+# cluster, the Brent-Luk round robin of csrc/seat_sweeps.cuh elsewhere.
+_SCHEDULES = {"shared": "ring", "cluster": "block", "global": "ring"}
 
 
 def _head_floats(stats: int, chi: int) -> int:
@@ -179,30 +194,28 @@ def fused_smem_bytes(chi: int, home: str) -> int:
     return 4 * (_head_floats(3 * n, chi) + max(planes, groups * _TILE_BUF_FLOATS))
 
 
-def fused_cluster_threads(chi: int, cluster: int = FUSED_CLUSTER) -> int:
-    """Threads of one CTA on the cluster path: a warp per pair of the CTA's
-    share of a phase (ceil(chi / cluster) of chi) and the stats warp, at
-    least one 256-thread tile group."""
-    return max(32 * (-(-chi // cluster) + 1), _TILE_THREADS)
+def fused_cluster_size(chi: int) -> int:
+    """CTAs per matrix on the cluster path: two blocks of BLOCK_ROWS rows
+    each, ceil(2chi / 32) (8 at chi = 128, 7 at chi = 100, 6 at chi = 96)."""
+    return block_ctas(2 * chi)
 
 
-def fused_cluster_smem_bytes(chi: int, cluster: int = FUSED_CLUSTER) -> int:
-    """Dynamic shared memory of one CTA on the cluster path: its pairs'
-    statistics of four phases, all 2chi row norms and the epilogue's
-    arrays, then the larger of its seat buffers (two buffers of its
-    ceil(chi / cluster) seats of each side, re and im, rows of 2chi lanes)
-    and its full tile groups' buffers."""
+def fused_cluster_smem_bytes(chi: int) -> int:
+    """Dynamic shared memory of one CTA on the cluster path: the loop's
+    statistics, all 2chi row norms and the epilogue's arrays, then the
+    larger of its three block buffers (BLOCK_ROWS rows of 2chi lanes, re
+    and im) and its two tile groups' buffers."""
     n = 2 * chi
-    pairs = -(-chi // cluster)
-    groups = fused_cluster_threads(chi, cluster) // _TILE_THREADS
-    return 4 * (_head_floats(4 * 3 * pairs, chi) + max(8 * pairs * n, groups * _TILE_BUF_FLOATS))
+    groups = FUSED_CLUSTER_THREADS // _TILE_THREADS
+    return 4 * (_head_floats(_BLOCK_STATS_FLOATS, chi)
+                + max(2 * _BLOCK_BUFFERS * BLOCK_ROWS * n, groups * _TILE_BUF_FLOATS))
 
 
 def fused_plane_home(chi: int, max_smem: int) -> str:
     """Where K4 keeps a matrix's (2chi, 2chi) working planes, given the
     ``max_smem`` bytes one block may use: ``"shared"`` when one block holds
     them (2chi <= 160 on an H100), else ``"cluster"`` (the shared memory
-    of a cluster of FUSED_CLUSTER CTAs, up to 2chi = 256), else
+    of a cluster of :func:`fused_cluster_size` CTAs, up to 2chi = 256), else
     ``"global"`` (device memory).  θᵀ itself always stays in device memory."""
     if fused_smem_bytes(chi, "shared") + _FUSED_STATIC_SMEM <= max_smem:
         return "shared"
@@ -211,11 +224,24 @@ def fused_plane_home(chi: int, max_smem: int) -> str:
     return "global"
 
 
+def fused_schedule(chi: int, device) -> str:
+    """The order of K4's Jacobi sweeps at ``chi`` on ``device``: ``"block"``
+    (csrc/block_sweeps.cuh) on the cluster home, ``"ring"`` (the Brent-Luk
+    round robin of csrc/seat_sweeps.cuh) on the other two.  A CPU device
+    takes the H100's home rule."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        max_smem = cuda_build.max_smem(torch.cuda.current_device() if device.index is None else device.index)
+    else:
+        max_smem = H100_MAX_SMEM
+    return _SCHEDULES[fused_plane_home(chi, max_smem)]
+
+
 def fused_cluster_occupancy(chi: int, dev: int = 0) -> int:
     """Clusters of K4's cluster path at ``chi`` that card ``dev`` keeps
     resident at once (cudaOccupancyMaxActiveClusters); raises on an error."""
     with torch.cuda.device(dev):
-        got = int(cuda_build.load().fused_pair_cluster_occupancy(chi, FUSED_CLUSTER))
+        got = int(cuda_build.load().fused_pair_cluster_occupancy(chi, fused_cluster_size(chi)))
     if got < 0:
         raise RuntimeError(f"fused_pair_cluster_occupancy failed: CUDA error {-got}")
     return got
@@ -232,17 +258,23 @@ def fused_pair_reference(
     criterion: str | None = None,
 ):
     """Plain-torch twin of K4 on the :func:`_prep_planes` outputs:
-    θᵀ = W0 (K2's twin), the adaptive Jacobi on its rows (K1's twin, L = rows
-    0..chi-1, R = rows chi..2chi-1), the selection and the discarded-weight
-    rule against W0's own rotated weight (the epilogue twin), then
+    θᵀ = W0 (K2's twin), the adaptive Jacobi on its rows in the order K4
+    takes on this device (:func:`fused_schedule`: the blocked twin
+    ``block_jacobi_rows_reference`` on the cluster home, else K1's twin, L =
+    rows 0..chi-1, R = rows chi..2chi-1), the selection and the
+    discarded-weight rule against W0's own rotated weight (the epilogue
+    twin), then
 
         uᵀ = inv * (selected rows),   vh = inv * conj(uᵀ) @ W0ᵀ.
 
     Returns (ut_re, ut_im, vh_re, vh_im (B, chi, 2chi), lam (B, chi),
     sweeps (B,) int32)."""
     w0_re, w0_im = theta_build_reference(gate_planes, a_re, a_im, b_re, b_im)
-    w_re, w_im, sweeps = jacobi_rows_reference(w0_re, w0_im, max_sweeps, criterion)
     chi = a_re.shape[-1]
+    if fused_schedule(chi, a_re.device) == "block":
+        w_re, w_im, sweeps = block_jacobi_rows_reference(w0_re, w0_im, max_sweeps, criterion)
+    else:
+        w_re, w_im, sweeps = jacobi_rows_reference(w0_re, w0_im, max_sweeps, criterion)
     ws_re, ws_im, lam, inv = rank_truncate_reference(w_re, w_im, None, thr2, chi)
     ut_re, ut_im = ws_re * inv[..., None], ws_im * inv[..., None]
     vh = torch.matmul(torch.complex(ut_re, ut_im).conj(), torch.complex(w0_re, w0_im).transpose(-1, -2))
@@ -264,11 +296,12 @@ def fused_pair(
     outputs — see :func:`fused_pair_reference` for the contract.
 
     CPU tensors run the plain twin; CUDA tensors launch the kernel (one
-    thread block, or on the cluster path a cluster of FUSED_CLUSTER CTAs,
-    per matrix; the working planes where :func:`fused_plane_home` puts
-    them) and every launch adds one to
-    ``fused_pair.launches`` and to ``fused_pair.launches_at[2 chi]``; any
-    other device raises."""
+    thread block, or on the cluster path a cluster of
+    :func:`fused_cluster_size` CTAs, per matrix; the working planes where
+    :func:`fused_plane_home` puts them) and every launch adds one to
+    ``fused_pair.launches``, ``fused_pair.launches_at[2 chi]`` and
+    ``fused_pair.launches_by_schedule[s]`` (s: :func:`fused_schedule`,
+    "ring" or "block"); any other device raises."""
     criterion = criterion or jacobi_criterion()
     if a_re.device.type == "cpu":
         return fused_pair_reference(gate_planes, a_re, a_im, b_re, b_im, thr2, max_sweeps, criterion)
@@ -296,15 +329,18 @@ def fused_pair(
         None if wk_re is None else wk_re.data_ptr(), None if wk_im is None else wk_im.data_ptr(),
         ut_re.data_ptr(), ut_im.data_ptr(), vh_re.data_ptr(), vh_im.data_ptr(), lam.data_ptr(),
         sweeps.data_ptr(), b, chi, int(max_sweeps), int(criterion == "hybrid"), float(thr2),
-        _HOME_CODES[home], FUSED_CLUSTER,
+        _HOME_CODES[home], fused_cluster_size(chi), None,
     )
+    schedule = _SCHEDULES[home]
     fused_pair.launches += 1
     fused_pair.launches_at[n] = fused_pair.launches_at.get(n, 0) + 1
+    fused_pair.launches_by_schedule[schedule] = fused_pair.launches_by_schedule.get(schedule, 0) + 1
     return ut_re, ut_im, vh_re, vh_im, lam, sweeps
 
 
 fused_pair.launches = 0
 fused_pair.launches_at = {}
+fused_pair.launches_by_schedule = {}
 
 
 def fused_pair_update(

@@ -11,6 +11,9 @@ matrix, so a "column pair" rotation touches two contiguous rows.  V is not
 accumulated; the right factor is recovered outside as ``vh = diag(1/s) u^H
 m`` (one batched product).
 
+K4's cluster home rotates the same pairs in a block-cyclic order
+(csrc/block_sweeps.cuh); its twin is :func:`block_jacobi_rows_reference`.
+
 Dispatch rule of :func:`jacobi_rows`: CPU tensors go to the plain twin
 :func:`jacobi_rows_reference`, CUDA tensors to the kernel — no fallback in
 between; the kernel route raises on anything it does not take.  Where the
@@ -53,10 +56,10 @@ def truncation_supported(trunc_thr: float) -> bool:
 # -----------------------------------------------------------------------------
 
 
-def _seat_phase(wl_re, wl_im, wr_re, wr_im, hybrid: bool):
-    """One Brent-Luk phase on seat blocks (b, p, r); returns the rotated and
-    re-seated blocks and each matrix's residual (b,)."""
-    p = wl_re.shape[1]
+def _rotate(wl_re, wl_im, wr_re, wr_im):
+    """One rotation of each row pair (L, R) along the last axis but one, the
+    kernels' formulas term for term; returns (L', R' as re/im, and each
+    pair's aa = |L|^2, bb = |R|^2 and |c| = |<L, R>| before it)."""
     aa = (wl_re * wl_re + wl_im * wl_im).sum(-1)
     bb = (wr_re * wr_re + wr_im * wr_im).sum(-1)
     c_re = (wl_re * wr_re + wl_im * wr_im).sum(-1)
@@ -64,16 +67,6 @@ def _seat_phase(wl_re, wl_im, wr_re, wr_im, hybrid: bool):
 
     abs_c = torch.sqrt(c_re * c_re + c_im * c_im)
     norm_ab = torch.sqrt(torch.clamp(aa * bb, min=1e-30))
-    max_ab = torch.maximum(aa, bb)
-    smax2 = max_ab.amax(1, keepdim=True)
-    if hybrid:
-        floor2 = (32.0 * _EPS32) ** 2 * smax2
-        gate = torch.maximum(torch.minimum(aa, bb), floor2)
-    else:
-        gate = max_ab
-    denom = torch.sqrt(torch.clamp(smax2 * gate, min=1e-30))
-    resid = (abs_c / denom).amax(1)
-
     one, zero = torch.ones_like(abs_c), torch.zeros_like(abs_c)
     active = abs_c > _EPS32 * norm_ab
     safe_c = torch.where(active, abs_c, one)
@@ -84,16 +77,37 @@ def _seat_phase(wl_re, wl_im, wr_re, wr_im, hybrid: bool):
     t = sgn / (tau.abs() + torch.sqrt(1.0 + tau * tau))
     cs = torch.rsqrt(1.0 + t * t)
     sn_r = t * cs
-    cs = torch.where(active, cs, one)[:, :, None]
+    cs = torch.where(active, cs, one)[..., None]
     sn_r = torch.where(active, sn_r, zero)
-    sn_re = (sn_r * ph_re)[:, :, None]
-    sn_im = (sn_r * ph_im)[:, :, None]
+    sn_re = (sn_r * ph_re)[..., None]
+    sn_im = (sn_r * ph_im)[..., None]
 
     # L' = cs L - conj(sn) R ;  R' = sn L + cs R   (complex)
     nl_re = cs * wl_re - (sn_re * wr_re + sn_im * wr_im)
     nl_im = cs * wl_im - (sn_re * wr_im - sn_im * wr_re)
     nr_re = sn_re * wl_re - sn_im * wl_im + cs * wr_re
     nr_im = sn_re * wl_im + sn_im * wl_re + cs * wr_im
+    return nl_re, nl_im, nr_re, nr_im, aa, bb, abs_c
+
+
+def _ratio(aa, bb, abs_c, smax2, hybrid: bool):
+    """The stopping rule's ratio |c| / sqrt(s_max^2 * gate) of each pair
+    against s_max^2 ``smax2`` (broadcast over the pairs)."""
+    if hybrid:
+        gate = torch.maximum(torch.minimum(aa, bb), (32.0 * _EPS32) ** 2 * smax2)
+    else:
+        gate = torch.maximum(aa, bb)
+    return abs_c / torch.sqrt(torch.clamp(smax2 * gate, min=1e-30))
+
+
+def _seat_phase(wl_re, wl_im, wr_re, wr_im, hybrid: bool):
+    """One Brent-Luk phase on seat blocks (b, p, r); returns the rotated and
+    re-seated blocks and each matrix's residual (b,) against the phase's
+    own s_max^2."""
+    p = wl_re.shape[1]
+    nl_re, nl_im, nr_re, nr_im, aa, bb, abs_c = _rotate(wl_re, wl_im, wr_re, wr_im)
+    smax2 = torch.maximum(aa, bb).amax(1, keepdim=True)
+    resid = _ratio(aa, bb, abs_c, smax2, hybrid).amax(1)
 
     def seats(l, r):
         nl = torch.cat([l[:, :1], r[:, :1], l[:, 1 : p - 1]], dim=1)
@@ -139,6 +153,120 @@ def jacobi_rows_reference(
         sweeps += active.to(torch.int32)
         active = active & (resid >= _CONV_TOL)
     return torch.cat([wl_re, wr_re], 1), torch.cat([wl_im, wr_im], 1), sweeps
+
+
+# The block-cyclic schedule of K4's cluster home (csrc/block_sweeps.cuh): rows
+# in blocks of BLOCK_ROWS, two blocks a CTA.
+BLOCK_ROWS = 16
+
+
+def block_pair(cta: int, rnd: int, ctas: int) -> Tuple[int, int]:
+    """The blocks (a, b) CTA ``cta`` of ``ctas`` holds in round ``rnd``
+    (counted across sweeps) of the circle method over 2 ctas blocks: a is
+    sent on at the round's end, b kept (csrc/block_sweeps.cuh block_pair,
+    line for line)."""
+    circle = 2 * ctas - 1
+    h = ctas - 1
+    r = rnd % circle
+    k = cta
+    if rnd % 2 and k > 0:
+        k = (k + 1 if k < h else k) if k % 2 else k - 1
+    plus = (r + k) % circle
+    minus = circle if k == 0 else (r - k) % circle
+    return (plus, minus) if (k == 0 or k % 2) else (minus, plus)
+
+
+def _cycle_row(i: int, p: int) -> int:
+    return i + 1 if i < p - 1 else 3 * p - 2 - i
+
+
+def _seat_l(j: int, t: int, p: int) -> int:
+    """Row of the round-robin seat L[j] in phase t (csrc/seat_sweeps.cuh)."""
+    return 0 if j == 0 else _cycle_row((j - 1 - t) % (2 * p - 1), p)
+
+
+def _seat_r(j: int, t: int, p: int) -> int:
+    return _cycle_row((2 * p - 2 - j - t) % (2 * p - 1), p)
+
+
+def block_ctas(rows: int, block: int = BLOCK_ROWS) -> int:
+    """CTAs of the block-cyclic schedule on ``rows`` rows: two blocks each."""
+    return -(-rows // (2 * block))
+
+
+def block_sweep_phases(ctas: int, block: int, first_round: int):
+    """The local phases of one sweep of the block-cyclic schedule on 2 ctas
+    blocks of ``block`` rows (row i of block b is row b * block + i), its
+    block rounds numbered from ``first_round``: a list of (L rows, R rows),
+    each phase's pairs disjoint.  First the intra-block round (block - 1
+    phases of the round robin inside every block, rows in place), then
+    2 ctas - 1 block rounds of ``block`` phases: in phase s of a round, row i
+    of each CTA's block a meets row (i + s) mod block of its block b."""
+    p = block // 2
+    blocks = range(2 * ctas)
+    phases = [([x * block + _seat_l(j, t, p) for x in blocks for j in range(p)],
+               [x * block + _seat_r(j, t, p) for x in blocks for j in range(p)]) for t in range(block - 1)]
+    for q in range(2 * ctas - 1):
+        pairs = [block_pair(c, first_round + q, ctas) for c in range(ctas)]
+        for s in range(block):
+            phases.append(([a * block + i for a, _ in pairs for i in range(block)],
+                           [b * block + (i + s) % block for _, b in pairs for i in range(block)]))
+    return phases
+
+
+def block_jacobi_rows_reference(
+    w_re: torch.Tensor,
+    w_im: torch.Tensor,
+    max_sweeps: int = DEFAULT_SWEEPS,
+    criterion: str | None = None,
+    *,
+    block: int = BLOCK_ROWS,
+    ctas: int | None = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain-torch twin of K4's sweeps on its cluster home
+    (csrc/block_sweeps.cuh): the same contract as
+    :func:`jacobi_rows_reference`, the rotations in the block-cyclic order of
+    :func:`block_sweep_phases` on ``ctas`` CTAs (:func:`block_ctas` by
+    default), the rows padded with zero rows to 2 ctas ``block``.
+
+    Stopping, per matrix: s_max^2 is the largest row norm^2 at the sweep's
+    start; the sweep's residual is the largest ratio |c| / sqrt(max(s_max^2
+    gate, 1e-30)) over the pairs it rotates (gate max(|L|^2, |R|^2) under
+    "entry", max(min(|L|^2, |R|^2), (32 eps)^2 s_max^2) under "hybrid"); a
+    matrix stops after a sweep whose residual is below 1e-6, or after
+    ``max_sweeps``."""
+    hybrid = (criterion or jacobi_criterion()) == "hybrid"
+    b, c, _ = w_re.shape
+    ctas = ctas or block_ctas(c, block)
+    rows = 2 * ctas * block
+    if block < 2 or block % 2 or rows < c:
+        raise ValueError(f"block_jacobi_rows_reference: {c} rows do not fit {2 * ctas} blocks of {block}")
+    pad = (0, 0, 0, rows - c)
+    w_re = torch.nn.functional.pad(w_re, pad)
+    w_im = torch.nn.functional.pad(w_im, pad)
+    sweeps = torch.zeros(b, dtype=torch.int32, device=w_re.device)
+    active = torch.ones(b, dtype=torch.bool, device=w_re.device)
+    # A sweep starts at a round that is a multiple of the odd 2 ctas - 1, so
+    # the sweeps alternate between two schedules.
+    schedules = [[(torch.tensor(li, device=w_re.device), torch.tensor(ri, device=w_re.device))
+                  for li, ri in block_sweep_phases(ctas, block, first)] for first in (0, 2 * ctas - 1)]
+    for k in range(max_sweeps):
+        if not bool(active.any()):
+            break
+        n_re, n_im = w_re.clone(), w_im.clone()
+        smax2 = (n_re * n_re + n_im * n_im).sum(-1).amax(-1, keepdim=True)
+        resid = torch.zeros(b, dtype=w_re.dtype, device=w_re.device)
+        for li, ri in schedules[k % 2]:
+            nl_re, nl_im, nr_re, nr_im, aa, bb, abs_c = _rotate(n_re[:, li], n_im[:, li], n_re[:, ri], n_im[:, ri])
+            resid = torch.maximum(resid, _ratio(aa, bb, abs_c, smax2, hybrid).amax(1))
+            n_re[:, li], n_im[:, li], n_re[:, ri], n_im[:, ri] = nl_re, nl_im, nr_re, nr_im
+        # Per-matrix stopping: a converged matrix keeps its rows frozen.
+        keep = active[:, None, None]
+        w_re = torch.where(keep, n_re, w_re)
+        w_im = torch.where(keep, n_im, w_im)
+        sweeps += active.to(torch.int32)
+        active = active & (resid >= _CONV_TOL)
+    return w_re[:, :c].contiguous(), w_im[:, :c].contiguous(), sweeps
 
 
 # -----------------------------------------------------------------------------

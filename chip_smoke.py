@@ -15,6 +15,7 @@ range-finder's batched QR), tile_probe.cu (the probe) and attainable.cu
 
 Usage:  python3 chip_smoke.py        (from the root of a checkout; one card)
         python3 chip_smoke.py qr     (the device phase and phase 2e alone)
+        python3 chip_smoke.py fused  (the device phase and phase 2c alone)
 
 Phases, one line each:
   1. device   — the card's name and power limit; build and load the kernels
@@ -57,18 +58,22 @@ Phases, one line each:
                 cuSOLVER factors one matrix at a time, with the card's
                 bound ([qr] lines).
   2c. fused   — K4 fused_pair vs its plain twin at B=10, χ in {8, 16, 32,
-                64} (planes in one block's shared memory), {96, 100, 128}
-                (the cluster path: planes in the distributed shared memory
-                of 8 CTAs) and on zero-padded θ (bonds of rank 20 at
+                64} (planes in one block's shared memory, the ring order),
+                {96, 100, 128} (the cluster path: the block-cyclic order
+                of block_sweeps.cuh on ceil(2χ / 32) CTAs, held against the
+                blocked twin) and on zero-padded θ (bonds of rank 20 at
                 χ=128), bonds graded over 2 decades, trunc 1e-6 and 1e-2:
                 λ, keep masks, kept uᵀ and vh projectors (weighted by
                 s_k / s_max), reconstruction, sweep counts; at χ=128 with
                 bonds graded over 6 decades λ, keep masks and sweep counts
                 only (see K4_DECADES); the cluster size, the clusters the
                 card keeps resident, ptxas's numbers for K2 and K4; timed at
-                B=14 χ=128 beside its twin, torch.linalg.svd and its own
-                device-memory home (the one-block design that preceded the
-                cluster path) on the same inputs.
+                B=14 and B=1, χ=128, beside its twin, torch.linalg.svd and
+                its own device-memory home on the same inputs, with the
+                slowest matrix's sweeps beside the ring twin's on the same
+                inputs, and the µs of a local phase (intra-block and
+                cross-block rounds), an exchange and a stop decision from
+                the stamped instantiation's clock64 stamps ([fused-split]).
   2d. probes  — the tile-precision probe (ops/tile_probes.py, the Hopper
                 counterpart of the Pallas probes P1 and P2): its entry point
                 tile_probes.main runs csrc/tile_probe.cu (s·(A·B), A·Bᵀ, Aᵀ)
@@ -361,6 +366,11 @@ TOL_PROJ = 2e-5  # kept vh projector of the rand tail; K4's weighted uᵀ and vh
 # The rand tail's truncation thresholds: the slice's, and a coarse one whose
 # cut sits far above the f32 noise of the unseen remainder.
 TAIL_THRESHOLDS = (1e-6, 1e-2)
+# clock64 stamps a sweep of K4's stamped instantiation (csrc/block_sweeps.cuh
+# kStampsPerSweep), and K4's figures on the cluster home before the block
+# schedule (the ring of csrc/cluster_sweeps.cuh on the same card and inputs).
+STAMPS_PER_SWEEP = 32
+RING_K4 = "8.907 ms device-only, about 2.8 us a phase, 12 sweeps"
 # Route vs native objective at the same iterate: f32 decompositions.
 TOL_ROUTES = 1e-4
 # Final objective vs its f64 re-evaluation: f32 engine + decomposition noise
@@ -403,8 +413,8 @@ TOL_GRAPH_HORIZON = 1e-5
 # The jacobi route's start objective (the value at x0) and its 10-iteration
 # horizon's final objective as the eager path prints them on the H100
 # ([slice], [slice28]).
-START_DIGITS = {20: "0.3980857", 28: "0.6090654"}
-HORIZON_DIGITS = {20: "0.004270494", 28: "0.00813967"}
+START_DIGITS = {20: "0.3980857", 28: "0.6090684"}
+HORIZON_DIGITS = {20: "0.004270494", 28: "0.00815105"}
 
 # Peak rates of one H100 SXM for the bounds: f32 outside the tensor cores and
 # HBM3 bandwidth (NVIDIA's data sheet, at the 700 W limit).
@@ -557,6 +567,8 @@ def reset_counts() -> None:
             fn.launches_at = {}
         if hasattr(fn, "launches_home"):
             fn.launches_home = {}
+        if hasattr(fn, "launches_by_schedule"):
+            fn.launches_by_schedule = {}
 
 
 def _executed(name: str, field: str, counts: dict) -> dict:
@@ -1044,8 +1056,8 @@ def phase_fused(dev):
         check(homes[chi] == ("cluster" if chi >= 96 else "shared"), f"K4's home at chi={chi} is {homes[chi]}")
     resident = fp.fused_cluster_occupancy(PATH28_CHI)
     check(resident > 0, "the card keeps no cluster of K4's cluster path resident")
-    cluster_line = (f"cluster path at chi={PATH28_CHI}: {fp.FUSED_CLUSTER} CTAs per matrix x "
-                    f"{fp.fused_cluster_threads(PATH28_CHI)} threads, {fp.fused_cluster_smem_bytes(PATH28_CHI)} B "
+    cluster_line = (f"cluster path at chi={PATH28_CHI}: {fp.fused_cluster_size(PATH28_CHI)} CTAs per matrix x "
+                    f"{fp.FUSED_CLUSTER_THREADS} threads, {fp.fused_cluster_smem_bytes(PATH28_CHI)} B "
                     f"dynamic shared memory per CTA, {resident} clusters resident at once "
                     f"(cudaOccupancyMaxActiveClusters; a B={PATH28_BATCH} half-layer has {PATH28_BATCH}); ptxas: "
                     + "; ".join(f"{k} {v}" for k, v in sorted(PTXAS.items())
@@ -1112,14 +1124,11 @@ def phase_fused(dev):
                 check(d_vh <= TOL_PROJ, f"{at}: weighted kept vh projector differs by {d_vh:.3g} ({details[-1]})")
                 check(d_rec <= TOL_S, f"{at}: reconstruction differs by {d_rec:.3g} s_max ({details[-1]})")
 
-    chi, batch = PATH28_CHI, PATH28_BATCH
-    n = 2 * chi
-    planes = path_planes(rng, batch, chi, dev, decades=K4_DECADES)
+    chi, n = PATH28_CHI, 2 * PATH28_CHI
     thr2 = TAIL_THRESHOLDS[0] ** 2
-    sweeps = fused_pair(*planes, thr2, MAX_SWEEPS)[5].cpu().numpy()
-    kern = timings(lambda: fused_pair(*planes, thr2, MAX_SWEEPS), calls=5, repeats=3)
-    # No sweep: the θ build, the copy, the epilogue and the uᵀ and vh rows.
-    rest_ms, _ = device_ms(lambda: fused_pair(*planes, thr2, 0))
+    timed = {batch: fused_timed(dev, rng, batch, chi, thr2) for batch in (PATH28_BATCH, 1)}
+    t14 = timed[PATH28_BATCH]
+    batch, planes, sweeps = PATH28_BATCH, t14["planes"], t14["sweeps"]
     plain_ms = median_ms(lambda: fused_pair_reference(*planes, thr2, MAX_SWEEPS), runs=2, warmup=1)
     # The one-block design that preceded the cluster path, on the same
     # inputs: the planes in device memory (a direct launch at the "global"
@@ -1129,7 +1138,7 @@ def phase_fused(dev):
     ptrs = [t.data_ptr() for t in (*planes, *scratch, lam, sw)]
     global_ms, _ = device_ms(lambda: cuda_build.launch(
         "fused_pair_launch", 0, *ptrs, batch, chi, MAX_SWEEPS, 1, thr2, fp._HOME_CODES["global"],
-        fp.FUSED_CLUSTER), calls=3, repeats=3)
+        fp.fused_cluster_size(chi), None), calls=3, repeats=3)
     w0_re, w0_im = theta_build_reference(*planes)
     theta = torch.complex(w0_re, w0_im).transpose(-1, -2)
     lib = timings(lambda: torch.linalg.svd(theta, full_matrices=False), calls=3, repeats=3, runs=5)
@@ -1140,15 +1149,110 @@ def phase_fused(dev):
     print(f"[fused] fused_pair vs plain twin, B={BATCH} (homes {homes}): {'; '.join(details)} | {cluster_line} | "
           f"keep-mask flips / values near the threshold / values: "
           f"{'; '.join(f'thr {t:g}: {flips[t]} / {allowed[t]} / {values[t]}' for t in TAIL_THRESHOLDS)} | "
-          f"B={batch} chi={chi} (sweeps {sweeps.tolist()}): kernel {fmt(kern)} (without the sweeps "
-          f"{rest_ms:.4f} ms device-only; the device-memory home on the same inputs {global_ms:.4f} ms "
+          f"B={batch} chi={chi} (sweeps {sweeps.tolist()}): kernel {fmt(t14['kern'])} (without the sweeps "
+          f"{t14['rest_ms']:.4f} ms device-only; the device-memory home on the same inputs {global_ms:.4f} ms "
           f"device-only), plain {plain_ms:.4f} ms, "
           f"torch.linalg.svd of theta {fmt(lib)}, bound {bound_ms:.5f} ms ({bound_by}) "
           f"(CUDA events; device-only: 5 queued calls, median of 3 repeats; per call: median of 20; plain of 2)",
           flush=True)
-    return {"max_abs_err": err_lam, "shape": f"B={batch} chi={chi}", **record_times(kern, lib),
+    for b, t in timed.items():
+        print(f"[fused-split] B={b} chi={chi}: kernel {fmt(t['kern'])} (without the sweeps {t['rest_ms']:.4f} ms) | "
+              f"sweeps: kernel {t['sweeps'].tolist()} (slowest {int(t['sweeps'].max())}), blocked twin "
+              f"{t['block_twin'].tolist()}, ring twin {t['ring_twin'].tolist()} (slowest {int(t['ring_twin'].max())}) "
+              f"| stamped instantiation (clock64 of CTA 0, median over matrices, sweeps and rounds; "
+              f"{t['cycles_per_us']:.1f} cycles/us): {fmt_split(t['split'])} | beside the ring schedule it "
+              f"replaced (H100 80GB HBM3, 700 W, B=14): {RING_K4}", flush=True)
+        check(int(t["sweeps"].max()) - int(t["ring_twin"].max()) <= 1,
+              f"K4 at B={b} chi={chi}: slowest matrix {int(t['sweeps'].max())} sweeps against the ring twin's "
+              f"{int(t['ring_twin'].max())}")
+    return {"max_abs_err": err_lam, "shape": f"B={batch} chi={chi}", **record_times(t14["kern"], lib),
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "home": homes[chi],
-            "cluster": fp.FUSED_CLUSTER, "clusters_resident": resident, "global_home_ms": global_ms}
+            "schedule": fp.fused_schedule(chi, dev), "cluster": fp.fused_cluster_size(chi),
+            "clusters_resident": resident, "global_home_ms": global_ms,
+            "split": {b: {"ms": t["kern"]["ms"], "sweeps_max": int(t["sweeps"].max()),
+                          "ring_twin_sweeps_max": int(t["ring_twin"].max()), **t["split"]}
+                      for b, t in timed.items()}}
+
+
+def fused_timed(dev, rng, batch: int, chi: int, thr2: float) -> dict:
+    """K4 at (batch, chi) on its rule's home, on graded path inputs: its
+    times (device-only and per call, with and without the sweeps), its
+    sweep counts beside the blocked and the ring twins' on the same θ, and
+    the cluster home's per-phase split (:func:`fused_split`)."""
+    from aqc_research_tpu_torch.kernel_checks import path_planes
+    from aqc_research_tpu_torch.ops import fused_pair as fp
+    from aqc_research_tpu_torch.ops.jacobi_kernel import block_jacobi_rows_reference, jacobi_rows_reference
+
+    planes = path_planes(rng, batch, chi, dev, decades=K4_DECADES)
+    sweeps = fp.fused_pair(*planes, thr2, MAX_SWEEPS)[5].cpu().numpy()
+    kern = timings(lambda: fp.fused_pair(*planes, thr2, MAX_SWEEPS), calls=5, repeats=3)
+    # No sweep: the θ build, the copy, the epilogue and the uᵀ and vh rows.
+    rest_ms, _ = device_ms(lambda: fp.fused_pair(*planes, thr2, 0))
+    w0_re, w0_im = fp.theta_build_reference(*planes)
+    block_twin = block_jacobi_rows_reference(w0_re, w0_im, MAX_SWEEPS, "hybrid")[2].cpu().numpy()
+    ring_twin = jacobi_rows_reference(w0_re, w0_im, MAX_SWEEPS, "hybrid")[2].cpu().numpy()
+    cycles_per_us = sleep_cycles_per_ms() / 1e3
+    return {"planes": planes, "sweeps": sweeps, "kern": kern, "rest_ms": rest_ms, "block_twin": block_twin,
+            "ring_twin": ring_twin, "cycles_per_us": cycles_per_us,
+            "split": fused_split(planes, thr2, sweeps, cycles_per_us)}
+
+
+def fused_split(planes, thr2: float, sweeps, cycles_per_us: float) -> dict:
+    """One launch of K4's stamped instantiation (csrc/block_sweeps.cuh:
+    per sweep, CTA 0 stamps clock64 at the sweep's start, the end of the
+    intra-block round, and per block round the start of its last local
+    phase and the end of its exchange) on ``planes``; the medians over
+    matrices, sweeps and rounds in µs of a local phase of the intra-block
+    round, of a cross-block round (the round's first 15 phases, A's load
+    included), of an exchange (the round's last phase with its remote
+    stores and the cluster barrier, less a local phase), of a sweep and of
+    a stop decision."""
+    from aqc_research_tpu_torch.ops import cuda_build
+    from aqc_research_tpu_torch.ops import fused_pair as fp
+    from aqc_research_tpu_torch.ops.jacobi_kernel import BLOCK_ROWS
+
+    gate = planes[0]
+    batch, chi = gate.shape[0], planes[1].shape[-1]
+    n, ctas = 2 * chi, fp.fused_cluster_size(chi)
+    dev = gate.device
+    outs = [torch.empty((batch, rows, n), device=dev) for rows in (n, n, chi, chi, chi, chi)]
+    lam, sw = torch.empty((batch, chi), device=dev), torch.empty(batch, dtype=torch.int32, device=dev)
+    stamps = torch.zeros((batch, MAX_SWEEPS, STAMPS_PER_SWEEP), dtype=torch.int64, device=dev)
+    w0_re, w0_im, ut_re, ut_im, vh_re, vh_im = (t.data_ptr() for t in outs)
+    cuda_build.launch("fused_pair_launch", 0, *(t.data_ptr() for t in planes), w0_re, w0_im, None, None,
+                      ut_re, ut_im, vh_re, vh_im, lam.data_ptr(), sw.data_ptr(), batch, chi, MAX_SWEEPS, 1, thr2,
+                      fp._HOME_CODES["cluster"], ctas, stamps.data_ptr())
+    torch.cuda.synchronize()
+    check(sw.tolist() == sweeps.tolist(), f"the stamped K4 ran {sw.tolist()} sweeps, the path's {sweeps.tolist()}")
+    st = stamps.cpu().numpy().astype(np.float64)
+    rounds = 2 * ctas - 1
+    intra, local, exch, sweep, decide = [], [], [], [], []
+    for m in range(batch):
+        k_run = int(sw[m])
+        for k in range(k_run):
+            s = st[m, k]
+            intra.append((s[1] - s[0]) / (BLOCK_ROWS - 1))
+            start = s[1]
+            for q in range(rounds):
+                per = (s[2 + 2 * q] - start) / (BLOCK_ROWS - 1)
+                local.append(per)
+                exch.append(s[3 + 2 * q] - s[2 + 2 * q] - per)
+                start = s[3 + 2 * q]
+            sweep.append(start - s[0])
+            if k + 1 < k_run:
+                decide.append(st[m, k + 1, 0] - start)
+
+    def us(xs):
+        return float(np.median(xs)) / cycles_per_us if xs else float("nan")
+
+    return {"intra_phase_us": us(intra), "local_phase_us": us(local), "exchange_us": us(exch),
+            "sweep_us": us(sweep), "decision_us": us(decide)}
+
+
+def fmt_split(split: dict) -> str:
+    return (f"local phase {split['local_phase_us']:.3f} us (intra-block {split['intra_phase_us']:.3f}), exchange "
+            f"{split['exchange_us']:.3f} us, stop decision {split['decision_us']:.3f} us, sweep "
+            f"{split['sweep_us']:.1f} us")
 
 
 def f64_objective(circ, thetas, target, base_bits, trunc_thr, dev) -> float:
@@ -1269,11 +1373,13 @@ def phase_slice(case, tag: str):
               f"the jacobi horizon never ran K1 at {n}x{n} on its home {home!r}: {launches_at}, {launches_home}")
     check(launches["theta_build"] == 0 and launches["rand_tail"] == 0,
           f"the jacobi horizon launched rand-route kernels: {launches}")
+    schedules = _executed("fused_pair", "schedule", kernel_counters()["fused_pair"].launches_by_schedule)
     if case["chi"] >= 96:
         check(launches["fused_pair"] > 0, f"the jacobi horizon at chi={case['chi']} never launched K4: {launches}")
+        check(schedules.get("block", 0) > 0, f"K4 at chi={case['chi']} never took the block schedule: {schedules}")
     else:
         check(launches["fused_pair"] == 0, f"the jacobi horizon at chi={case['chi']} launched K4: {launches}")
-    print(f"[{tag}] {case['about']} | {line}", flush=True)
+    print(f"[{tag}] {case['about']} | {line} | K4 by schedule: {schedules}", flush=True)
     return launches, launches_at, launches_home
 
 
@@ -1501,7 +1607,7 @@ def phase_graphs(case, tag: str, card_line: str, calls: int):
             entries = {name: program.entry(x0, target) for name, program in programs.items()}
             for name, entry in entries.items():
                 check(entry.graph is not None, f"{tag} {route} {name}: no graph was captured")
-                got = cuda_graphs.kernel_launches(entry.launches)
+                got = {k: n for k, n in cuda_graphs.kernel_launches(entry.launches).items() if k in kernels}
                 check(got == eager_launches[name],
                       f"{tag} {route} {name}: launches per graphed evaluation {got} vs eager {eager_launches[name]}")
             f_e, g_e = eager["obj+grad"]
@@ -3643,9 +3749,11 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     tic = time.perf_counter()
-    if sys.argv[1:] == ["qr"]:
+    alone = {"qr": lambda: phase_qr(dev, phase_device()),
+             "fused": lambda: (phase_device(), phase_fused(dev))}
+    if sys.argv[1:2] and sys.argv[1] in alone:
         try:
-            phase_qr(dev, phase_device())
+            alone[sys.argv[1]]()
         except (SmokeFailure, RuntimeError, ValueError) as exc:
             print(f"chip_smoke: FAILED: {type(exc).__name__}: {exc}", file=sys.stderr)
             return 1

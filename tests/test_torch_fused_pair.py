@@ -38,10 +38,11 @@ from aqc_research_tpu.ops import fused_pair as jfp
 from aqc_research_tpu.ops import mps as jm
 from aqc_research_tpu.targets import trotter as jtrot
 from aqc_research_tpu_torch import config, interop
-from aqc_research_tpu_torch.kernel_checks import near_threshold
+from aqc_research_tpu_torch.kernel_checks import lambda_check, near_threshold
 from aqc_research_tpu_torch.models.sp_lhs import jit_asp as tja
 from aqc_research_tpu_torch.ops import fused_pair as tfp
 from aqc_research_tpu_torch.ops import mps as tm
+from aqc_research_tpu_torch.ops.jacobi_kernel import rank_truncate_reference
 from tests import _torch_threads  # noqa: F401
 
 BATCH = 3
@@ -74,11 +75,11 @@ def _rand_c64(rng, *shape):
     return (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(np.complex64)
 
 
-def _pair_inputs(seed, batch, chi, kind):
+def _pair_inputs(seed, batch, chi, kind, rank=3):
     """Pair-update inputs (numpy): lam_l, lam_c, lam_r, g1, g2, gate4.
     ``kind``: "random" bond values, "graded" (1 .. 1e-6, truncation bites),
     "boundary" (lam_l = lam_r = e_0, the chain's edge pairs) or "padded"
-    (bonds of rank 3: θ zero outside two row and column blocks)."""
+    (bonds of rank ``rank``: θ zero outside two row and column blocks)."""
     rng = np.random.default_rng(seed)
     g1 = _rand_c64(rng, batch, 2, chi, chi)
     g2 = _rand_c64(rng, batch, 2, chi, chi)
@@ -89,7 +90,7 @@ def _pair_inputs(seed, batch, chi, kind):
             lam = lam * np.logspace(0, -6, chi, dtype=np.float32)[None, :]
         lam = np.sort(lam, axis=-1)[..., ::-1].copy()
         if kind == "padded":
-            lam[:, 3:] = 0.0
+            lam[:, rank:] = 0.0
         return lam / np.linalg.norm(lam, axis=-1, keepdims=True)
 
     ll, lc, lr = lams(), lams(), lams()
@@ -119,11 +120,11 @@ def _projector(rows, mask, weight=None):
 # -----------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("trunc_thr", [1e-6, 1e-2])
-@pytest.mark.parametrize("kind", ["random", "graded", "boundary", "padded"])
-@pytest.mark.parametrize("chi", [8, 16])
-def test_fused_twin_matches_pallas_interpret(chi, kind, trunc_thr):
-    ins = _pair_inputs(chi + len(kind), BATCH, chi, kind)
+def _assert_twin_matches_pallas(chi, kind, trunc_thr, rank=3):
+    """K4's twin (``tfp.fused_pair`` on CPU tensors) against the Pallas
+    kernel at chunk 1 on the same inputs, within the module's tolerances;
+    returns the twin's outputs and θ's singular values (f64)."""
+    ins = _pair_inputs(chi + len(kind), BATCH, chi, kind, rank)
     t_in, j_in = _planes(ins, chi)
     thr2 = trunc_thr**2
     j_out = jfp._fused_pair_raw(jnp.full((1, 1), thr2, jnp.float32), *j_in, chi, 12, 1)
@@ -131,7 +132,8 @@ def test_fused_twin_matches_pallas_interpret(chi, kind, trunc_thr):
     jlam = jlam[:, 0]
 
     before = tfp.fused_pair.launches
-    ut_re, ut_im, vh_re, vh_im, lam, sweeps = tfp.fused_pair(*t_in, thr2, 12)
+    out = tfp.fused_pair(*t_in, thr2, 12)
+    ut_re, ut_im, vh_re, vh_im, lam, sweeps = out
     assert tfp.fused_pair.launches == before  # CPU tensors: the twin
     assert ut_re.shape == vh_re.shape == (BATCH, chi, 2 * chi) and lam.shape == (BATCH, chi)
     assert int(sweeps.min()) >= 1 and int(sweeps.max()) <= 12
@@ -142,13 +144,14 @@ def test_fused_twin_matches_pallas_interpret(chi, kind, trunc_thr):
     assert np.abs(lam - jlam).max() <= 1e-5 * smax
     w0_re, w0_im = tfp.theta_build_reference(*t_in)
     theta = torch.complex(w0_re, w0_im).to(torch.complex128)
-    near = near_threshold(torch.linalg.svdvals(theta), (theta.abs() ** 2).sum((-2, -1)), thr2, chi).numpy()
+    s_theta = torch.linalg.svdvals(theta)
+    near = near_threshold(s_theta, (theta.abs() ** 2).sum((-2, -1)), thr2, chi).numpy()
     keep, jkeep = lam > 0, jlam > 0
     assert not bool((keep != jkeep)[~near].any())
     if kind == "graded" and trunc_thr == 1e-2:
         assert not keep.all()  # truncation is active
     if kind == "padded":
-        assert not keep[:, 6:].any()  # two rank-3 bonds: rank <= 3 * 2
+        assert not keep[:, 2 * rank:].any()  # two rank-r bonds: rank <= 2r
 
     both = keep & jkeep
     ut, jut = ut_re.numpy() + 1j * ut_im.numpy(), jut_re + 1j * jut_im
@@ -165,6 +168,71 @@ def test_fused_twin_matches_pallas_interpret(chi, kind, trunc_thr):
     # Dropped values come back as exact zeros with zero rows.
     assert float(np.abs(ut[~keep]).max(initial=0.0)) == 0.0
     assert float(np.abs(vh[~keep]).max(initial=0.0)) == 0.0
+    return out, s_theta, thr2
+
+
+@pytest.mark.parametrize("trunc_thr", [1e-6, 1e-2])
+@pytest.mark.parametrize("kind", ["random", "graded", "boundary", "padded"])
+@pytest.mark.parametrize("chi", [8, 16])
+def test_fused_twin_matches_pallas_interpret(chi, kind, trunc_thr):
+    _assert_twin_matches_pallas(chi, kind, trunc_thr)
+
+
+@pytest.mark.parametrize("trunc_thr", [1e-6, 1e-2])
+@pytest.mark.parametrize("chi,kind,rank", [(16, "graded", 3), (16, "padded", 3), (32, "graded", 3),
+                                           (32, "padded", 20)])
+def test_blocked_twin_matches_pallas_interpret_and_svd(monkeypatch, chi, kind, rank, trunc_thr):
+    """K4's twin with the blocked schedule of its cluster home, cut to
+    8-row blocks so that 2chi = 32 and 64 rows take 2 and 4 CTAs (on an
+    H100 the blocked twin runs from 2chi = 176, 16-row blocks), against the
+    Pallas kernel as above (a zero-padded rank-20 case among them), and its
+    λ against the rule applied to θ's singular values from LAPACK in f64
+    (kernel_checks.lambda_check: 1e-5 s_max, keep flips only near the
+    threshold)."""
+    calls = []
+    real = tfp.block_jacobi_rows_reference
+
+    def blocked(w_re, w_im, max_sweeps, criterion):
+        calls.append(w_re.shape[-1])
+        return real(w_re, w_im, max_sweeps, criterion, block=8)
+
+    monkeypatch.setattr(tfp, "fused_schedule", lambda chi, device: "block")
+    monkeypatch.setattr(tfp, "block_jacobi_rows_reference", blocked)
+    (_, _, _, _, lam, _), s_theta, thr2 = _assert_twin_matches_pallas(chi, kind, trunc_thr, rank)
+    assert calls == [2 * chi]
+    rows = torch.diag_embed(s_theta[:, :chi]).to(torch.float32)
+    s2 = s_theta.double() ** 2
+    _, _, exact, _ = rank_truncate_reference(rows, torch.zeros_like(rows), s2.sum(-1).float(), thr2, chi)
+    near = near_threshold(s_theta, s2.sum(-1), thr2, chi)
+    checked = lambda_check(lam, exact, near, 1e-5)
+    assert checked.lam_ok and checked.mask_ok, checked
+
+
+def test_fused_schedule_follows_the_home():
+    """K4 rotates in the block-cyclic order on its cluster home and in the
+    ring order elsewhere; the CPU twin takes the H100's rule."""
+    cpu = torch.device("cpu")
+    got = {chi: tfp.fused_schedule(chi, cpu) for chi in (8, 64, 80, 88, 96, 100, 112, 128, 136)}
+    assert got == {8: "ring", 64: "ring", 80: "ring", 88: "block", 96: "block", 100: "block", 112: "block",
+                   128: "block", 136: "ring"}
+    assert all((got[chi] == "block") == (tfp.fused_plane_home(chi, tfp.H100_MAX_SMEM) == "cluster") for chi in got)
+
+
+def test_fused_reference_takes_the_blocked_twin_on_the_cluster_home(monkeypatch):
+    """At chi = 96 (a cluster-home shape: 192 rows, 6 CTAs of two 16-row
+    blocks) the twin rotates in the block order, one sweep here."""
+    calls = []
+    real = tfp.block_jacobi_rows_reference
+
+    def spy(w_re, *args, **kwargs):
+        calls.append(tuple(w_re.shape))
+        return real(w_re, *args, **kwargs)
+
+    monkeypatch.setattr(tfp, "block_jacobi_rows_reference", spy)
+    t_in, _ = _planes(_pair_inputs(7, 1, 96, "graded"), 96)
+    ut_re, _, _, _, lam, sweeps = tfp.fused_pair(*t_in, 1e-12, 1)
+    assert calls == [(1, 192, 192)] and sweeps.tolist() == [1]
+    assert ut_re.shape == (1, 96, 192) and bool(torch.isfinite(lam).all()) and float(lam[0, 0]) > 0
 
 
 def test_fused_twin_zero_weight_keeps_nothing():
@@ -276,21 +344,21 @@ def test_fused_plane_home(chi, max_smem, home):
 @pytest.mark.parametrize("chi", [96, 100, 112, 128])
 def test_fused_cluster_shape(chi):
     """The cluster path at every chi it takes on the 28q path and a ragged
-    one: 8 CTAs hold all chi seats of each side, a warp per pair of a phase
-    and the stats warp fit the kernel's 544 threads, and a CTA's shared
-    memory, with both seat buffers, fits an H100 block's 232,448 B (128 KB
-    of seats at chi = 128)."""
-    n, cluster = 2 * chi, tfp.FUSED_CLUSTER
-    assert cluster == 8 and n <= tfp.FUSED_CLUSTER_MAX_ROWS
-    pairs = -(-chi // cluster)
-    assert pairs * cluster >= chi and pairs * (cluster - 1) < chi  # every CTA holds seats
-    threads = tfp.fused_cluster_threads(chi)
-    assert threads % 32 == 0 and 32 * (pairs + 1) <= threads <= 544
+    one: ceil(2chi / 32) CTAs of two 16-row blocks hold all 2chi rows (zero
+    rows pad the rest, less than one CTA's share), a warp per row of a
+    block fills the kernel's 512 threads (two tile groups), and a CTA's
+    shared memory, with its three block buffers, fits an H100 block's
+    232,448 B (96 KB of blocks at chi = 128)."""
+    n = 2 * chi
+    ctas = tfp.fused_cluster_size(chi)
+    assert n <= tfp.FUSED_CLUSTER_MAX_ROWS and ctas <= 8
+    assert 32 * ctas >= n > 32 * (ctas - 1)  # every CTA holds rows of θ
+    assert tfp.FUSED_CLUSTER_THREADS == 512 == 32 * tfp.BLOCK_ROWS
     smem = tfp.fused_cluster_smem_bytes(chi)
-    assert smem + tfp._FUSED_STATIC_SMEM <= 232448
-    assert smem >= 4 * 8 * pairs * n  # two buffers of both sides' seats, re and im
+    assert smem + tfp._FUSED_STATIC_SMEM <= tfp.H100_MAX_SMEM == 232448
+    assert smem >= 4 * 2 * 3 * 16 * n  # three block buffers, re and im
     if chi == 128:
-        assert pairs == 16 and threads == 544 and 4 * 8 * pairs * n == 128 * 1024
+        assert ctas == 8 and 4 * 2 * 3 * 16 * n == 96 * 1024
 
 
 @pytest.mark.parametrize(

@@ -20,6 +20,7 @@ from aqc_research_tpu import config as jcfg
 from aqc_research_tpu.ops import jacobi_svd as jspec
 from aqc_research_tpu.ops import pallas_jacobi as jpj
 from aqc_research_tpu_torch import config
+from aqc_research_tpu_torch.kernel_checks import padded_pair_batch
 from aqc_research_tpu_torch.ops import cuda_build
 from aqc_research_tpu_torch.ops import jacobi_kernel as jk
 from aqc_research_tpu_torch.ops import jacobi_svd as tspec
@@ -224,3 +225,98 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 def test_truncation_supported_matches_jax():
     for thr in (1e-16, 1.4e-14, 1e-13, 1e-12, 1e-8, 1e-6, 1e-3):
         assert jk.truncation_supported(thr) == jpj.truncation_supported(thr)
+
+
+# -----------------------------------------------------------------------------
+# The block-cyclic schedule of K4's cluster home (csrc/block_sweeps.cuh) and
+# its twin, at 2 and 4 "CTAs" of 8-row blocks and at the path's 16-row blocks.
+# -----------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n,block", [(32, 8), (64, 8), (256, 16), (200, 16), (192, 16)])
+def test_block_schedule_visits_every_pair_once(n, block):
+    """A sweep of the block-cyclic schedule, from any round, rotates each
+    unordered pair of the rows (padded with zero rows to whole blocks, two a
+    CTA) exactly once in 2P blocks x block - 1 phases of disjoint pairs; and
+    between two rounds every CTA keeps its block b and sends a: CTA 0 keeps
+    the circle's fixed block, every other CTA's kept block is its a in the
+    next round (the block buffers of block_sweeps.cuh rest on both)."""
+    ctas = jk.block_ctas(n, block)
+    rows = 2 * ctas * block
+    assert n <= rows < n + 2 * block
+    circle = 2 * ctas - 1
+    for first in range(2 * circle):
+        phases = jk.block_sweep_phases(ctas, block, first)
+        assert len(phases) == rows - 1
+        met = set()
+        for left, right in phases:
+            assert len(set(left) | set(right)) == len(left) + len(right) == rows
+            met.update(frozenset(pair) for pair in zip(left, right))
+        assert len(met) == rows * (rows - 1) // 2
+    for g in range(2 * circle):
+        held = [jk.block_pair(c, g, ctas) for c in range(ctas)]
+        after = [jk.block_pair(c, g + 1, ctas) for c in range(ctas)]
+        assert sorted(x for pair in held for x in pair) == list(range(2 * ctas))
+        assert held[0][1] == after[0][1] == circle
+        assert all(after[c][0] == held[c][1] for c in range(1, ctas))
+
+
+def _values(w_re, w_im):
+    return torch.sqrt((w_re**2 + w_im**2).sum(-1)).sort(-1, descending=True).values
+
+
+@pytest.mark.parametrize("criterion", ["entry", "hybrid"])
+@pytest.mark.parametrize("n,rank", [(32, None), (64, None), (64, 20)])
+def test_block_twin_matches_svd_and_the_ring(n, rank, criterion):
+    """The blocked twin on 2 and 4 CTAs of 8-row blocks (and a zero-padded
+    rank-20 pair matrix, bonds held at chi = n/2): singular values within
+    S_TOL * s_max of LAPACK's in f64, the rotated rows orthogonal (each
+    Gram entry within 1e-5 s_max of the larger row norm), sweep counts
+    within 1 of the ring twin's on the same planes."""
+    m = graded(n, 3, n) if rank is None else padded_pair_batch(np.random.default_rng(n), 3, n, rank).numpy()
+    mt = torch.tensor(m).transpose(-1, -2)
+    re, im = mt.real.contiguous(), mt.imag.contiguous()
+    b_re, b_im, b_sw = jk.block_jacobi_rows_reference(re, im, 12, criterion, block=8)
+    _, _, r_sw = jk.jacobi_rows_reference(re, im, 12, criterion)
+    want = torch.linalg.svdvals(torch.tensor(m).to(torch.complex128))
+    smax = float(want.max())
+    assert float((_values(b_re, b_im).double() - want).abs().max()) <= S_TOL * smax
+    w = torch.complex(b_re, b_im).to(torch.complex128)
+    gram = w @ w.conj().transpose(-1, -2)
+    norms = gram.diagonal(dim1=-2, dim2=-1).real.sqrt()
+    off = gram - torch.diag_embed(gram.diagonal(dim1=-2, dim2=-1))
+    assert float((off.abs() / torch.maximum(norms[..., :, None], norms[..., None, :]).clamp(min=1e-30)).max()) \
+        <= 1e-5 * smax
+    assert int((b_sw - r_sw).abs().max()) <= 1 and int(b_sw.min()) >= 1
+
+
+@pytest.mark.parametrize("criterion", ["entry", "hybrid"])
+@pytest.mark.parametrize("n", [32, 64])
+def test_block_twin_matches_pallas_interpret(jax_criterion, monkeypatch, n, criterion):
+    """The truncated SVD through the blocked twin (2 and 4 CTAs of 8-row
+    blocks) against the Pallas kernel in interpret mode, held as
+    test_twin_matches_pallas_interpret holds the ring twin."""
+    jax_criterion(criterion)
+    monkeypatch.setattr(jk, "jacobi_rows", lambda re, im, sweeps: jk.block_jacobi_rows_reference(re, im, sweeps,
+                                                                                                  block=8))
+    m = graded(n + 1, 3, n)
+    k = n // 2
+    ju, js, jvh = (np.asarray(x) for x in jpj.jacobi_svd_pallas_top_k(jnp.asarray(m), k))
+    tu, ts, tvh = jk.jacobi_svd_kernel_top_k(torch.tensor(m), k)
+    assert np.abs(ts.numpy() - js).max() <= S_TOL * js.max()
+    fu, fs, fvh = jk.jacobi_svd_kernel_top_k(torch.tensor(m), n)
+    rec = torch.matmul(fu * fs[:, None, :].to(fu.dtype), fvh)
+    rel = torch.linalg.matrix_norm(rec - torch.tensor(m)) / torch.linalg.matrix_norm(torch.tensor(m))
+    assert float(rel.max()) <= REC_TOL
+    tpu = tu.numpy() @ np.conj(np.swapaxes(tu.numpy(), -1, -2))
+    assert np.abs(tpu - ju @ np.conj(np.swapaxes(ju, -1, -2))).max() <= PROJ_TOL
+    tpv = np.conj(np.swapaxes(tvh.numpy(), -1, -2)) @ tvh.numpy()
+    assert np.abs(tpv - np.conj(np.swapaxes(jvh, -1, -2)) @ jvh).max() <= PROJ_TOL
+
+
+def test_block_twin_rejects_blocks_that_do_not_hold_the_rows():
+    t = torch.zeros((1, 40, 40))
+    with pytest.raises(ValueError, match="do not fit"):
+        jk.block_jacobi_rows_reference(t, t, 12, block=8, ctas=2)
+    with pytest.raises(ValueError, match="do not fit"):
+        jk.block_jacobi_rows_reference(t, t, 12, block=7)

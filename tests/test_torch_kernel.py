@@ -1,9 +1,10 @@
 """The hand-written kernels (csrc/jacobi_rows.cu, csrc/theta_build.cu,
 csrc/rand_tail.cu, csrc/fused_pair.cu) against their plain twins, on a CUDA
 card, with planes in one block's shared memory, in a thread-block cluster's
-distributed shared memory (K1 and K3 at the path shapes, K4 at 176 <= 2chi
-<= 256) and in device memory (K1 and K3 at their old homes past one block,
-K4 from 2chi = 272).  Marked
+distributed shared memory (K1 and K3 at the path shapes, in the ring order;
+K4 at 176 <= 2chi <= 256, in the block-cyclic order of
+csrc/block_sweeps.cuh, held against the blocked twin) and in device memory
+(K1 and K3 at their old homes past one block, K4 from 2chi = 272).  Marked
 ``cuda``: skips without a card.  This file imports no JAX, so it also runs
 where JAX is not installed:
 
@@ -250,9 +251,11 @@ def test_rand_tail_cluster_matches_twin_on_card(cuda_device, chi, batch, rank, t
 @pytest.mark.cuda
 def test_cluster_homes_fill_one_wave_on_card(cuda_device):
     """A half-layer batch fits one wave on the cluster home: B=10 at the 20q
-    shapes, B=14 at the 28q ones (cudaOccupancyMaxActiveClusters)."""
+    shapes, B=14 at the 28q ones, K4's among them
+    (cudaOccupancyMaxActiveClusters)."""
     for n, batch in ((128, 10), (256, 14)):
         assert jk.cluster_occupancy(n, n, jk.cluster_size(n)) >= batch
+    assert tfp.fused_cluster_occupancy(128) >= 14
     for chi, batch in ((64, 10), (128, 14)):
         ell = trs.rand_ell(2 * chi, chi)
         assert tfr.tail_cluster_occupancy(ell, 2 * chi, chi, jk.cluster_size(ell)) >= batch
@@ -270,17 +273,22 @@ def test_rand_tail_raises_on_card(cuda_device):
 
 def fused_matches_twin(planes, thr2: float = 1e-4) -> None:
     """K4 against its twin on ``planes`` (trunc_thr 1e-2 by default): one
-    launch, λ, keep masks, sweep counts, weighted uᵀ and vh projectors and
-    the reconstruction within the module's tolerances."""
+    launch on the schedule of its home (the block-cyclic order on the
+    cluster home, held against the blocked twin; the ring elsewhere), λ,
+    keep masks, sweep counts, weighted uᵀ and vh projectors and the
+    reconstruction within the module's tolerances."""
+    chi = planes[1].shape[-1]
+    schedule = tfp.fused_schedule(chi, planes[1].device)
     before = tfp.fused_pair.launches
+    by_schedule = dict(tfp.fused_pair.launches_by_schedule)
     k_ut_re, k_ut_im, k_vh_re, k_vh_im, k_lam, k_sw = tfp.fused_pair(*planes, thr2, 12)
     assert tfp.fused_pair.launches == before + 1
+    assert tfp.fused_pair.launches_by_schedule.get(schedule, 0) == by_schedule.get(schedule, 0) + 1
     p_ut_re, p_ut_im, p_vh_re, p_vh_im, p_lam, p_sw = tfp.fused_pair_reference(*planes, thr2, 12)
     torch.cuda.synchronize()
     smax = float(p_lam.max())
     w0_re, w0_im = tfp.theta_build_reference(*planes)
     theta = torch.complex(w0_re, w0_im)
-    chi = planes[1].shape[-1]
     k_keep, p_keep = k_lam > 0, p_lam > 0
     near = near_threshold(torch.linalg.svdvals(theta), (theta.abs() ** 2).sum((-2, -1)), thr2, chi)
     checked = lambda_check(k_lam, p_lam, near, 1e-5)
@@ -306,8 +314,9 @@ def fused_matches_twin(planes, thr2: float = 1e-4) -> None:
 @pytest.mark.parametrize("chi,rank", [(16, None), (64, None), (96, None), (128, None), (128, 20), (136, None)])
 def test_fused_pair_matches_twin_on_card(cuda_device, chi, rank):
     """K4 against its twin, working planes in one block's shared memory
-    (chi <= 80), in a cluster's distributed shared memory (96 <= chi <=
-    128) and in device memory (chi = 136); rank 20: the zero-padded θ of
+    (chi <= 80, the ring order), in a cluster's distributed shared memory
+    (96 <= chi <= 128, the block-cyclic order against the blocked twin) and
+    in device memory (chi = 136, the ring); rank 20: the zero-padded θ of
     bonds far below chi, as on the 28q path."""
     batch = 4 if chi < 128 else 2
     fused_matches_twin(path_planes(np.random.default_rng(chi), batch, chi, cuda_device, rank=rank))
@@ -320,9 +329,12 @@ PATH_CASES = [(96, 1, None), (96, 14, None), (100, 1, None), (100, 14, None), (1
 @pytest.mark.cuda
 @pytest.mark.parametrize("chi,batch,rank", PATH_CASES)
 def test_fused_pair_cluster_matches_twin_on_card(cuda_device, chi, batch, rank):
-    """K4's cluster path (8 CTAs per matrix) at the chi it takes, a ragged
-    chi among them, on a single matrix and on a 28q half-layer batch."""
+    """K4's cluster path (ceil(2chi / 32) CTAs per matrix, the block-cyclic
+    order) against the blocked twin at the chi it takes, a ragged chi among
+    them, on a single matrix and on a 28q half-layer batch, rank-20 pads
+    included."""
     assert tfp.fused_plane_home(chi, jk.cuda_build.max_smem(0)) == "cluster"
+    assert tfp.fused_schedule(chi, cuda_device) == "block"
     fused_matches_twin(path_planes(np.random.default_rng(chi + batch), batch, chi, cuda_device, rank=rank))
 
 
